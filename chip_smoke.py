@@ -1,0 +1,649 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Drives the port's main path — full-mode ``analyze_population`` under the
+dataset pipeline's configuration (``generators/pipeline.py::_PIPE_CFG``
+of the JAX package, with the Kepler tail policy off) — on real systems
+from ``data/stability_131k.csv.gz``, through the hand-written CUDA
+kernels of ``nbodysimproject_tpu_torch/csrc/hamsoft.cu``.  Phases:
+
+1. card: ``nvidia-smi`` name and power limit;
+2. build: ``nvcc`` for every body-slot count, all started together, into
+   the git-ignored ``nbodysimproject_tpu_torch/_build/``; prints the
+   build seconds and ptxas' register and spill lines;
+3. population: the first 16384 rows of the dataset (empty slots: mass
+   0, mask False; these rows are the dataset's "random" cohort);
+4. compare: each kernel against its plain PyTorch version on the card,
+   on 1024 real systems at N = 8, d = 2, at a short horizon only.  The
+   lowest n_sub bucket, 20 steps: the analysis columns held to the
+   fused-vs-scan tolerances of ``tests/test_pallas_batch.py`` and both
+   kernels' final pos, vel, eps and pi to STATE_TOL, nothing widened.
+   The 1024 highest-n_sub systems at n_sub_max = 256, 2 steps: the same
+   tolerances (the drift columns' absolute one scaled by how nearly H0
+   or L0 cancels), widened on at most MAX_WIDENED rows by SENS_FACTOR
+   times the row's rounding sensitivity, which the plain version gives
+   when rerun with the body slots reordered;
+5. slice: ``analyze_population(mode="full", n_steps=1000, dt=0.01)`` on
+   all 16384 systems, one cold and three warm runs, with both kernels'
+   launch counts read around the cold run; its labels set beside the
+   dataset's own on the rows the n_sub cap does not bind; then the main
+   path's kernel launches replayed on the same inputs between CUDA
+   events.
+
+It prints a ``{"kernels": [...]}`` line and, last, the device line.  Any
+failed check raises, so the script exits non-zero; without a CUDA
+device it exits non-zero before printing any result.  It writes
+nothing outside the build directory.
+"""
+
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+DATA = os.path.join(HERE, "data", "stability_131k.csv.gz")
+B_MAIN = 16384
+B_CMP = 1024
+N_SLOTS = 8
+N_STEPS = 1000
+DT = 0.01
+WARM_REPS = 3
+#: the dataset pipeline's configuration (nbodysimproject_tpu/generators/
+#: pipeline.py:40-51) with the tail fast path off
+PIPE = dict(slot_bucket=8, fast_float32=True, analysis_n_sub_cap=256,
+            use_fused_analysis=True, analysis_group_quantum=1024,
+            analysis_tail_policy="off")
+#: per-column (rtol, atol) of tests/test_pallas_batch.py:258-277
+#: (fused-vs-scan agreement at float32 trajectory noise)
+TOL = {
+    "is_stable": (0.0, 0.0),
+    "energy_drift": (0.05, 1e-5),
+    "angular_momentum_drift": (0.05, 1e-5),
+    "com_drift_mean": (1e-3, 1e-5),
+    "com_drift_max": (1e-3, 1e-5),
+    "j_eps_mean": (2e-3, 1e-6),
+    "j_eps_std": (2e-3, 1e-6),
+    "theta_eps_mean": (2e-3, 1e-3),
+    "theta_eps_std": (2e-3, 1e-3),
+    "cos_theta_mean": (1e-4, 1e-5),
+    "cos_theta_min": (1e-4, 1e-5),
+    "ang_mom_var_mean": (2e-3, 1e-7),
+    "ang_mom_var_max": (2e-3, 1e-7),
+    "tidal_trace_mean": (2e-3, 1e-3),
+    "tidal_trace_max": (2e-3, 1e-3),
+    "MEGNO": (1e-3, 1e-4),
+    "lyapunov_time": (1e-2, 0.0),
+    "megno_slope_med": (5e-3, 1e-3),
+}
+#: the top-bucket case also admits this many times the row's rounding
+#: sensitivity, taken from the PLAIN version only: how far it moves when
+#: rerun in float64, or with the body slots in two other orders (the
+#: same physics, every sum in another order).  Deep n_sub systems
+#: amplify rounding far more than the short benign runs the tolerances
+#: above were set on: the SPH clip gate and the J-cap switch on float32
+#: ulps there, and each switch moves the trajectory.  The lowest-bucket
+#: case is held to the tolerances alone.
+SENS_FACTOR = 10.0
+#: the widening is granted on rows where the float32 plain version
+#: itself lies outside the tolerances from its float64 run (any column
+#: or final state value), and on at most this many other rows
+MAX_WIDENED = 10
+#: final pos, vel, eps and pi of both kernels: (rtol, atol), as the
+#: CPU tests hold the plain versions to the JAX kernels
+STATE_TOL = (1e-4, 1e-5)
+#: the verdict's inputs and thresholds (analysis/fused.py)
+VERDICT = {"energy_drift": 0.01, "angular_momentum_drift": 0.01,
+           "com_drift_mean": 1.0, "MEGNO": 10.0}
+MEGNO_COLS = ("MEGNO", "lyapunov_time", "megno_slope_med")
+#: the dataset's own columns read for the comparison with the main path
+REF_COLS = ("is_stable", "pathological_energy", "energy_drift", "n_sub",
+            "system_type")
+#: published H100 SXM peaks (NVIDIA H100 datasheet): FP32 outside
+#: the tensor cores, HBM bandwidth
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
+
+T0 = time.perf_counter()
+
+
+def phase(name):
+    print(f"[{time.perf_counter() - T0:8.1f}s] == {name}", flush=True)
+
+
+def card_line():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout
+    return out.strip().splitlines()[0]
+
+
+def load_population(n_rows):
+    """(mass, pos, vel, mask, G, softening, min_softening) of the first
+    ``n_rows`` dataset rows, as ml/dataset.py reads the file, and the
+    dataset's own labels for them (columns of REF_COLS)."""
+    import pandas as pd
+
+    cols = [f"{p}_{i}" for p in ("mass", "x", "y", "vx", "vy")
+            for i in range(N_SLOTS)]
+    df = pd.read_csv(DATA, comment="#", nrows=n_rows,
+                     usecols=cols + ["G", "softening", "min_softening"]
+                     + list(REF_COLS))
+    get = lambda p: df[[f"{p}_{i}" for i in range(N_SLOTS)]].to_numpy(
+        np.float64)
+    mass = get("mass")
+    mask = np.isfinite(mass)
+    pos = np.stack([get("x"), get("y")], -1)
+    vel = np.stack([get("vx"), get("vy")], -1)
+    clean = lambda a: np.where(np.isfinite(a), a, 0.0)
+    return (clean(mass), clean(pos), clean(vel), mask,
+            df["G"].to_numpy(np.float64), df["softening"].to_numpy(np.float64),
+            df["min_softening"].to_numpy(np.float64)), df[list(REF_COLS)]
+
+
+def label_agreement(df, ref, rows):
+    """How often ``df``'s is_stable and pathological_energy agree with
+    ``ref``'s on ``rows``, and how energy_drift compares where neither
+    is pathological."""
+    out = {"rows": int(rows.sum())}
+    for col in ("is_stable", "pathological_energy"):
+        a = df[col].to_numpy(bool)[rows]
+        b = ref[col].to_numpy(bool)[rows]
+        out[col] = {"agree": float((a == b).mean()),
+                    "only_first": int((a & ~b).sum()),
+                    "only_second": int((~a & b).sum()),
+                    "shares": (float(a.mean()), float(b.mean()))}
+    sane = rows & ~df["pathological_energy"].to_numpy(bool) \
+        & ~ref["pathological_energy"].to_numpy(bool)
+    a = df["energy_drift"].to_numpy(float)[sane]
+    b = ref["energy_drift"].to_numpy(float)[sane]
+    rtol, atol = TOL["energy_drift"]
+    out["energy_drift_within_tol"] = float(
+        (np.abs(a - b) <= atol + rtol * np.abs(b)).mean())
+    return out
+
+
+def print_agreement(what, agree):
+    print(f"  {what}, on {agree['rows']} rows: " + "; ".join(
+        f"{c} agrees on {v['agree']:.4f} (shares {v['shares'][0]:.4f} and "
+        f"{v['shares'][1]:.4f}; {v['only_first']} rows only in the first, "
+        f"{v['only_second']} only in the second)"
+        for c, v in agree.items() if isinstance(v, dict))
+        + f"; energy_drift within its tolerance on "
+        f"{agree['energy_drift_within_tol']:.4f} of the rows sane in both")
+
+
+# ---------------------------------------------------------------- work model
+def trip_ops(n, d):
+    """Arithmetic operations of one Strang trip, counted off the loops
+    of csrc/hamsoft.cu (each add, mul, div, sqrt, exp or log counts one;
+    compares and selects are not counted): pair distances, 8 forward
+    SPH iterations, the softmin, the 8-step reverse sweep, two S and two
+    V half-flows and the drift."""
+    P, M = n * (n - 1) // 2, n * (n - 1)
+    return (3 * d * P + 8 * (6 * M + 8 * n) + (6 * n + 4)
+            + 8 * ((16 + 5 * d) * M + 14 * n)
+            + 2 * (45 + n * (4 * d + 4) + 3 * n * d)
+            + 2 * ((4 * d + 12) * P + 3 * n * d + 8) + 2 * n * d)
+
+
+def entry_ops(n, d):
+    """The (eps*, grad) evaluation at kernel entry."""
+    P, M = n * (n - 1) // 2, n * (n - 1)
+    return (3 * d * P + 8 * (6 * M + 8 * n) + (6 * n + 4)
+            + 8 * ((16 + 5 * d) * M + 14 * n))
+
+
+def metric_ops(n, d):
+    P = n * (n - 1) // 2
+    return 2 * n * d + 2 * d + 9 * n + 4 + (3 * d + 9) * P + 17
+
+
+def megno_ops(n, d):
+    P = n * (n - 1) // 2
+    return (6 * d + 14) * P + 8 * n * d + 8
+
+
+def bound(kind, n_sub_lanes, n_sub_max, n_steps, megno_steps, n, d):
+    """(bound_ms, bound_by) of one launch on these lanes: the larger of
+    the bytes it must move over HBM bandwidth and the operations it does
+    (each lane runs min(n_sub, n_sub_max) trips per step) over the FP32
+    peak."""
+    ns = np.minimum(np.maximum(n_sub_lanes, 1), n_sub_max).astype(np.float64)
+    B = len(ns)
+    if kind == "analysis":
+        n_samples = -(-n_steps // max(1, n_steps // 100))
+        ops = (ns.sum() * n_steps * trip_ops(n, d)
+               + B * (n_samples * metric_ops(n, d) + entry_ops(n, d)))
+        words = B * (4 * n * d + n + 10 + 2 + 17 + 2 * n_samples)
+    else:
+        ops = (ns.sum() * megno_steps * trip_ops(n, d)
+               + B * (megno_steps * megno_ops(n, d) + entry_ops(n, d)))
+        words = B * (6 * n * d + n + 11 + 4 + megno_steps)
+    t_ops, t_bytes = ops / PEAK_FP32, 4 * words / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+# ------------------------------------------------------------------ compare
+def conditioning(st, dy, cfg):
+    """Per-row conditioning of the two drift columns: energy scale
+    (|T| + |V|) over |H0| and angular-momentum scale (sum |L_i|) over
+    |L0|, at least 1.  A relative drift of a nearly cancelled H0 or L0
+    carries float32 noise that much larger than for a well-conditioned
+    system, so the drift columns' absolute tolerance is scaled by it."""
+    from nbodysimproject_tpu_torch.diagnostics import energy as E
+
+    H0 = E.extended_hamiltonian(st, dy, cfg)
+    scale_E = E.kinetic_energy(st) + torch.abs(E.potential_energy(st, dy))
+    q, v = st.pos, st.vel
+    L_i = st.mass * (q[..., 0] * v[..., 1] - q[..., 1] * v[..., 0])
+    L_i = torch.where(st.mask, L_i, torch.zeros_like(L_i))
+    scale_L = torch.abs(L_i).sum(-1)
+    ratio = lambda s, x: torch.clamp_min(
+        s / torch.clamp_min(torch.abs(x), 1e-30), 1.0).cpu().numpy()
+    return {"energy_drift": ratio(scale_E, H0),
+            "angular_momentum_drift": ratio(scale_L, L_i.sum(-1))}
+
+
+class Timed:
+    """Calls ``fn`` between two CUDA events and keeps the last outputs
+    and the elapsed device milliseconds."""
+
+    def __init__(self, fn):
+        self.fn, self.ms, self.out = fn, None, None
+
+    def __call__(self, *args, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        self.out = self.fn(*args, **kw)
+        stop.record()
+        stop.synchronize()
+        self.ms = start.elapsed_time(stop)
+        return self.out
+
+
+def _double(x):
+    """A SimState or DynParams with every floating field in float64."""
+    return x.replace(**{f.name: getattr(x, f.name).double()
+                        for f in dataclasses.fields(x)
+                        if torch.is_floating_point(getattr(x, f.name))})
+
+
+def _permuted(st, tan, perm):
+    if perm is None:
+        return st, tan
+    return (st.replace(mass=st.mass[:, perm], pos=st.pos[:, perm],
+                       vel=st.vel[:, perm], mask=st.mask[:, perm]),
+            (tan[0][:, perm], tan[1][:, perm]))
+
+
+def _final_state(timed, perm):
+    """The final (pos, vel, eps, pi) of a timed kernel call as float64
+    arrays, the body slots put back in the original order."""
+    pos, vel, eps, pi = (x.detach().cpu().numpy().astype(np.float64)
+                         for x in timed.out[:4])
+    if perm is not None:
+        inv = np.argsort(perm.cpu().numpy())
+        pos, vel = pos[:, inv], vel[:, inv]
+    return {"pos": pos, "vel": vel, "eps": eps, "pi": pi}
+
+
+def compare_case(label, states, dyns, cfg, lanes, n_steps, n_sub_max, hk,
+                 engine, tangent_of, widen):
+    """Kernel engine vs plain engine on the same lanes; the analysis
+    columns and both kernels' final states are held to their
+    tolerances, plus (``widen``) SENS_FACTOR times the plain version's
+    own rounding sensitivity (its distance to its float64 run and to
+    its runs on reordered body slots), on the rows where float32 itself
+    misses the tolerances against float64 and at most MAX_WIDENED more.
+    Returns per-kernel (kernel ms, plain ms, max abs error of the final
+    state, n_sub, n_steps, megno_steps, n_sub_max)."""
+    st, dy = states.take(lanes), dyns.take(lanes)
+    tan = tangent_of(st)
+    megno_steps = min(100, min(50, n_steps // 2))
+    n = st.pos.shape[1]
+    dev = st.pos.device
+    kern = (hk.hamsoft_analysis_multistep, hk.hamsoft_megno_multistep)
+    plain = (hk.hamsoft_analysis_multistep_plain,
+             hk.hamsoft_megno_multistep_plain)
+    # (route, functions, body-slot order, float64); the first kernel run
+    # warms up
+    runs = [("warm", kern, None, False), ("kernel", kern, None, False),
+            ("plain", plain, None, False)]
+    if widen:
+        runs += [("plain float64", plain, None, True),
+                 ("plain reversed", plain, torch.arange(n - 1, -1, -1,
+                                                        device=dev), False),
+                 ("plain rolled", plain, torch.roll(torch.arange(
+                     n, device=dev), 3), False)]
+    out = {}
+    for route, fns, perm, f64 in runs:
+        start, t_in = _permuted(st, tan, perm)
+        dyn = dy
+        if f64:
+            start, dyn = _double(start), _double(dy)
+            t_in = (t_in[0].double(), t_in[1].double())
+        ta, tm = (Timed(f) for f in fns)
+        t0 = time.perf_counter()
+        res, _ = engine(start, dyn, cfg, n_steps, DT, "full", n_sub_max,
+                        megno_steps, tangent=t_in, g_static=1.0,
+                        analysis_fn=ta, megno_fn=tm)
+        torch.cuda.synchronize()
+        cols = {k: v.cpu().numpy().astype(np.float64) for k, v in res.items()}
+        for kind, t in (("analysis", ta), ("megno", tm)):
+            cols.update({f"{kind}.{k}": v
+                         for k, v in _final_state(t, perm).items()})
+        out[route] = (cols, ta, tm, time.perf_counter() - t0)
+    rk, ka, km, tk = out["kernel"]
+    rp, pa, pm, tp = out["plain"]
+    keep = np.isfinite(rp["energy_drift"]) & (np.abs(rp["energy_drift"])
+                                              <= 10.0)
+    n_keep = int(keep.sum())
+
+    def spread(col):
+        """max |plain - plain in float64 or on reordered slots|, per
+        compared row and element (0 where not widening)"""
+        base = rp[col][keep]
+        s = np.zeros_like(base)
+        for route in ("plain float64", "plain reversed", "plain rolled"):
+            if route in out:
+                dlt = np.abs(out[route][0][col][keep] - base)
+                s = np.maximum(s, np.where(np.isfinite(dlt), dlt, 0.0))
+        return s
+
+    print(f"  {label}: {len(lanes)} systems, n_steps={n_steps}, "
+          f"megno_steps={megno_steps}, n_sub_max={n_sub_max}; kernel "
+          f"engine {tk:.3f}s, plain engine {tp:.3f}s; {n_keep} rows with "
+          f"non-pathological energy compared; "
+          f"{'widened by the plain version sensitivity' if widen else 'tolerances alone'}")
+    cond = conditioning(st, dy, cfg) if widen else {}
+    state_cols = [f"{kind}.{k}" for kind in ("analysis", "megno")
+                  for k in ("pos", "vel", "eps", "pi")]
+    tols = {c: TOL[c] for c in TOL if c != "is_stable"}
+    tols.update({c: STATE_TOL for c in state_cols})
+    failures, widened = [], np.zeros(n_keep, bool)
+    f32_off = np.zeros(n_keep, bool)  # plain float32 outside tol of float64
+    row_any = lambda x: x.reshape(n_keep, -1).any(1)
+    for col in sorted(tols):
+        a, b = rp[col][keep], rk[col][keep]
+        rtol, atol = tols[col]
+        atol = atol * cond.get(col, np.ones(len(lanes)))[keep]
+        atol = atol.reshape((-1,) + (1,) * (a.ndim - 1))
+        sens = spread(col)
+        both = np.isfinite(a) & np.isfinite(b)
+        err = np.where(both, np.abs(b - a), 0.0)
+        base = atol + rtol * np.abs(np.where(both, a, 0.0))
+        out_rows = row_any((err > base + SENS_FACTOR * sens)
+                           | (np.isfinite(a) != np.isfinite(b)))
+        wide_rows = row_any(err > base) & ~out_rows
+        widened |= wide_rows
+        rel = err[both] / np.maximum(np.abs(a[both]), 1e-30)
+        line = (f"    {col:24s} max_abs {err.max(initial=0):.3e} "
+                f"max_rel {rel.max(initial=0):.3e} outside "
+                f"{int(out_rows.sum())} rows, widened {int(wide_rows.sum())}")
+        if "plain float64" in out:
+            c = out["plain float64"][0][col][keep]
+            fin = both & np.isfinite(c)
+            d32 = np.where(fin, np.abs(a - c), 0.0)
+            dk = np.where(fin, np.abs(b - c), 0.0)
+            off = row_any(d32 > base)
+            f32_off |= off
+            line += (f"; to float64 plain: max_abs float32 plain "
+                     f"{d32.max(initial=0):.3e}, kernel "
+                     f"{dk.max(initial=0):.3e}; float32 plain outside the "
+                     f"tolerance on {int(off.sum())} rows")
+        print(line)
+        for i in np.nonzero(out_rows)[0][:5]:
+            j = np.unravel_index(np.argmax((err - base)[i]), err[i].shape)
+            at = [int(x) for x in j]
+            print(f"      row {i}{at if at else ''}: plain "
+                  f"{a[i][j]:.6e} kernel {b[i][j]:.6e} plain reorder "
+                  f"spread {sens[i][j]:.3e}")
+        if out_rows.any():
+            failures.append(col)
+    other = widened & ~f32_off
+    print(f"    {int(widened.sum())} rows needed the widening, "
+          f"{int(other.sum())} of them (at most {MAX_WIDENED}) outside the "
+          f"{int(f32_off.sum())} rows where the float32 plain version lies "
+          f"outside the tolerances from its float64 run")
+    if other.sum() > MAX_WIDENED:
+        failures.append(f"{int(widened.sum())} widened rows")
+    # labels: exact, except rows where a verdict input lies within its
+    # own tolerance of the threshold (there the label may flip legitimately)
+    edge = np.zeros(n_keep, bool)
+    for col, thr in VERDICT.items():
+        rtol, atol = TOL[col]
+        atol = atol * cond.get(col, np.ones(len(lanes)))[keep]
+        edge |= np.abs(rp[col][keep] - thr) <= (atol + rtol * abs(thr)
+                                                 + SENS_FACTOR * spread(col))
+    differ = rp["is_stable"][keep] != rk["is_stable"][keep]
+    flips = differ & ~edge
+    print(f"    is_stable: {int(differ.sum())} differ, {int(edge.sum())} rows "
+          f"at a threshold, {int(flips.sum())} flips away from one")
+    if flips.any():
+        failures.append("is_stable")
+    if failures:
+        raise SystemExit(f"{label}: kernel disagrees with its plain version "
+                         f"on {failures}")
+
+    def state_err(kind):
+        """max |kernel - plain| over the final pos, vel, eps, pi of the
+        compared rows, where both are finite"""
+        err = 0.0
+        for k in ("pos", "vel", "eps", "pi"):
+            dlt = np.abs(rk[f"{kind}.{k}"][keep] - rp[f"{kind}.{k}"][keep])
+            err = max(err, float(dlt[np.isfinite(dlt)].max(initial=0.0)))
+        return err
+
+    n_sub = dy.n_sub.cpu().numpy()
+    return {"analysis": (ka.ms, pa.ms, state_err("analysis"), n_sub,
+                         n_steps, megno_steps, n_sub_max),
+            "megno": (km.ms, pm.ms, state_err("megno"), n_sub,
+                      n_steps, megno_steps, n_sub_max)}
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+
+    from nbodysimproject_tpu_torch import SimConfig, analyze_population
+    from nbodysimproject_tpu_torch.analysis.batch import (
+        _bucket_ladder_values, dispatch_plan, prepare_population)
+    from nbodysimproject_tpu_torch.analysis.fused import analyze_batch_fused
+    from nbodysimproject_tpu_torch.diagnostics.megno import (
+        init_tangent, population_normals)
+    from nbodysimproject_tpu_torch.ops import hamsoft_kernels as hk
+
+    phase("card")
+    card = card_line()
+    print(card, flush=True)
+    dev = torch.device("cuda")
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"{torch.cuda.get_device_name(0)}")
+
+    phase("build")
+    t0 = time.perf_counter()
+    built = hk.build()
+    for (n, d), (path, secs, report) in sorted(built.items()):
+        print(f"  N={n} d={d}: {os.path.basename(path)} in {secs:.1f}s")
+        for line in report.splitlines():
+            print(f"    {line.strip()}")
+    print(f"  build wall {time.perf_counter() - t0:.1f}s")
+
+    phase("population")
+    (mass, pos, vel, mask, G, soft, min_soft), ref = load_population(B_MAIN)
+    assert mass.shape == (B_MAIN, N_SLOTS) and np.all(G == G[0])
+    print(f"  {B_MAIN} systems, {int(mask.sum())} bodies, "
+          f"{np.bincount(mask.sum(1))} systems by body count, cohorts "
+          f"{ref['system_type'].value_counts().to_dict()}")
+
+    phase("compare kernels with their plain versions")
+    cfg = SimConfig(**PIPE)
+    states, dyns, n_sub_raw = prepare_population(
+        mass, pos, vel, mask, cfg, G=G, softening=soft,
+        min_softening=min_soft, dt=DT, device=dev)
+    n_sub = np.minimum(n_sub_raw, cfg.analysis_n_sub_cap)
+    buckets = _bucket_ladder_values(n_sub)
+    low = np.nonzero(buckets == buckets.min())[0]
+    low = low[:B_CMP] if len(low) >= B_CMP else np.argsort(
+        n_sub, kind="stable")[:B_CMP]
+    top = np.argsort(-n_sub, kind="stable")[:B_CMP]
+
+    def tangent_of(st):
+        z1, z2 = population_normals(7, st.pos.shape[0],
+                                    tuple(st.pos.shape[1:]), torch.float32)
+        return init_tangent(z1.to(dev), z2.to(dev), st)
+
+    cases = []
+    for label, lanes, steps, nsm, widen in (
+            ("lowest bucket", low, 20, int(buckets[low].max()), False),
+            ("top bucket", top, 2, int(cfg.analysis_n_sub_cap), True)):
+        t0 = time.perf_counter()
+        cases.append(compare_case(label, states, dyns, cfg,
+                                  torch.as_tensor(lanes, device=dev), steps,
+                                  nsm, hk, analyze_batch_fused, tangent_of,
+                                  widen))
+        print(f"  {label} done in {time.perf_counter() - t0:.1f}s")
+
+    phase("slice: full-mode analyze_population on the card")
+    kw = dict(G=G, softening=soft, min_softening=min_soft, dt=DT,
+              n_steps=N_STEPS, mode="full", show_progress=False)
+    hk.hamsoft_analysis_multistep.launches = 0
+    hk.hamsoft_megno_multistep.launches = 0
+    tm = {}
+    t0 = time.perf_counter()
+    df = analyze_population(mass, pos, vel, mask, cfg, timing_out=tm, **kw)
+    t_cold = time.perf_counter() - t0
+    launches = {"analysis": hk.hamsoft_analysis_multistep.launches,
+                "megno": hk.hamsoft_megno_multistep.launches}
+    print(f"  cold {t_cold:.3f}s ({B_MAIN / t_cold:.1f} systems/s), "
+          f"launches {launches}, phases {tm}")
+    if not (launches["analysis"] > 0 and launches["megno"] > 0):
+        raise SystemExit(f"the main path did not launch both kernels: "
+                         f"{launches}")
+    warm = []
+    for _ in range(WARM_REPS):
+        tm = {}
+        t0 = time.perf_counter()
+        df = analyze_population(mass, pos, vel, mask, cfg, timing_out=tm,
+                                **kw)
+        warm.append(time.perf_counter() - t0)
+        print(f"  warm {warm[-1]:.3f}s phases {tm}")
+    t_med = float(np.median(warm))
+    print(f"  warm median {t_med:.3f}s over {WARM_REPS}: "
+          f"{B_MAIN / t_med:.1f} systems/s (B={B_MAIN}, n_steps={N_STEPS}, "
+          f"N={N_SLOTS}, d=2) on {card}")
+
+    # output checks: shape, columns, finiteness where the energy is sane
+    assert len(df) == B_MAIN, len(df)
+    missing = [c for c in list(TOL) + [f"initial_{k}" for k in (
+        "total_energy", "virial_ratio", "softening_std")] if c not in df]
+    if missing:
+        raise SystemExit(f"missing columns {missing}")
+    if not np.isfinite(df["is_stable"]).all():
+        raise SystemExit("non-finite is_stable")
+    sane = ~df["pathological_energy"].to_numpy(bool)
+    cols = [c for c in TOL if c not in MEGNO_COLS] + [
+        c for c in df.columns if c.startswith("initial_")]
+    bad = {c: int((~np.isfinite(df.loc[sane, c].to_numpy(float))).sum())
+           for c in cols}
+    bad = {c: v for c, v in bad.items() if v}
+    if bad:
+        raise SystemExit(f"non-finite values on non-pathological rows: {bad}")
+    megno_nf = ~np.isfinite(df[list(MEGNO_COLS)].to_numpy(float)).all(1)
+    if (df.loc[megno_nf, "is_stable"] != 0.0).any():
+        raise SystemExit("a row with non-finite MEGNO is labelled stable")
+    print(f"  stable share {df['is_stable'].mean():.4f}; pathological "
+          f"energy {int((~sane).sum())}; non-finite MEGNO on "
+          f"{int((megno_nf & sane).sum())} non-pathological rows "
+          f"(labelled unstable)")
+
+    phase("labels against the dataset and against reordered body slots")
+    # the dataset's own rows are the JAX package's analysis of the same
+    # initial conditions at the same n_steps and dt, with the Kepler tail
+    # policy on; it can touch only rows with n_sub >= tail_min_n_sub
+    untouched = ref["n_sub"].to_numpy() < cfg.tail_min_n_sub
+    print(f"  n_sub equal to the dataset's on "
+          f"{float((df['n_sub'] == ref['n_sub']).mean()):.4f} of the rows")
+    print_agreement("this run (first) against the dataset (second), rows "
+                    "the tail policy cannot touch",
+                    label_agreement(df, ref, untouched))
+    # the rounding floor: the same systems with their body slots (and
+    # MEGNO tangents) reversed, the same physics with every sum in
+    # another order
+    rev = slice(None, None, -1)
+    z1, z2 = population_normals(0, B_MAIN, (N_SLOTS, 2), torch.float32)
+    dr0, dv0 = init_tangent(z1.to(dev), z2.to(dev), states)
+    t0 = time.perf_counter()
+    df_rev = analyze_population(
+        mass[:, rev], pos[:, rev], vel[:, rev], mask[:, rev], cfg,
+        tangent=(dr0.flip(1), dv0.flip(1)), **kw)
+    print(f"  reversed-slot run {time.perf_counter() - t0:.3f}s")
+    print_agreement("this run (first) against the reversed-slot run "
+                    "(second), the same rows",
+                    label_agreement(df, df_rev, untouched))
+
+    phase("main-path kernel times")
+    # the main path's one launch of each kernel, replayed on the same
+    # inputs (the lane order of analyze_population's dispatch plan and
+    # its seed-0 tangents) with CUDA events around each launch
+    rows, n_sub_max, _ = dispatch_plan(n_sub_raw, cfg)
+    lanes = torch.as_tensor(rows, device=dev)
+    ta, tm_ = Timed(hk.hamsoft_analysis_multistep), Timed(
+        hk.hamsoft_megno_multistep)
+    megno_steps = min(100, min(50, N_STEPS // 2))
+    analyze_batch_fused(states.take(lanes), dyns.take(lanes), cfg, N_STEPS,
+                        DT, "full", n_sub_max, megno_steps,
+                        tangent=(dr0[lanes], dv0[lanes]), analysis_fn=ta,
+                        megno_fn=tm_)
+    ns_lanes = dyns.n_sub[lanes].cpu().numpy()
+    for kind, t in (("analysis", ta), ("megno", tm_)):
+        b_ms, b_by = bound(kind, ns_lanes, n_sub_max, N_STEPS,
+                           megno_steps, N_SLOTS, 2)
+        print(f"  {kind}: {len(ns_lanes)} lanes, one launch {t.ms:.1f} ms, "
+              f"bound {b_ms:.3f} ms ({b_by}), "
+              f"{t.ms / b_ms:.0f}x the bound", flush=True)
+
+    phase("report")
+    entries = []
+    for kind, replaces in (
+            ("analysis", "nbodysimproject_tpu/ops/pallas_hamsoft.py:565"),
+            ("megno", "nbodysimproject_tpu/ops/pallas_hamsoft.py:770")):
+        ms, plain_ms, err, ns, steps, msteps, nsm = cases[1][kind]
+        b_ms, b_by = bound(kind, ns, nsm, steps, msteps, N_SLOTS, 2)
+        entries.append({
+            "name": f"hamsoft_{kind}_multistep",
+            "route": "cuda",
+            "source": "nbodysimproject_tpu_torch/csrc/hamsoft.cu",
+            "replaces": replaces,
+            "launches": launches[kind],
+            "max_abs_err": max(err, cases[0][kind][2]),
+            "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+        low_ms, low_plain = cases[0][kind][:2]
+        print(f"  {kind}: top-bucket case kernel {ms:.3f} ms, plain "
+              f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}); "
+              f"lowest-bucket case kernel {low_ms:.3f} ms, plain "
+              f"{low_plain:.3f} ms")
+    print(f"  total {time.perf_counter() - T0:.1f}s")
+    print(card)
+    print(json.dumps({"kernels": entries, "card": card}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

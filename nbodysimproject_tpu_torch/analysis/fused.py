@@ -1,0 +1,168 @@
+"""Batched ham_soft analysis driven by the fused analysis and MEGNO kernels.
+
+Counterpart of ``nbodysimproject_tpu/analysis/fused.py`` on the branch
+the dataset pipeline takes: ``cfg.use_fused_metrics`` (one analysis
+kernel call for the whole sampled horizon, metric moments accumulated
+in-kernel, J_eps and theta_eps derived here from the sampled (eps, pi)
+rows) and ``cfg.use_fused_megno`` (the MEGNO continuation in its own
+kernel).  The metric sampling keeps the scan path's semantics: after
+macro step i, sample when ``i % interval == 0``.
+
+The JAX package falls back to its scan engine on the CPU
+(``fused_path_applicable``); this slice has no scan engine, so the
+engine runs wherever the configuration is covered
+(``fused_config_covered``), and on the CPU the kernel wrappers run
+their plain versions because the tensors lie there.  The other
+branches (``use_fused_metrics=False``, ``use_fused_megno=False``,
+the reflection policy, the "reference" gradient) raise.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..diagnostics import energy as E
+from ..ops.hamsoft_kernels import (hamsoft_analysis_multistep,
+                                   hamsoft_megno_multistep)
+from .stability import _mean, _rel_drift, _running_update, _std
+
+
+def _kernel_policy(cfg) -> str:
+    """The cfg barrier flags as the kernels' policy name
+    (integrators/hamsoft.py policy_is_soft + refl)."""
+    if bool(cfg.use_soft_barrier) and not bool(cfg.disable_barrier):
+        return "soft"
+    if not bool(cfg.disable_barrier):
+        return "reflection"
+    return "none"
+
+
+def _states_with(states, quad):
+    pos, vel, eps, pi = quad
+    return states.replace(pos=pos, vel=vel, eps=eps, pi=pi, s=eps,
+                          step_s2=eps * eps)
+
+
+def _moments(x):
+    """(count, sum, sumsq, max, min) over the sample rows of x (S, B),
+    folded row by row, so a lane's value does not depend on how many
+    lanes share the call."""
+    zero = torch.zeros_like(x[0])
+    acc = (zero, zero, zero, torch.full_like(zero, -math.inf),
+           torch.full_like(zero, math.inf))
+    for row in x:
+        acc = _running_update(acc, row)
+    return acc
+
+
+def analyze_batch_fused(states, dyns, cfg, n_steps: int, dt, mode: str,
+                        n_sub_max: int, megno_steps: int, tangent=None,
+                        g_static: float = 1.0,
+                        analysis_fn=hamsoft_analysis_multistep,
+                        megno_fn=hamsoft_megno_multistep):
+    """Analyse a batch of systems on the fused kernels (ham_soft, float32
+    on the card; the plain versions on the CPU).
+
+    ``states``/``dyns`` are batched with leading axis B; G must be the
+    uniform ``g_static`` (checked by the caller).  ``tangent`` is the
+    (dr0, dv0) pair of (B, N, d) initial MEGNO tangent vectors, required
+    in full mode.  ``analysis_fn``/``megno_fn`` default to the kernel
+    wrappers; a comparison passes their plain versions, which take the
+    same arguments.  Returns (result columns dict of (B,) tensors, final
+    state)."""
+    if not getattr(cfg, "use_fused_metrics", False):
+        raise NotImplementedError(
+            "analyze_batch_fused: use_fused_metrics=False needs the plain "
+            "multistep kernel, which is not ported yet")
+    d = states.pos.shape[-1]
+    if d != 2:
+        raise NotImplementedError("analyze_batch_fused: ported for d = 2")
+    B = states.pos.shape[0]
+    dtype = states.pos.dtype
+    n_sub = torch.clamp_min(dyns.n_sub, 1)
+    h = float(dt) / n_sub.to(dtype)
+    kern = dict(k_soft=dyns.k_soft, mu=dyns.mu_soft, alpha=dyns.alpha_run,
+                eps_min=dyns.min_softening, eps_max=dyns.max_softening, h=h,
+                n_sub=n_sub, n_sub_max=n_sub_max, G=g_static,
+                k_wall=float(cfg.k_wall), eta=float(cfg.eta),
+                jcap=float(cfg.j_max_cap), bexp=int(cfg.barrier_exponent),
+                policy=_kernel_policy(cfg), grad_mode=str(cfg.eps_grad_mode))
+
+    H0 = E.extended_hamiltonian(states, dyns, cfg)
+    L0 = E.angular_momentum_z(states)
+
+    sample_interval = max(1, n_steps // 100)
+    po, vo, eo, pio, accs, eps_s, pi_s = analysis_fn(
+        states.pos, states.vel, states.mass, states.eps, states.pi, L0,
+        n_steps=n_steps, interval=sample_interval, **kern)
+    mu_b = dyns.mu_soft[None, :]
+    j_s = eps_s * pi_s / torch.where(mu_b != 0.0, mu_b, torch.ones_like(mu_b))
+    ok = (mu_b * eps_s != 0.0) | (pi_s != 0.0)
+    th_s = torch.where(ok, torch.atan2(pi_s, mu_b * eps_s),
+                       torch.full_like(eps_s, math.nan))
+    accs = dict(accs, J_eps=_moments(j_s), theta_eps=_moments(th_s))
+
+    st1 = _states_with(states, (po, vo, eo, pio))
+    H1 = E.extended_hamiltonian(st1, dyns, cfg)
+    energy_drift = _rel_drift(H1, H0)
+    ang_mom_drift = _rel_drift(E.angular_momentum_z(st1), L0)
+
+    if mode == "full" and megno_steps > 0:
+        if not cfg.use_fused_megno:
+            raise NotImplementedError(
+                "analyze_batch_fused: use_fused_megno=False needs the MEGNO "
+                "scan, which is not ported yet")
+        dr0, dv0 = tangent
+        po, vo, eo, pio, megno, lyap, slope_med = megno_fn(
+            st1.pos, st1.vel, states.mass, st1.eps, st1.pi, dr0, dv0,
+            dt=float(dt), n_steps=megno_steps, **kern)
+        st1 = _states_with(states, (po, vo, eo, pio))
+    else:
+        megno = torch.full((B,), 2.0, dtype=dtype, device=h.device)
+        lyap = torch.full((B,), math.inf, dtype=dtype, device=h.device)
+        slope_med = torch.zeros((B,), dtype=dtype, device=h.device)
+
+    com_mean = _mean(accs["com_drift"])
+    is_stable = ((energy_drift < 0.01) & (ang_mom_drift < 0.01)
+                 & (com_mean < 1.0) & (megno < 10.0))
+    result = {
+        "is_stable": is_stable.to(dtype),
+        "energy_drift": energy_drift,
+        "angular_momentum_drift": ang_mom_drift,
+        "com_drift_mean": com_mean,
+        "com_drift_max": accs["com_drift"][3],
+        "j_eps_mean": _mean(accs["J_eps"]),
+        "j_eps_std": _std(accs["J_eps"]),
+        "theta_eps_mean": _mean(accs["theta_eps"]),
+        "theta_eps_std": _std(accs["theta_eps"]),
+        "cos_theta_mean": _mean(accs["cos_theta"]),
+        "cos_theta_min": accs["cos_theta"][4],
+        "ang_mom_var_mean": _mean(accs["var_L"]),
+        "ang_mom_var_max": accs["var_L"][3],
+        "tidal_trace_mean": _mean(accs["tr_hessian"]),
+        "tidal_trace_max": accs["tr_hessian"][3],
+        "MEGNO": megno,
+        "lyapunov_time": lyap,
+        "megno_slope_med": slope_med,
+    }
+    return result, st1
+
+
+def fused_config_covered(cfg, mode: str, dtype) -> bool:
+    """The configurations the fused engine covers in this slice: the
+    dataset pipeline's ham_soft defaults in float32, soft barrier,
+    exact eps* gradient, core or full mode."""
+    return (bool(getattr(cfg, "use_fused_analysis", False))
+            and cfg.integrator_mode == "ham_soft"
+            and mode in ("core", "full")
+            and dtype == torch.float32
+            and not cfg.use_legacy_eps_star
+            and not cfg.fixed_eps_star
+            and _kernel_policy(cfg) == "soft"
+            and cfg.eps_grad_mode == "exact"
+            and bool(getattr(cfg, "use_fused_metrics", False))
+            and (mode != "full" or bool(cfg.use_fused_megno))
+            and not cfg.freeze_s_subsystem
+            and not cfg._validate_S_only)

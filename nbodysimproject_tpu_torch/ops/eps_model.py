@@ -1,0 +1,138 @@
+"""Production eps* model: SPH softmin of per-particle smoothing lengths.
+
+Counterpart of ``nbodysimproject_tpu/ops/eps_model.py`` (parity:
+``minbody/hamsoft_eps_model.py``), batched over a leading system axis.
+
+  h_i solves h_i = eta * sqrt(m_i / Sigma_i(h_i)),
+  Sigma_i = sum_{j != i} m_j W(r_ij, h_i),  W(r, h) = exp(-r^2/h^2)/(pi h^2),
+  <= 8 iterations with a per-system early stop at max relative change
+  < 1e-6 (emulated by freezing the iterate), h clamped to
+  [eps_floor, eps_cap] every iteration;
+  eps* = -alpha * logsumexp(-h_i / alpha).
+
+This module holds what construction and the energy diagnostic call (the
+value of eps*, the calibration).  The gradient of eps* on the
+integration path lives with the kernels (``ops/hamsoft_kernels.py``):
+autograd through the 8 iterations in the plain version, a hand-written
+reverse sweep in the CUDA kernel.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from .geometry import pair_diff, pair_mask
+
+_SOLVE_HI_MAX_ITER = 8
+_SOLVE_HI_TOL = 1.0e-6
+
+
+def _kernel_sigma(r2, pm, m, h):
+    """Sigma_i at smoothing lengths h (B, N) for precomputed geometry
+    (gather form: row i uses h_i)."""
+    hj = torch.clamp_min(h, 1.0e-12)
+    c = 1.0 / (math.pi * hj * hj)
+    W = c[..., None] * torch.exp(-r2 / (hj * hj)[..., None]) * pm
+    return (W * m[..., None, :]).sum(-1)
+
+
+def solve_hi(q, m, *, h0, eps_floor, eps_cap, eta: float = 1.35, mask=None):
+    """Fixed-point solve for per-particle smoothing lengths (B, N).
+
+    ``h0``, ``eps_floor``, ``eps_cap`` are (B,).  Mirrors
+    minbody/hamsoft_eps_model.py:316-400: h initialised to the clipped
+    current epsilon, <= 8 iterations with the global early stop, h
+    clamped every iteration, non-finite or non-positive updates keep
+    the previous iterate."""
+    n = q.shape[-2]
+    h = torch.minimum(torch.maximum(h0, eps_floor), eps_cap)[..., None] \
+        .expand(*q.shape[:-2], n).clone()
+    diff = pair_diff(q)
+    r2 = (diff * diff).sum(-1)
+    pm = pair_mask(n, mask, q.device).to(q.dtype)
+    lo, hi = eps_floor[..., None], eps_cap[..., None]
+    done = torch.zeros(q.shape[:-2], dtype=torch.bool, device=q.device)
+    for _ in range(_SOLVE_HI_MAX_ITER):
+        Si = torch.clamp_min(_kernel_sigma(r2, pm, m, h), 1.0e-30)
+        h_new = eta * torch.sqrt(m / Si)
+        h_new = torch.where(torch.isfinite(h_new) & (h_new > 0.0), h_new, h)
+        h_new = torch.minimum(torch.maximum(h_new, lo), hi)
+        rel = (torch.abs(h_new - h) / torch.clamp_min(h, 1.0e-12)).amax(-1)
+        h = torch.where(done[..., None], h, h_new)
+        done = done | (rel < _SOLVE_HI_TOL)
+    return h
+
+
+def softmin(h, alpha, mask=None):
+    """eps* = -alpha * logsumexp(-h/alpha) over the valid bodies
+    (minbody/hamsoft_eps_model.py:263-274)."""
+    t = -h / alpha[..., None]
+    if mask is not None:
+        t = torch.where(mask, t, torch.full_like(t, -math.inf))
+    t_max = t.amax(-1)
+    s = torch.exp(t - t_max[..., None]).sum(-1)
+    return -alpha * (t_max + torch.log(s))
+
+
+def eps_target_production(q, m, *, h0, alpha, eps_min, eps_max,
+                          eta: float = 1.35, clamp: bool = False, mask=None):
+    """Production eps* (minbody/hamsoft_eps_model.py:240-289); ``clamp``
+    is the soft-barrier policy's clamp to [eps_min, eps_max]."""
+    a = torch.minimum(eps_min, eps_max)
+    b = torch.maximum(eps_min, eps_max)
+    eps_floor = torch.clamp_min(a, 1.0e-12)
+    eps_cap = torch.maximum(eps_floor, b)
+    h = solve_hi(q, m, h0=h0, eps_floor=eps_floor, eps_cap=eps_cap,
+                 eta=eta, mask=mask)
+    es = softmin(h, alpha, mask=mask)
+    if clamp:
+        es = torch.minimum(torch.maximum(es, a), b)
+    return es
+
+
+def masked_median(x, mask=None):
+    """Median over the valid entries of the last axis (numpy
+    convention: mean of the two middle order statistics)."""
+    if mask is None:
+        xs = torch.sort(x, dim=-1).values
+        n = x.shape[-1]
+        return 0.5 * (xs[..., (n - 1) // 2] + xs[..., n // 2])
+    big = torch.finfo(x.dtype).max
+    xs = torch.sort(torch.where(mask, x, torch.full_like(x, big)),
+                    dim=-1).values
+    cnt = mask.to(torch.int64).sum(-1)
+    lo = torch.clamp_min(torch.div(cnt - 1, 2, rounding_mode="floor"), 0)
+    hi = torch.clamp_min(cnt // 2, 0)
+    return 0.5 * (xs.gather(-1, lo[..., None])[..., 0]
+                  + xs.gather(-1, hi[..., None])[..., 0])
+
+
+def calibrate_from_initial_conditions(q0, m, *, eps0, eps_min0, eps_max,
+                                      alpha_cfg, eta: float = 1.35,
+                                      c_alpha: float = 0.3,
+                                      c_min: float = 0.25, mask=None):
+    """EpsilonModel.calibrate_from_initial_conditions
+    (minbody/hamsoft_eps_model.py:645-729), per system.
+
+    Returns (alpha_run, eps_min_new, eps_new)."""
+    alpha_seed = torch.where(alpha_cfg > 0.0, alpha_cfg,
+                             torch.clamp_min(eps0, 1.0e-12))
+    eps_floor = torch.clamp_min(eps_min0, 1.0e-12)
+    eps_cap = torch.maximum(eps_floor, eps_max)
+    h0 = solve_hi(q0, m, h0=eps0, eps_floor=eps_floor, eps_cap=eps_cap,
+                  eta=eta, mask=mask)
+    med_h = masked_median(h0, mask)
+    med_h = torch.where(torch.isfinite(med_h) & (med_h > 0.0), med_h,
+                        alpha_seed)
+
+    alpha_run = c_alpha * med_h
+    alpha_run = torch.where(torch.isfinite(alpha_run) & (alpha_run > 0.0),
+                            alpha_run, alpha_seed)
+
+    candidate_floor = torch.minimum(c_min * med_h, eps_max)
+    eps_min_new = torch.minimum(torch.maximum(eps_min0, candidate_floor),
+                                eps_max)
+    eps_new = torch.maximum(eps0, eps_min_new)
+    return alpha_run, eps_min_new, eps_new

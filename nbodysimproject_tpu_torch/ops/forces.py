@@ -1,0 +1,26 @@
+"""Plummer-softened pairwise gravity, batched.
+
+Counterpart of ``nbodysimproject_tpu/ops/forces.py`` (parity:
+``minbody/forces.py``) on ``(B, N, d)`` positions; ``eps`` and ``G``
+are per-system ``(B,)`` tensors.
+"""
+
+from __future__ import annotations
+
+from .geometry import pairwise_geometry
+
+
+def gravitational_force(q, m, eps, G, mask=None):
+    """F_i = -sum_j G m_i m_j (q_i - q_j) / (r_ij^2 + eps^2)^{3/2}."""
+    diff, _r2, inv_r3 = pairwise_geometry(q, eps=eps, mask=mask)
+    mprod = m[..., :, None] * m[..., None, :]
+    coeff = -(G[..., None, None] * mprod) * inv_r3
+    return (coeff[..., None] * diff).sum(-2)
+
+
+def dV_d_epsilon(q, m, eps, G, mask=None):
+    """dV/d(eps) = G eps sum_{i<j} m_i m_j / (r_ij^2 + eps^2)^{3/2}
+    per system (minbody/forces.py:77-112)."""
+    _diff, _r2, inv_r3 = pairwise_geometry(q, eps=eps, mask=mask)
+    mprod = m[..., :, None] * m[..., None, :]
+    return 0.5 * G * eps * (mprod * inv_r3).sum((-2, -1))

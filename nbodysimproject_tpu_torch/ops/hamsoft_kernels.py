@@ -1,0 +1,710 @@
+"""Fused multi-step ham_soft analysis and MEGNO kernels.
+
+Counterpart of ``nbodysimproject_tpu/ops/pallas_hamsoft.py``:
+
+* ``hamsoft_analysis_multistep`` replaces the TPU kernel of the same
+  name (``_hamsoft_analysis_kernel``): ``n_steps`` macro steps, each
+  system running its own ``n_sub`` Strang trips, with the com_drift /
+  cos_theta / var_L / tr_hessian moments sampled after step i when
+  ``i % interval == 0`` and the (eps, pi) sample rows stored;
+* ``hamsoft_megno_multistep`` replaces ``_hamsoft_megno_kernel``: the
+  MEGNO continuation with the tangent map, one Y_t row per step.
+
+On a CUDA tensor each wrapper launches the hand-written kernel in
+``csrc/hamsoft.cu`` (see the source note there for what bounds it and
+what its design does about that); on a CPU tensor it runs the plain
+PyTorch version beside it, which loops over the macro steps and
+``n_sub_max`` masked trips on ``(B, N, d)`` tensors and takes the exact
+eps* gradient by autograd through the 8 SPH iterations.  There is no
+fallback from one to the other.
+
+The covered configuration is the dataset pipeline's: ``policy="soft"``
+and ``grad_mode="exact"``.  The reflection policy and the "reference"
+gradient raise ``NotImplementedError`` on both routes.  As in the TPU
+kernel, all 8 SPH iterations always run (no convergence freeze: a
+<= 1e-6 relative eps* perturbation, below float32 resolution).
+
+The library is built with plain ``nvcc`` into ``_build/`` (git-ignored),
+one shared object per body-slot count, and loaded with ``ctypes``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import math
+import os
+import shutil
+import subprocess
+import time
+
+import torch
+
+#: metric order of the analysis kernel's accumulator rows (count, then
+#: sum, sumsq, max, min per metric)
+ACC_METRICS = ("com_drift", "cos_theta", "var_L", "tr_hessian")
+_ACC_ROWS = 1 + 4 * len(ACC_METRICS)
+_INV_PI = 0.31830987  # float32(1 / pi)
+_ITERS = 8
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SOURCE = os.path.join(_PKG, "csrc", "hamsoft.cu")
+BUILD_DIR = os.path.join(_PKG, "_build")
+#: body-slot counts the library is built for (8: the pipeline's
+#: slot bucket; 3 and 4: the small systems of tests and comparisons)
+BUILD_SLOTS = (3, 4, 8)
+#: no multiply-add contraction: the kernel then rounds as the plain
+#: version does, and deep-n_sub systems (whose spring momentum amplifies
+#: a half-ulp per trip) stay within the comparison tolerances
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+
+
+# --------------------------------------------------------------------------
+# build and bind
+# --------------------------------------------------------------------------
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    return os.path.join(home, "bin", "nvcc")
+
+
+def _lib_path(n: int, d: int) -> str:
+    with open(SOURCE, "rb") as fh:
+        tag = hashlib.sha256(fh.read() + repr(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR,
+                        f"libhamsoft_n{n}_d{d}_{tag.hexdigest()[:12]}.so")
+
+
+def _build_cmd(n: int, d: int, out: str):
+    return [_nvcc(), *NVCC_FLAGS, f"-DHS_N={n}", f"-DHS_D={d}", "-o", out,
+            SOURCE]
+
+
+def build(configs=None) -> dict:
+    """Build the library for every (n, d) in ``configs`` (default: each
+    of ``BUILD_SLOTS`` at d = 2), one ``nvcc`` per config, all started
+    together.  Returns {(n, d): (path, seconds, ptxas report)}; a
+    config already built from the same source is not rebuilt (its
+    report is empty).  Raises if any build fails."""
+    configs = [(n, 2) for n in BUILD_SLOTS] if configs is None else configs
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    procs, out = {}, {}
+    for n, d in configs:
+        path = _lib_path(n, d)
+        if os.path.exists(path):
+            out[(n, d)] = (path, 0.0, "")
+            continue
+        tmp = f"{path}.tmp{os.getpid()}"
+        procs[(n, d)] = (path, tmp, time.perf_counter(), subprocess.Popen(
+            _build_cmd(n, d, tmp), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for key, (path, tmp, t0, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc for n={key[0]} d={key[1]} failed:\n{log}")
+            continue
+        os.replace(tmp, path)
+        report = "\n".join(ln for ln in log.splitlines()
+                           if "registers" in ln or "spill" in ln
+                           or "Compiling entry" in ln)
+        out[key] = (path, time.perf_counter() - t0, report)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return out
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+
+@functools.lru_cache(maxsize=None)
+def _library(n: int, d: int):
+    """The bound library for (n, d), built on first use."""
+    if d != 2 or n not in BUILD_SLOTS:
+        raise NotImplementedError(
+            f"hamsoft kernels are built for d = 2 and N in {BUILD_SLOTS}; "
+            f"got N = {n}, d = {d}")
+    path = build([(n, d)])[(n, d)][0]
+    lib = ctypes.CDLL(path)
+    lib.hs_analysis.argtypes = [_P] * 20 + [_I] * 4 + [_F] * 4 + [_I, _I, _P]
+    lib.hs_analysis.restype = _I
+    lib.hs_megno.argtypes = [_P] * 22 + [_I] * 3 + [_F] * 4 + [_I, _I, _P]
+    lib.hs_megno.restype = _I
+    lib.hs_error_string.argtypes = [_I]
+    lib.hs_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check_launch(lib, code: int, name: str) -> None:
+    if code != 0:
+        raise RuntimeError(f"{name} launch failed: "
+                           f"{lib.hs_error_string(code).decode()}")
+
+
+def _check_config(policy: str, grad_mode: str) -> None:
+    if policy != "soft":
+        raise NotImplementedError(
+            f"hamsoft kernels: barrier policy {policy!r} is not ported "
+            "(only 'soft')")
+    if grad_mode != "exact":
+        raise NotImplementedError(
+            f"hamsoft kernels: eps_grad_mode {grad_mode!r} is not ported "
+            "(only 'exact')")
+
+
+def _barrier_on(k_wall: float, bexp: int) -> bool:
+    return k_wall > 0.0 and bexp >= 2
+
+
+# --------------------------------------------------------------------------
+# plain PyTorch version of the physics (the kernels' reference)
+# --------------------------------------------------------------------------
+
+def _finite_or_zero(g):
+    return torch.where(torch.isfinite(g), g, torch.zeros_like(g))
+
+
+class _Physics:
+    """The shared ham_soft physics of the two kernels on (B, N, d)
+    tensors — ``_build_physics`` of the TPU kernel, vectorised over
+    bodies instead of unrolled."""
+
+    def __init__(self, mass, eps_seed, k_s, mu, alpha, flo, cap, *, G,
+                 k_wall, eta, jcap, bexp):
+        self.mass = mass
+        self.valid = mass > 0.0
+        zero = torch.zeros_like(mass)
+        self.mval = torch.where(self.valid, mass, zero)
+        self.inv_m = torch.where(self.valid,
+                                 1.0 / torch.clamp_min(mass, 1e-30), zero)
+        n = mass.shape[-1]
+        self.off = ~torch.eye(n, dtype=torch.bool, device=mass.device)
+        self.pairv = self.valid[:, :, None] & self.valid[:, None, :] & self.off
+        self.upper = torch.ones(n, n, dtype=torch.bool,
+                                device=mass.device).triu(1)
+        self.eps_seed, self.k_s, self.mu, self.alpha = eps_seed, k_s, mu, alpha
+        self.flo, self.cap = flo, cap
+        self.G, self.k_wall, self.eta, self.jcap = G, k_wall, eta, jcap
+        self.bexp = bexp
+        self.barrier_on = _barrier_on(k_wall, bexp)
+
+    # ---------------- eps* and its exact gradient -----------------------
+    def eps_star_and_grad(self, pos):
+        """(eps*, d eps*/dq): the 8 clipped SPH iterations from the
+        entry eps, the softmin, and autograd back through them.  The
+        backward zeroes non-finite cotangents on Sigma (the float32
+        backward overflows on saturated lanes, where the true gradient
+        is zero) and passes the clip only strictly inside its bounds,
+        as the kernel's reverse sweep does."""
+        flo, cap = self.flo[:, None], self.cap[:, None]
+        with torch.enable_grad():
+            q = pos.detach().requires_grad_(True)
+            diff = q[:, :, None, :] - q[:, None, :, :]
+            r2 = diff[..., 0] * diff[..., 0]
+            for a in range(1, q.shape[-1]):
+                r2 = r2 + diff[..., a] * diff[..., a]
+            h0 = torch.minimum(torch.maximum(self.eps_seed, self.flo),
+                               self.cap)
+            h = h0[:, None].expand_as(self.mval)
+            mw = torch.where(self.off, self.mval[:, None, :],
+                             torch.zeros_like(r2))
+            for _ in range(_ITERS):
+                ih2 = 1.0 / torch.clamp_min(h * h, 1e-24)
+                w = (_INV_PI * ih2)[..., None] * torch.exp(-r2 * ih2[..., None])
+                S = (mw * w).sum(-1)
+                Ssafe = torch.clamp_min(S, 1e-30)
+                Ssafe.register_hook(_finite_or_zero)
+                hn = self.eta * torch.sqrt(self.mval / Ssafe)
+                gate = ((hn > flo) & (hn < cap)).detach()
+                h = torch.where(gate, hn,
+                                torch.minimum(torch.maximum(hn, flo),
+                                              cap).detach())
+            t = torch.where(self.valid, -h / self.alpha[:, None],
+                            torch.full_like(h, -1e30))
+            tmax = t.detach().amax(-1, keepdim=True)
+            s = torch.exp(t - tmax).sum(-1)
+            es = -self.alpha * (tmax[:, 0] + torch.log(s))
+            (g,) = torch.autograd.grad(es.sum(), q)
+        ok = self.valid[..., None] & torch.isfinite(g)
+        return es.detach(), torch.where(ok, g, torch.zeros_like(g))
+
+    def bar_force(self, e):
+        left = torch.clamp_min(self.flo - e, 0.0)
+        right = torch.clamp_min(e - self.cap, 0.0)
+        le = torch.ones_like(e)
+        re = torch.ones_like(e)
+        for _ in range(self.bexp - 2):
+            le = le * left
+            re = re * right
+        return self.k_wall * (le - re)
+
+    # ---------------- S(h/2): spring rotation + J-capped impulse --------
+    def s_half(self, vel, eps, pi, es, grad, hh):
+        dt_f = 0.5 * hh
+        omega = torch.sqrt(self.k_s / self.mu)
+        theta = omega * dt_f
+        th2 = theta * theta
+        s_ser = theta * (1.0 - th2 / 6.0 * (1.0 - th2 / 20.0))
+        c_ser = 1.0 - th2 / 2.0 * (1.0 - th2 / 12.0)
+        small = torch.abs(theta) < 1e-8
+        sin_t = torch.where(small, s_ser, torch.sin(theta))
+        cos_t = torch.where(small, c_ser, torch.cos(theta))
+
+        pi_in = pi + 0.5 * dt_f * self.bar_force(eps) if self.barrier_on \
+            else pi
+        Delta0 = eps - es
+        mu_om = torch.sqrt(self.mu * self.k_s)
+        delta_t = Delta0 * cos_t + (pi_in / (self.mu * omega)) * sin_t
+        eta_t = pi_in * cos_t - mu_om * Delta0 * sin_t
+        I_tau = (Delta0 / omega) * sin_t \
+            + (pi_in / (self.mu * omega * omega)) * (1.0 - cos_t)
+        eps_new = es + delta_t
+        pi_new = eta_t + 0.5 * dt_f * self.bar_force(eps_new) \
+            if self.barrier_on else eta_t
+
+        # J-cap (hamsoft_flows.py:692-738)
+        J = self.k_s * I_tau
+        pv = self.mass[..., None] * vel
+        pnorm = torch.sqrt((pv * pv).sum(-1))
+        gnorm = torch.sqrt((grad * grad).sum(-1))
+        zero = torch.zeros_like(pnorm)
+        p_scale = torch.where(self.valid, pnorm, zero).amax(-1)
+        dp_inf = torch.where(self.valid, torch.abs(J)[:, None] * gnorm,
+                             zero).amax(-1)
+        p_scale = torch.clamp_min(p_scale, 1e-12)
+        thr = self.jcap * p_scale
+        scale = torch.where(dp_inf > thr, thr / torch.clamp_min(dp_inf, 1e-30),
+                            torch.ones_like(dp_inf))
+        Ja = J * scale
+        vel = vel + Ja[:, None, None] * grad * self.inv_m[..., None]
+        return vel, eps_new, pi_new
+
+    # ---------------- V(h/2): gravity kick on p, dV/deps kick on pi ----
+    def v_half_kick(self, pos, vel, eps, pi, hh):
+        h2 = 0.5 * hh
+        diff = pos[:, :, None, :] - pos[:, None, :, :]
+        r2 = (eps * eps)[:, None, None]
+        for a in range(pos.shape[-1]):
+            r2 = r2 + diff[..., a] * diff[..., a]
+        inv_r = torch.rsqrt(r2)
+        w = inv_r * inv_r * inv_r
+        zero = torch.zeros_like(w)
+        pairm = self.mass[:, :, None] * self.mass[:, None, :]
+        ddU = torch.where(self.pairv & self.upper, pairm * w, zero).sum((-2, -1))
+        wj = torch.where(self.off, self.mval[:, None, :] * w, zero)
+        acc = -(wj[..., None] * diff).sum(-2)
+        vel = vel + (h2 * self.G)[:, None, None] * acc
+        dU = self.G * eps * ddU
+        if self.barrier_on:
+            pi = pi - h2 * (dU - self.bar_force(eps))
+        else:
+            pi = pi - h2 * dU
+        return vel, pi
+
+    def strang_trip(self, pos, vel, eps, pi, es, grad, h, active):
+        """One Strang substep S V T V S where ``active``; identity
+        elsewhere.  The (eps*, grad) cache carries across trips."""
+        vel1, eps1, pi1 = self.s_half(vel, eps, pi, es, grad, h)
+        vel1, pi1 = self.v_half_kick(pos, vel1, eps1, pi1, h)
+        pos1 = pos + h[:, None, None] * vel1
+        vel1, pi1 = self.v_half_kick(pos1, vel1, eps1, pi1, h)
+        es1, grad1 = self.eps_star_and_grad(pos1)
+        vel1, eps1, pi1 = self.s_half(vel1, eps1, pi1, es1, grad1, h)
+        a3 = active[:, None, None]
+        return (torch.where(a3, pos1, pos), torch.where(a3, vel1, vel),
+                torch.where(active, eps1, eps), torch.where(active, pi1, pi),
+                torch.where(active, es1, es), torch.where(a3, grad1, grad))
+
+    def tangent_accel(self, pos, dr, eps):
+        """delta_a_i = G sum_j m_j [ddx/r^3 - 3 (dx . ddx) dx / r^5] with
+        softened r^2 = |q_j - q_i|^2 + eps^2 over valid pairs."""
+        dx = pos[:, None, :, :] - pos[:, :, None, :]     # q_j - q_i
+        ddx = dr[:, None, :, :] - dr[:, :, None, :]
+        r2 = (eps * eps)[:, None, None]
+        for a in range(pos.shape[-1]):
+            r2 = r2 + dx[..., a] * dx[..., a]
+        inv_r2 = 1.0 / r2
+        inv_r3 = inv_r2 * torch.rsqrt(r2)
+        dot = (dx * ddx).sum(-1)
+        coeff = 3.0 * dot * inv_r2 * inv_r3
+        term = ddx * inv_r3[..., None] - coeff[..., None] * dx
+        contrib = (self.G * self.mval[:, None, :, None]) * term
+        return torch.where(self.pairv[..., None], contrib,
+                           torch.zeros_like(contrib)).sum(-2)
+
+    def metrics_of(self, pos, vel, eps, L0, nb):
+        """com_drift, cos_theta, var_L, tr_hessian (metrics.py:56-123),
+        d = 2."""
+        com = (self.mval[..., None] * pos).sum(-2)
+        com_drift = torch.sqrt((com * com).sum(-1))
+        L_i = self.mval * (pos[..., 0] * vel[..., 1] - pos[..., 1] * vel[..., 0])
+        L_tot = L_i.sum(-1)
+        d0 = L_i - (L_tot / nb)[:, None]
+        var_L = torch.where(self.valid, d0 * d0,
+                            torch.zeros_like(d0)).sum(-1) / nb
+        cos_ok = (L0 != 0.0) & (L_tot != 0.0)
+        cos_theta = torch.where(cos_ok, (L_tot * L0)
+                                / (torch.abs(L_tot) * torch.abs(L0)),
+                                torch.full_like(L0, math.nan))
+        diff = pos[:, :, None, :] - pos[:, None, :, :]
+        r2 = (diff * diff).sum(-1)
+        s = r2 + (eps * eps)[:, None, None]
+        num = pos.shape[-1] * s - 3.0 * r2
+        ssafe = torch.clamp_min(s, 0.0)
+        den = ssafe * ssafe * torch.sqrt(ssafe)
+        pairm = self.mass[:, :, None] * self.mass[:, None, :]
+        tr = torch.where(self.pairv & self.upper, pairm * num / den,
+                         torch.zeros_like(s)).sum((-2, -1))
+        return com_drift, cos_theta, var_L, self.G * 2.0 * tr
+
+
+def _n_trips(n_sub, n_sub_max: int) -> int:
+    """Trips per macro step the plain version has to run: a trip no
+    lane is active in is an exact identity, so the loop stops at the
+    largest lane count below ``n_sub_max``."""
+    if n_sub.numel() == 0:
+        return 0
+    return min(int(n_sub_max), int(torch.clamp_min(n_sub, 1).max()))
+
+
+def _analysis_loop(pos, vel, mass, eps, pi, L0, *, k_soft, mu, alpha,
+                   eps_min, eps_max, h, n_sub, n_steps: int, n_sub_max: int,
+                   interval: int, G, k_wall, eta, jcap, bexp):
+    """The analysis kernel's loop on (B, N, d) tensors."""
+    ph = _Physics(mass, eps, k_soft, mu, alpha, eps_min, eps_max, G=G,
+                  k_wall=k_wall, eta=eta, jcap=jcap, bexp=bexp)
+    nsub = torch.clamp_min(n_sub, 1)
+    trips = _n_trips(n_sub, n_sub_max)
+    nb = torch.clamp_min(ph.valid.to(pos.dtype).sum(-1), 1.0)
+    es, grad = ph.eps_star_and_grad(pos)
+    zero = torch.zeros_like(eps)
+    cnt = zero
+    acc = [[zero, zero, torch.full_like(eps, -math.inf),
+            torch.full_like(eps, math.inf)] for _ in ACC_METRICS]
+    n_samples = -(-n_steps // interval)
+    eps_s = torch.empty((n_samples,) + eps.shape, dtype=eps.dtype,
+                        device=eps.device)
+    pi_s = torch.empty_like(eps_s)
+    for step in range(n_steps):
+        for sub in range(trips):
+            pos, vel, eps, pi, es, grad = ph.strang_trip(
+                pos, vel, eps, pi, es, grad, h, sub < nsub)
+        if step % interval == 0:
+            cnt = cnt + 1.0
+            for a, x in zip(acc, ph.metrics_of(pos, vel, eps, L0, nb)):
+                a[0] = a[0] + x
+                a[1] = a[1] + x * x
+                a[2] = torch.maximum(a[2], x)
+                a[3] = torch.minimum(a[3], x)
+            eps_s[step // interval] = eps
+            pi_s[step // interval] = pi
+    accs = {k: (cnt, *a) for k, a in zip(ACC_METRICS, acc)}
+    return pos, vel, eps, pi, accs, eps_s, pi_s
+
+
+def _megno_loop(pos, vel, mass, eps, pi, dr, dv, *, k_soft, mu, alpha,
+                eps_min, eps_max, h, n_sub, dt, n_steps: int, n_sub_max: int,
+                G, k_wall, eta, jcap, bexp):
+    """The MEGNO kernel's loop on (B, N, d) tensors: returns
+    (pos, vel, eps, pi, accum, t, ys)."""
+    ph = _Physics(mass, eps, k_soft, mu, alpha, eps_min, eps_max, G=G,
+                  k_wall=k_wall, eta=eta, jcap=jcap, bexp=bexp)
+    nsub = torch.clamp_min(n_sub, 1)
+    trips = _n_trips(n_sub, n_sub_max)
+    es, grad = ph.eps_star_and_grad(pos)
+    accum = torch.zeros_like(eps)
+    tt = torch.zeros_like(eps)
+    ys = torch.empty((n_steps,) + eps.shape, dtype=eps.dtype,
+                     device=eps.device)
+    dt3 = dt[:, None, None]
+    for step in range(n_steps):
+        for sub in range(trips):
+            pos, vel, eps, pi, es, grad = ph.strang_trip(
+                pos, vel, eps, pi, es, grad, h, sub < nsub)
+        dr = dr + dv * dt3
+        dv = dv + ph.tangent_accel(pos, dr, eps) * dt3
+        tt = tt + dt
+        norm_r = torch.sqrt((dr * dr).sum((-2, -1)))
+        # reference quirk: divides by the tiny norm, then treats it as 1
+        tiny = norm_r < 1e-12
+        scale = torch.where(tiny, norm_r, torch.ones_like(norm_r))
+        dr = dr / scale[:, None, None]
+        dv = dv / scale[:, None, None]
+        norm_r = torch.where(tiny, torch.ones_like(norm_r), norm_r)
+        norm_v = torch.sqrt((dv * dv).sum((-2, -1)))
+        accum = accum + (norm_v / norm_r) * tt * dt
+        ys[step] = 2.0 * accum / tt
+    return pos, vel, eps, pi, accum, tt, ys
+
+
+# --------------------------------------------------------------------------
+# wrappers
+# --------------------------------------------------------------------------
+
+def _per_system(x, like):
+    """A (B,) row like ``like`` from a tensor, array or scalar.  A Python
+    scalar becomes a fill on the device, not a host-to-device copy (which
+    would wait for the stream)."""
+    if isinstance(x, (int, float)):
+        return torch.full(like.shape[:1], float(x), dtype=like.dtype,
+                          device=like.device)
+    return torch.broadcast_to(torch.as_tensor(x, dtype=like.dtype,
+                                              device=like.device),
+                              like.shape[:1]).contiguous()
+
+
+def _coord_major(x):
+    """(B, N, d) -> (N*d, B) contiguous: neighbouring threads read
+    neighbouring addresses."""
+    return x.reshape(x.shape[0], -1).t().contiguous()
+
+
+def _from_coord_major(x, B, n, d):
+    return x.t().contiguous().reshape(B, n, d)
+
+
+def _check_cuda_inputs(pos, mass, bodies, per_system):
+    """Device, dtype and shape of everything a kernel reads: float32
+    (B, N, d) body tensors, (B, N) masses, (B,) per-system rows (n_sub
+    int32)."""
+    B, n, d = pos.shape
+    want = {**{k: (B, n, d) for k in bodies}, "mass": (B, n),
+            **{k: (B,) for k in per_system}}
+    tensors = {"pos": pos, "mass": mass, **bodies, **per_system}
+    for name, t in tensors.items():
+        if t.device != pos.device:
+            raise ValueError(f"{name} is on {t.device}, pos on {pos.device}")
+        if tuple(t.shape) != want.get(name, (B, n, d)):
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                             f"{want.get(name, (B, n, d))}")
+        dt_want = torch.int32 if name == "n_sub" else torch.float32
+        if t.dtype != dt_want:
+            raise TypeError(f"{name} must be {dt_want}, got {t.dtype}")
+
+
+def _pointers(*buffers):
+    """data_ptr of each buffer handed to a kernel (all contiguous)."""
+    for t in buffers:
+        if not t.is_contiguous():
+            raise ValueError("kernel buffers must be contiguous")
+    return [t.data_ptr() for t in buffers]
+
+
+def _kernel_scalars(B, like, n_sub, *xs):
+    out = [_per_system(x, like) for x in xs]
+    ns = torch.broadcast_to(torch.as_tensor(n_sub, device=like.device),
+                            (B,)).to(torch.int32).contiguous()
+    return out, ns
+
+
+def _analysis_args(pos, n_sub, scalars, n_steps, n_sub_max, interval, G,
+                   k_wall, eta, jcap, bexp, policy, grad_mode):
+    _check_config(policy, grad_mode)
+    if pos.shape[-1] != 2:
+        raise NotImplementedError("the analysis kernel is ported for d = 2")
+    vals, ns = _kernel_scalars(pos.shape[0], pos, n_sub, *scalars)
+    kw = dict(n_sub=ns, n_steps=int(n_steps), n_sub_max=int(n_sub_max),
+              interval=int(interval), G=float(G), k_wall=float(k_wall),
+              eta=float(eta), jcap=float(jcap), bexp=int(bexp))
+    return vals, kw
+
+
+def _accs_of(out_acc):
+    return {name: (out_acc[0],) + tuple(out_acc[1 + 4 * k + r]
+                                        for r in range(4))
+            for k, name in enumerate(ACC_METRICS)}
+
+
+def hamsoft_analysis_multistep_plain(pos, vel, mass, eps, pi, L0, *, k_soft,
+                                     mu, alpha, eps_min, eps_max, h, n_sub,
+                                     n_steps: int, n_sub_max: int,
+                                     interval: int, G: float = 1.0,
+                                     k_wall: float = 1e9, eta: float = 1.35,
+                                     jcap: float = 0.02, bexp: int = 5,
+                                     policy: str = "soft",
+                                     grad_mode: str = "exact"):
+    """The plain PyTorch version of ``hamsoft_analysis_multistep`` (same
+    arguments, same outputs), on any device."""
+    (eps, pi, L0, k_soft, mu, alpha, eps_min, eps_max, h), kw = \
+        _analysis_args(pos, n_sub, (eps, pi, L0, k_soft, mu, alpha, eps_min,
+                                    eps_max, h), n_steps, n_sub_max,
+                       interval, G, k_wall, eta, jcap, bexp, policy,
+                       grad_mode)
+    return _analysis_loop(pos, vel, mass, eps, pi, L0, k_soft=k_soft, mu=mu,
+                          alpha=alpha, eps_min=eps_min, eps_max=eps_max,
+                          h=h, **kw)
+
+
+def hamsoft_analysis_multistep(pos, vel, mass, eps, pi, L0, *, k_soft, mu,
+                               alpha, eps_min, eps_max, h, n_sub,
+                               n_steps: int, n_sub_max: int, interval: int,
+                               G: float = 1.0, k_wall: float = 1e9,
+                               eta: float = 1.35, jcap: float = 0.02,
+                               bexp: int = 5, policy: str = "soft",
+                               grad_mode: str = "exact"):
+    """Advance a (B, N, d) float32 ham_soft batch ``n_steps`` macro steps
+    with the analysis metric sampling fused in: the CUDA kernel for CUDA
+    tensors, the plain version for CPU tensors.
+
+    Per-system (B,) inputs: eps, pi, L0 (L_z, d = 2), k_soft, mu, alpha,
+    eps_min, eps_max, h, n_sub (each system runs min(n_sub, n_sub_max)
+    trips per step).  Returns (pos, vel, eps, pi, accs, eps_samples,
+    pi_samples): ``accs`` maps each of ``ACC_METRICS`` to a
+    (count, sum, sumsq, max, min) tuple of (B,) tensors and the sample
+    tensors are (n_samples, B), n_samples = ceil(n_steps / interval)."""
+    args = dict(k_soft=k_soft, mu=mu, alpha=alpha, eps_min=eps_min,
+                eps_max=eps_max, h=h, n_sub=n_sub, n_steps=n_steps,
+                n_sub_max=n_sub_max, interval=interval, G=G, k_wall=k_wall,
+                eta=eta, jcap=jcap, bexp=bexp, policy=policy,
+                grad_mode=grad_mode)
+    if pos.device.type == "cpu":
+        return hamsoft_analysis_multistep_plain(pos, vel, mass, eps, pi, L0,
+                                                **args)
+    if pos.device.type != "cuda":
+        raise RuntimeError(f"hamsoft kernels: unsupported device {pos.device}")
+    (eps, pi, L0, k_soft, mu, alpha, eps_min, eps_max, h), kw = \
+        _analysis_args(pos, n_sub, (eps, pi, L0, k_soft, mu, alpha, eps_min,
+                                    eps_max, h), n_steps, n_sub_max,
+                       interval, G, k_wall, eta, jcap, bexp, policy,
+                       grad_mode)
+    B, n, d = pos.shape
+    ns = kw["n_sub"]
+    _check_cuda_inputs(pos, mass, dict(vel=vel), dict(
+        eps=eps, pi=pi, L0=L0, k_soft=k_soft, mu=mu, alpha=alpha,
+        eps_min=eps_min, eps_max=eps_max, h=h, n_sub=ns))
+    pos_c, vel_c = _coord_major(pos), _coord_major(vel)
+    mass_c = mass.t().contiguous()
+    n_samples = -(-kw["n_steps"] // kw["interval"])
+    new = lambda *shape: torch.empty(shape, dtype=pos.dtype, device=pos.device)
+    out_pos, out_vel = new(n * d, B), new(n * d, B)
+    out_eps, out_pi = new(B), new(B)
+    out_acc = new(_ACC_ROWS, B)
+    out_es, out_ps = new(n_samples, B), new(n_samples, B)
+    lib = _library(n, d)
+    code = lib.hs_analysis(
+        *_pointers(pos_c, vel_c, mass_c, eps, pi, k_soft, mu, alpha, eps_min,
+                   eps_max, h, ns, L0, out_pos, out_vel, out_eps, out_pi,
+                   out_acc, out_es, out_ps),
+        B, kw["n_steps"], kw["n_sub_max"], kw["interval"], kw["G"],
+        kw["k_wall"], kw["eta"], kw["jcap"], kw["bexp"],
+        int(_barrier_on(kw["k_wall"], kw["bexp"])),
+        torch.cuda.current_stream(pos.device).cuda_stream)
+    _check_launch(lib, code, "hamsoft_analysis_multistep")
+    hamsoft_analysis_multistep.launches += 1
+    return (_from_coord_major(out_pos, B, n, d),
+            _from_coord_major(out_vel, B, n, d), out_eps, out_pi,
+            _accs_of(out_acc), out_es, out_ps)
+
+
+hamsoft_analysis_multistep.launches = 0
+
+
+def _megno_summary(accum, tt, ys, dt: float):
+    """Final MEGNO, Lyapunov time and the median per-step slope
+    (megno.py:92-100).  The median averages the two middle slopes, as
+    ``jnp.median`` does, and is NaN where any slope is."""
+    Y = 2.0 * accum / torch.clamp_min(tt, 1e-300)
+    lyap = torch.where(Y == 0.0, torch.full_like(Y, math.inf),
+                       tt / torch.abs(Y))
+    n_steps = ys.shape[0]
+    if n_steps >= 2:
+        slopes = (ys[1:] - ys[:-1]) / dt
+        srt = torch.sort(slopes, dim=0).values
+        m = slopes.shape[0]
+        med = (srt[(m - 1) // 2] + srt[m // 2]) * 0.5
+        slope_med = torch.where(torch.isnan(slopes).any(0),
+                                torch.full_like(med, math.nan), med)
+    else:
+        slope_med = torch.zeros_like(Y)
+    return Y, lyap, slope_med
+
+
+def _megno_args(pos, n_sub, scalars, n_steps, n_sub_max, G, k_wall, eta,
+                jcap, bexp, policy, grad_mode):
+    _check_config(policy, grad_mode)
+    vals, ns = _kernel_scalars(pos.shape[0], pos, n_sub, *scalars)
+    kw = dict(n_sub=ns, n_steps=int(n_steps), n_sub_max=int(n_sub_max),
+              G=float(G), k_wall=float(k_wall), eta=float(eta),
+              jcap=float(jcap), bexp=int(bexp))
+    return vals, kw
+
+
+def hamsoft_megno_multistep_plain(pos, vel, mass, eps, pi, dr, dv, *, k_soft,
+                                  mu, alpha, eps_min, eps_max, h, n_sub, dt,
+                                  n_steps: int, n_sub_max: int,
+                                  G: float = 1.0, k_wall: float = 1e9,
+                                  eta: float = 1.35, jcap: float = 0.02,
+                                  bexp: int = 5, policy: str = "soft",
+                                  grad_mode: str = "exact"):
+    """The plain PyTorch version of ``hamsoft_megno_multistep`` (same
+    arguments, same outputs), on any device."""
+    (eps, pi, k_soft, mu, alpha, eps_min, eps_max, h, dt_b), kw = \
+        _megno_args(pos, n_sub, (eps, pi, k_soft, mu, alpha, eps_min,
+                                 eps_max, h, dt), n_steps, n_sub_max, G,
+                    k_wall, eta, jcap, bexp, policy, grad_mode)
+    po, vo, eo, pio, accum, tt, ys = _megno_loop(
+        pos, vel, mass, eps, pi, dr, dv, k_soft=k_soft, mu=mu, alpha=alpha,
+        eps_min=eps_min, eps_max=eps_max, h=h, dt=dt_b, **kw)
+    return (po, vo, eo, pio) + _megno_summary(accum, tt, ys, float(dt))
+
+
+def hamsoft_megno_multistep(pos, vel, mass, eps, pi, dr, dv, *, k_soft, mu,
+                            alpha, eps_min, eps_max, h, n_sub, dt,
+                            n_steps: int, n_sub_max: int, G: float = 1.0,
+                            k_wall: float = 1e9, eta: float = 1.35,
+                            jcap: float = 0.02, bexp: int = 5,
+                            policy: str = "soft", grad_mode: str = "exact"):
+    """MEGNO continuation: advance the batch ``n_steps`` macro steps with
+    the tangent map fused in: the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors.  ``dr``/``dv`` are the (B, N, d) initial
+    tangent vectors, ``dt`` the macro step (a float).  Returns
+    (pos, vel, eps, pi, megno, lyapunov_time, slope_med)."""
+    args = dict(k_soft=k_soft, mu=mu, alpha=alpha, eps_min=eps_min,
+                eps_max=eps_max, h=h, n_sub=n_sub, dt=dt, n_steps=n_steps,
+                n_sub_max=n_sub_max, G=G, k_wall=k_wall, eta=eta, jcap=jcap,
+                bexp=bexp, policy=policy, grad_mode=grad_mode)
+    if pos.device.type == "cpu":
+        return hamsoft_megno_multistep_plain(pos, vel, mass, eps, pi, dr, dv,
+                                             **args)
+    if pos.device.type != "cuda":
+        raise RuntimeError(f"hamsoft kernels: unsupported device {pos.device}")
+    (eps, pi, k_soft, mu, alpha, eps_min, eps_max, h, dt_b), kw = \
+        _megno_args(pos, n_sub, (eps, pi, k_soft, mu, alpha, eps_min,
+                                 eps_max, h, dt), n_steps, n_sub_max, G,
+                    k_wall, eta, jcap, bexp, policy, grad_mode)
+    B, n, d = pos.shape
+    ns = kw["n_sub"]
+    _check_cuda_inputs(pos, mass, dict(vel=vel, dr=dr, dv=dv), dict(
+        eps=eps, pi=pi, k_soft=k_soft, mu=mu, alpha=alpha, eps_min=eps_min,
+        eps_max=eps_max, h=h, n_sub=ns, dt=dt_b))
+    pos_c, vel_c = _coord_major(pos), _coord_major(vel)
+    dr_c, dv_c = _coord_major(dr), _coord_major(dv)
+    mass_c = mass.t().contiguous()
+    new = lambda *shape: torch.empty(shape, dtype=pos.dtype, device=pos.device)
+    out_pos, out_vel = new(n * d, B), new(n * d, B)
+    out_eps, out_pi, out_accum, out_t = new(B), new(B), new(B), new(B)
+    out_ys = new(kw["n_steps"], B)
+    lib = _library(n, d)
+    code = lib.hs_megno(
+        *_pointers(pos_c, vel_c, mass_c, eps, pi, k_soft, mu, alpha, eps_min,
+                   eps_max, h, ns, dt_b, dr_c, dv_c, out_pos, out_vel,
+                   out_eps, out_pi, out_accum, out_t, out_ys),
+        B, kw["n_steps"], kw["n_sub_max"], kw["G"], kw["k_wall"], kw["eta"],
+        kw["jcap"], kw["bexp"], int(_barrier_on(kw["k_wall"], kw["bexp"])),
+        torch.cuda.current_stream(pos.device).cuda_stream)
+    _check_launch(lib, code, "hamsoft_megno_multistep")
+    hamsoft_megno_multistep.launches += 1
+    return (_from_coord_major(out_pos, B, n, d),
+            _from_coord_major(out_vel, B, n, d), out_eps, out_pi) \
+        + _megno_summary(out_accum, out_t, out_ys, float(dt))
+
+
+hamsoft_megno_multistep.launches = 0

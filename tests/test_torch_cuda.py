@@ -1,0 +1,190 @@
+"""The CUDA kernels of the port against their plain PyTorch versions, on
+the card.
+
+Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
+one; the file imports neither JAX nor the JAX package, so it runs on a
+machine that has only PyTorch (``--noconftest`` skips
+``tests/conftest.py``, which sets JAX up):
+
+    python -m pytest tests/test_torch_cuda.py -m cuda --noconftest
+
+Inputs: numpy-seeded populations (N = 3, N = 4 with a masked slot, and
+N = 8 slots holding 3-7 bodies; d = 2; B = 64) built by the port in
+float32.  The raw kernel state agrees with the plain version to rtol
+1e-4 / atol 1e-5 (float32 rounding of two reduction orders and of
+autograd versus the hand-written reverse sweep over ~50 trips), the
+analysis columns within the fused-vs-scan tolerances of
+``tests/test_pallas_batch.py``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import nbodysimproject_tpu_torch as nt
+from nbodysimproject_tpu_torch.analysis.fused import analyze_batch_fused
+from nbodysimproject_tpu_torch.diagnostics.energy import angular_momentum_z
+from nbodysimproject_tpu_torch.diagnostics.megno import (init_tangent,
+                                                         population_normals)
+from nbodysimproject_tpu_torch.ops import hamsoft_kernels as hk
+from nbodysimproject_tpu_torch.parallel.batch_engine import build_batch
+
+pytestmark = pytest.mark.cuda
+
+STATE_RTOL, STATE_ATOL = 1e-4, 1e-5
+#: per-column (rtol, atol) of tests/test_pallas_batch.py:258-277
+TOL = {
+    "energy_drift": (0.05, 1e-5), "angular_momentum_drift": (0.05, 1e-5),
+    "com_drift_mean": (1e-3, 1e-5), "com_drift_max": (1e-3, 1e-5),
+    "j_eps_mean": (2e-3, 1e-6), "j_eps_std": (2e-3, 1e-6),
+    "theta_eps_mean": (2e-3, 1e-3), "theta_eps_std": (2e-3, 1e-3),
+    "cos_theta_mean": (1e-4, 1e-5), "cos_theta_min": (1e-4, 1e-5),
+    "ang_mom_var_mean": (2e-3, 1e-7), "ang_mom_var_max": (2e-3, 1e-7),
+    "tidal_trace_mean": (2e-3, 1e-3), "tidal_trace_max": (2e-3, 1e-3),
+    "MEGNO": (1e-3, 1e-4), "lyapunov_time": (1e-2, 0.0),
+    "megno_slope_med": (5e-3, 1e-3),
+}
+CASES = {"n3": (3, 3), "n4_masked": (4, 3), "n8_mixed": (8, None)}
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _population(n, n_bodies, B=64, seed=11):
+    """A near-hierarchical configuration per system: bodies on a line
+    with small random offsets and velocities; ``n_bodies`` valid slots
+    (None: 3-7 per system)."""
+    rng = np.random.default_rng(seed)
+    counts = np.full(B, n_bodies) if n_bodies else rng.integers(3, 8, B)
+    mask = np.arange(n)[None, :] < counts[:, None]
+    q = np.zeros((B, n, 2))
+    q[..., 0] = np.arange(n) * 1.2
+    q += 0.05 * rng.normal(size=q.shape)
+    v = 0.2 * rng.normal(size=q.shape)
+    m = rng.uniform(0.2, 1.0, size=(B, n))
+    m, q, v = (np.where(mask[..., None] if a.ndim == 3 else mask, a, 0.0)
+               for a in (m, q, v))
+    return m, q, v, mask
+
+
+def _built(case, device):
+    cfg = nt.SimConfig(fast_float32=True)
+    m, q, v, mask = _population(*CASES[case])
+    f = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
+    states, dyns = build_batch(f(m), f(q), f(v),
+                               torch.as_tensor(mask, device=device), cfg,
+                               1.0, 0.05, 0.0, 0.01)
+    z1, z2 = population_normals(5, m.shape[0], q.shape[1:], torch.float32)
+    tangent = init_tangent(z1.to(device), z2.to(device), states)
+    return cfg, states, dyns, tangent
+
+
+def _kw(cfg, dyns, n_sub_max, dt=0.01):
+    n_sub = torch.clamp_min(dyns.n_sub, 1)
+    return dict(k_soft=dyns.k_soft, mu=dyns.mu_soft, alpha=dyns.alpha_run,
+                eps_min=dyns.min_softening, eps_max=dyns.max_softening,
+                h=dt / n_sub.to(torch.float32), n_sub=n_sub,
+                n_sub_max=n_sub_max, G=1.0, k_wall=float(cfg.k_wall),
+                eta=float(cfg.eta), jcap=float(cfg.j_max_cap),
+                bexp=int(cfg.barrier_exponent))
+
+
+def _close(a, b, name, rtol=STATE_RTOL, atol=STATE_ATOL):
+    a = a.detach().cpu().numpy().astype(np.float64)
+    b = b.detach().cpu().numpy().astype(np.float64)
+    np.testing.assert_array_equal(np.isfinite(b), np.isfinite(a),
+                                  err_msg=f"finiteness: {name}")
+    fin = np.isfinite(a)
+    np.testing.assert_allclose(b[fin], a[fin], rtol=rtol, atol=atol,
+                               err_msg=name)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_analysis_kernel_matches_plain(case, cuda_device):
+    cfg, st, dy, _tan = _built(case, cuda_device)
+    kw = _kw(cfg, dy, int(dy.n_sub.max()))
+    args = (st.pos, st.vel, st.mass, st.eps, st.pi, angular_momentum_z(st))
+    before = hk.hamsoft_analysis_multistep.launches
+    ref = hk.hamsoft_analysis_multistep_plain(*args, n_steps=12, interval=2,
+                                              **kw)
+    got = hk.hamsoft_analysis_multistep(*args, n_steps=12, interval=2, **kw)
+    torch.cuda.synchronize()
+    assert hk.hamsoft_analysis_multistep.launches == before + 1
+    for name, a, b in zip(("pos", "vel", "eps", "pi"), ref[:4], got[:4]):
+        _close(a, b, name)
+    for metric in hk.ACC_METRICS:
+        for stat, a, b in zip(("count", "sum", "sumsq", "max", "min"),
+                              ref[4][metric], got[4][metric]):
+            _close(a, b, f"{metric}.{stat}", rtol=1e-3)
+    _close(ref[5], got[5], "eps_samples")
+    _close(ref[6], got[6], "pi_samples")
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_megno_kernel_matches_plain(case, cuda_device):
+    cfg, st, dy, (dr0, dv0) = _built(case, cuda_device)
+    kw = _kw(cfg, dy, int(dy.n_sub.max()))
+    args = (st.pos, st.vel, st.mass, st.eps, st.pi, dr0, dv0)
+    before = hk.hamsoft_megno_multistep.launches
+    ref = hk.hamsoft_megno_multistep_plain(*args, dt=0.01, n_steps=6, **kw)
+    got = hk.hamsoft_megno_multistep(*args, dt=0.01, n_steps=6, **kw)
+    torch.cuda.synchronize()
+    assert hk.hamsoft_megno_multistep.launches == before + 1
+    for name, a, b in zip(("pos", "vel", "eps", "pi"), ref[:4], got[:4]):
+        _close(a, b, name)
+    for name, a, b in zip(("MEGNO", "lyapunov_time", "megno_slope_med"),
+                          ref[4:], got[4:]):
+        _close(a, b, name, *TOL[name])
+
+
+def test_engine_columns_match_plain(cuda_device):
+    """The fused engine on the kernels against the same engine on the
+    plain versions, column by column."""
+    cfg, st, dy, tan = _built("n8_mixed", cuda_device)
+    nsm = int(dy.n_sub.max())
+    rk, _ = analyze_batch_fused(st, dy, cfg, 12, 0.01, "full", nsm, 6,
+                                tangent=tan)
+    rp, _ = analyze_batch_fused(
+        st, dy, cfg, 12, 0.01, "full", nsm, 6, tangent=tan,
+        analysis_fn=hk.hamsoft_analysis_multistep_plain,
+        megno_fn=hk.hamsoft_megno_multistep_plain)
+    assert torch.equal(rk["is_stable"], rp["is_stable"])
+    for k, (rtol, atol) in TOL.items():
+        _close(rp[k], rk[k], k, rtol, atol)
+
+
+PIPE = dict(slot_bucket=8, fast_float32=True, analysis_n_sub_cap=256,
+            use_fused_analysis=True, analysis_group_quantum=1024,
+            analysis_tail_policy="off")
+
+
+def test_analyze_population_launches_both_kernels_once(cuda_device):
+    m, q, v, mask = _population(8, None)
+    a0 = hk.hamsoft_analysis_multistep.launches
+    m0 = hk.hamsoft_megno_multistep.launches
+    tm = {}
+    df = nt.analyze_population(m, q, v, mask, nt.SimConfig(**PIPE),
+                               n_steps=12, mode="full", show_progress=False,
+                               timing_out=tm)
+    assert len(df) == m.shape[0]
+    assert tm["n_dispatches"] == 1
+    assert hk.hamsoft_analysis_multistep.launches == a0 + 1
+    assert hk.hamsoft_megno_multistep.launches == m0 + 1
+    assert np.isfinite(df["is_stable"]).all()
+
+
+def test_group_quantum_is_scheduling_only_on_the_card(cuda_device):
+    """Quantum 1024 and 0 give bitwise-identical rows on the card."""
+    m, q, v, mask = _population(8, None)
+    kw = dict(n_steps=12, mode="full", show_progress=False)
+    a = nt.analyze_population(m, q, v, mask, nt.SimConfig(**PIPE), **kw)
+    b = nt.analyze_population(
+        m, q, v, mask, nt.SimConfig(**{**PIPE, "analysis_group_quantum": 0}),
+        **kw)
+    for c in a.columns:
+        np.testing.assert_array_equal(b[c].to_numpy(), a[c].to_numpy(),
+                                      err_msg=c)

@@ -1,0 +1,63 @@
+"""The port stands alone: no module of ``nbodysimproject_tpu_torch`` and
+not ``chip_smoke.py`` imports JAX or the JAX package.
+
+Checked by walking each source's import statements (``import x``,
+``from x import y``, and ``importlib.import_module``/``__import__``
+calls with a literal name), so a lazy import inside a function counts
+too.
+"""
+
+import ast
+import os
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "nbodysimproject_tpu_torch")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "nbodysimproject_tpu")
+
+
+def _sources():
+    out = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _dirs, files in os.walk(PKG):
+        out.extend(os.path.join(root, f) for f in sorted(files)
+                   if f.endswith(".py"))
+    return sorted(out)
+
+
+def _imported_names(path):
+    tree = ast.parse(open(path).read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom):
+            if node.level == 0 and node.module:
+                yield node.module
+        elif isinstance(node, ast.Call):
+            fn = node.func
+            name = fn.attr if isinstance(fn, ast.Attribute) else \
+                getattr(fn, "id", None)
+            if name in ("import_module", "__import__") and node.args \
+                    and isinstance(node.args[0], ast.Constant) \
+                    and isinstance(node.args[0].value, str):
+                yield node.args[0].value
+
+
+def _forbidden(name):
+    top = name.split(".")[0]
+    return top in FORBIDDEN
+
+
+@pytest.mark.parametrize("path", _sources(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_source_imports_no_jax(path):
+    assert os.path.exists(path), path
+    bad = [n for n in _imported_names(path) if _forbidden(n)]
+    assert not bad, f"{os.path.relpath(path, REPO)} imports {bad}"
+
+
+def test_forbidden_matches_only_the_jax_package():
+    assert _forbidden("jax.numpy") and _forbidden("nbodysimproject_tpu.ops")
+    assert not _forbidden("nbodysimproject_tpu_torch.ops")
+    assert not _forbidden("torch")
