@@ -3,34 +3,55 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path — full-mode ``analyze_population`` under the
-dataset pipeline's configuration (``generators/pipeline.py::_PIPE_CFG``
-of the JAX package, with the Kepler tail policy off) — on real systems
-from ``data/stability_131k.csv.gz``, through the hand-written CUDA
-kernels of ``nbodysimproject_tpu_torch/csrc/hamsoft.cu``.  Phases:
+Drives the port's two paths through their hand-written CUDA kernels:
+full-mode ``analyze_population`` under the dataset pipeline's
+configuration (``generators/pipeline.py::_PIPE_CFG`` of the JAX package,
+Kepler tail policy off) on real systems from
+``data/stability_131k.csv.gz`` (``csrc/hamsoft.cu``), and the batched
+integration of ``bench.py`` (``build_batch`` -> ``integrate_batch`` and
+the fused multi-step entry points; ``csrc/composition.cu``,
+``csrc/hamsoft_multistep.cu``, ``csrc/eps_grad.cu``).  Phases:
 
 1. card: ``nvidia-smi`` name and power limit;
-2. build: ``nvcc`` for every body-slot count, all started together, into
-   the git-ignored ``nbodysimproject_tpu_torch/_build/``; prints the
-   build seconds and ptxas' register and spill lines;
+2. build: one ``nvcc`` per kernel source and body-slot count, all
+   started together, into the git-ignored
+   ``nbodysimproject_tpu_torch/_build/``; prints each build's seconds
+   and ptxas' register and spill lines;
 3. population: the first 16384 rows of the dataset (empty slots: mass
    0, mask False; these rows are the dataset's "random" cohort);
-4. compare: each kernel against its plain PyTorch version on the card,
-   on 1024 real systems at N = 8, d = 2, at a short horizon only.  The
-   lowest n_sub bucket, 20 steps: the analysis columns held to the
-   fused-vs-scan tolerances of ``tests/test_pallas_batch.py`` and both
-   kernels' final pos, vel, eps and pi to STATE_TOL, nothing widened.
-   The 1024 highest-n_sub systems at n_sub_max = 256, 2 steps: the same
-   tolerances (the drift columns' absolute one scaled by how nearly H0
-   or L0 cancels), widened on at most MAX_WIDENED rows by SENS_FACTOR
-   times the row's rounding sensitivity, which the plain version gives
-   when rerun with the body slots reordered;
-5. slice: ``analyze_population(mode="full", n_steps=1000, dt=0.01)`` on
+4. compare the analysis and MEGNO kernels with their plain PyTorch
+   versions on the card, on 1024 real systems at N = 8, at a short
+   horizon only.  The lowest n_sub bucket, 20 steps: the analysis
+   columns held to the fused-vs-scan tolerances of
+   ``tests/test_pallas_batch.py`` and both kernels' final pos, vel, eps
+   and pi to STATE_TOL, nothing widened.  The 1024 highest-n_sub
+   systems at n_sub_max = 256, 2 steps: the same tolerances (the drift
+   columns' absolute one scaled by how nearly H0 or L0 cancels),
+   widened on at most MAX_WIDENED rows by SENS_FACTOR times the row's
+   rounding sensitivity, which the plain version gives when rerun in
+   float64 and with the body slots reordered;
+5. compare the batched slice's kernels with their plain versions at
+   the legs' full widths and short horizons, under the same rule
+   (``row_gate``): the composition kernel (verlet at B = 2^24, yoshida4
+   at B = 2^22, 20 steps), the multi-step kernel under both barrier
+   policies (B = 2^20, 2 steps) and the eps kernel under both clamp
+   settings (the bench population, and the first 1024 dataset rows with
+   their masked 8-slot systems);
+6. slice: ``analyze_population(mode="full", n_steps=1000, dt=0.01)`` on
    all 16384 systems, one cold and three warm runs, with both kernels'
    launch counts read around the cold run; its labels set beside the
-   dataset's own on the rows the n_sub cap does not bind; then the main
-   path's kernel launches replayed on the same inputs between CUDA
-   events.
+   dataset's own and beside a run on reversed body slots;
+7. the same population with ``use_fused_metrics=False`` (the multi-step
+   kernel in chunks, ``step_metrics`` between them), held to the main
+   run's columns within TOL on every row the reversed-slot run does not
+   already put outside TOL, but for MAX_CHUNKED_UNEXPLAINED rows;
+8. the main path's kernel launches replayed between CUDA events;
+9. ``bench.py``'s six legs at full width (verlet and yoshida4 scans at
+   B = 16384 and 1000 steps, the fused verlet at 2^24 and yoshida4 at
+   2^22, the ham_soft scan and fused kernel at 2^20 and 100 steps under
+   both barrier policies), each with launch counts around its cold run,
+   the warm median of three runs between CUDA events and system 0's
+   relative drift of the extended Hamiltonian.
 
 It prints a ``{"kernels": [...]}`` line and, last, the device line.  Any
 failed check raises, so the script exits non-zero; without a CUDA
@@ -313,9 +334,13 @@ def compare_case(label, states, dyns, cfg, lanes, n_steps, n_sub_max, hk,
     megno_steps = min(100, min(50, n_steps // 2))
     n = st.pos.shape[1]
     dev = st.pos.device
-    kern = (hk.hamsoft_analysis_multistep, hk.hamsoft_megno_multistep)
-    plain = (hk.hamsoft_analysis_multistep_plain,
-             hk.hamsoft_megno_multistep_plain)
+    # the fused way samples inside the analysis kernel; with
+    # use_fused_metrics=False the multi-step kernel runs between samples
+    first = "analysis" if cfg.use_fused_metrics else "multistep"
+    fn = {"analysis": "hamsoft_analysis_multistep",
+          "multistep": "hamsoft_multistep"}[first]
+    kern = (getattr(hk, fn), hk.hamsoft_megno_multistep)
+    plain = (getattr(hk, f"{fn}_plain"), hk.hamsoft_megno_multistep_plain)
     # (route, functions, body-slot order, float64); the first kernel run
     # warms up
     runs = [("warm", kern, None, False), ("kernel", kern, None, False),
@@ -337,10 +362,10 @@ def compare_case(label, states, dyns, cfg, lanes, n_steps, n_sub_max, hk,
         t0 = time.perf_counter()
         res, _ = engine(start, dyn, cfg, n_steps, DT, "full", n_sub_max,
                         megno_steps, tangent=t_in, g_static=1.0,
-                        analysis_fn=ta, megno_fn=tm)
+                        megno_fn=tm, **{f"{first}_fn": ta})
         torch.cuda.synchronize()
         cols = {k: v.cpu().numpy().astype(np.float64) for k, v in res.items()}
-        for kind, t in (("analysis", ta), ("megno", tm)):
+        for kind, t in ((first, ta), ("megno", tm)):
             cols.update({f"{kind}.{k}": v
                          for k, v in _final_state(t, perm).items()})
         out[route] = (cols, ta, tm, time.perf_counter() - t0)
@@ -367,7 +392,7 @@ def compare_case(label, states, dyns, cfg, lanes, n_steps, n_sub_max, hk,
           f"non-pathological energy compared; "
           f"{'widened by the plain version sensitivity' if widen else 'tolerances alone'}")
     cond = conditioning(st, dy, cfg) if widen else {}
-    state_cols = [f"{kind}.{k}" for kind in ("analysis", "megno")
+    state_cols = [f"{kind}.{k}" for kind in (first, "megno")
                   for k in ("pos", "vel", "eps", "pi")]
     tols = {c: TOL[c] for c in TOL if c != "is_stable"}
     tols.update({c: STATE_TOL for c in state_cols})
@@ -446,11 +471,468 @@ def compare_case(label, states, dyns, cfg, lanes, n_steps, n_sub_max, hk,
         return err
 
     n_sub = dy.n_sub.cpu().numpy()
-    return {"analysis": (ka.ms, pa.ms, state_err("analysis"), n_sub,
-                         n_steps, megno_steps, n_sub_max),
+    return {first: (ka.ms, pa.ms, state_err(first), n_sub, n_steps,
+                    megno_steps, n_sub_max),
             "megno": (km.ms, pm.ms, state_err("megno"), n_sub,
                       n_steps, megno_steps, n_sub_max)}
 
+
+# ------------------------------------------------------ the batched slice
+#: bench.py's configuration #1: the 3-body system (bench.py:48-54) with
+#: 1% Gaussian IC perturbations, dt 0.01, float32
+BENCH_M = (1.0, 0.5, 0.1)
+BENCH_Q = ((0.0, 0.0), (1.0, 0.0), (0.0, 2.0))
+BENCH_V = ((0.0, 0.0), (0.0, 1.0), (-0.5, 0.0))
+#: the six legs' widths and horizons (bench.py:44-340)
+B_SCAN, SCAN_STEPS = 16384, 1000
+B_VERLET_FUSED, B_Y4_FUSED, B_HS = 1 << 24, 1 << 22, 1 << 20
+HS_STEPS, HS_NSUB_CAP = 100, 50
+FUSED_EPS2 = 1e-6
+#: short horizons of the kernel-vs-plain comparisons at full width
+CMP_COMPOSITION_STEPS, CMP_MULTISTEP_STEPS = 20, 2
+#: kernel-vs-plain tolerances (rtol, atol): final pos/vel of the
+#: composition kernel and of the multi-step kernel as STATE_TOL; the eps
+#: kernel's eps* and gradient as the CPU tests hold its plain version to
+#: the JAX kernel
+EPS_TOL = {"es": (1e-6, 0.0), "grad": (1e-5, 1e-5)}
+#: use_fused_metrics=False is held to its plain version (the multi-step
+#: kernel's) by compare_case, as the fused way is.  Against the fused way
+#: it is held at one step, where both kernels seed the SPH solve from the
+#: same entry eps and run the same trips (every row within TOL), and
+#: measured, not gated, at the horizon of the JAX package's own parity
+#: test (tests/test_pallas_batch.py, 12 steps) and at the full horizon:
+#: each chunk of the multi-step kernel seeds its SPH solve from its own
+#: entry eps where the analysis kernel seeds once, a difference of the
+#: model (the JAX package's too) that chaotic rows amplify
+CHUNK_PARITY_STEPS = (1, 12)
+
+
+def bench_ics(B, seed, dev):
+    """bench.py's population: (mass, pos, vel) of B perturbed copies of
+    the 3-body system, drawn on the card from ``seed``."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    f = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)
+    dq = 0.01 * torch.randn((B, 3, 2), generator=gen, device=dev)
+    dv = 0.01 * torch.randn((B, 3, 2), generator=gen, device=dev)
+    return (f(BENCH_M).expand(B, 3).contiguous(), f(BENCH_Q)[None] + dq,
+            f(BENCH_V)[None] + dv)
+
+
+def composition_ops(n, d, stages):
+    """Operations of one composition step, counted off the loops of
+    csrc/composition.cu: per stage a drift and a kick (2 N d each) and a
+    pair loop of 7 d + 5 per pair."""
+    P = n * (n - 1) // 2
+    return stages * (4 * n * d + P * (7 * d + 5))
+
+
+def ops_bound(ops, words):
+    """(bound_ms, bound_by) of ``ops`` FP32 operations and ``words``
+    4-byte words moved."""
+    t_ops, t_bytes = ops / PEAK_FP32, 4 * words / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def bound_composition(B, n, d, steps, stages):
+    return ops_bound(B * (steps * composition_ops(n, d, stages)
+                          + 2 * composition_ops(n, d, 1) + n),
+                     B * (4 * n * d + n + 1))
+
+
+def bound_multistep(n_sub, nsm, steps, n, d):
+    ns = np.minimum(np.maximum(n_sub, 1), nsm).astype(np.float64)
+    B = len(ns)
+    return ops_bound(ns.sum() * steps * trip_ops(n, d)
+                     + B * entry_ops(n, d),
+                     B * (4 * n * d + n + 13))
+
+
+def bound_eps(B, n, d):
+    return ops_bound(B * (entry_ops(n, d) + 6),
+                     B * (2 * n * d + n + 5))
+
+
+def row_gate(label, outs, max_widened=MAX_WIDENED):
+    """Hold each kernel output to its plain version: ``outs`` maps a name
+    to (kernel, plain, plain float64, plain on reordered slots, (rtol,
+    atol)), tensors with the system axis first.  A row fails where the
+    kernel lies outside rtol/atol plus SENS_FACTOR times the plain
+    version's own rounding sensitivity (its distance to its float64 run
+    and to its reordered run); rows that need the widening must be rows
+    where the float32 plain version itself misses the tolerance against
+    float64, but for at most ``max_widened``.  Returns the largest
+    |kernel - plain|."""
+    B = next(iter(outs.values()))[0].shape[0]
+    dev = next(iter(outs.values()))[0].device
+    widened = torch.zeros(B, dtype=torch.bool, device=dev)
+    f32_off = torch.zeros_like(widened)
+    failures, worst, differ = [], 0.0, torch.zeros_like(widened)
+    for name, (k, p, p64, pr, (rtol, atol)) in outs.items():
+        k, p, p64, pr = (x.double().reshape(B, -1) for x in (k, p, p64, pr))
+        fin = torch.isfinite(k) & torch.isfinite(p)
+        zero = torch.zeros_like(p)
+        err = torch.where(fin, (k - p).abs(), zero)
+        base = atol + rtol * torch.where(fin, p.abs(), zero)
+        sens = torch.maximum(torch.nan_to_num((p - p64).abs()),
+                             torch.nan_to_num((p - pr).abs()))
+        bad = ((err > base + SENS_FACTOR * sens)
+               | (torch.isfinite(k) != torch.isfinite(p))).any(1)
+        wide = (err > base).any(1) & ~bad
+        off = (torch.nan_to_num((p - p64).abs()) > base).any(1)
+        differ |= (err > 0).any(1)
+        widened |= wide
+        f32_off |= off
+        e = float(err.max())
+        worst = max(worst, e)
+        print(f"    {label} {name:5s} max_abs {e:.3e} max_rel "
+              f"{float((err / p.abs().clamp_min(1e-30)).max()):.3e} outside "
+              f"{int(bad.sum())} rows, widened {int(wide.sum())}; float32 "
+              f"plain outside the tolerance from float64 on "
+              f"{int(off.sum())} rows")
+        if bad.any():
+            failures.append(name)
+    other = int((widened & ~f32_off).sum())
+    print(f"    {label}: {B} rows, {int(differ.sum())} differ at all, "
+          f"{int(widened.sum())} needed the widening, {other} of them (at "
+          f"most {max_widened}) outside the float32-sensitive rows")
+    if other > max_widened:
+        failures.append(f"{other} widened rows")
+    if failures:
+        raise SystemExit(f"{label}: kernel disagrees with its plain version "
+                         f"on {failures}")
+    return worst
+
+
+def _runs(kernel, plain, make_args, reorder, unorder):
+    """(kernel out, plain out, plain float64 out, plain reordered out,
+    kernel ms, plain ms): the kernel once to warm up, then once between
+    CUDA events; the plain version timed the same way, then in float64
+    and on reordered body slots (``reorder`` maps args, ``unorder`` the
+    outputs back)."""
+    kernel(*make_args(torch.float32))
+    tk, tp = Timed(kernel), Timed(plain)
+    k_out = tk(*make_args(torch.float32))
+    p_out = tp(*make_args(torch.float32))
+    p64 = plain(*make_args(torch.float64))
+    pr = unorder(plain(*reorder(make_args(torch.float32))))
+    torch.cuda.synchronize()
+    return k_out, p_out, p64, pr, tk.ms, tp.ms
+
+
+def compare_composition(scheme, B, dev):
+    from nbodysimproject_tpu_torch.ops import batch_kernels as bk
+
+    m, q, v = bench_ics(B, 7, dev)
+    eps2 = torch.full((B,), FUSED_EPS2, device=dev)
+    steps = CMP_COMPOSITION_STEPS
+    kw = dict(h=DT, G=1.0, n_steps=steps, scheme=scheme)
+    rev = torch.arange(2, -1, -1, device=dev)
+
+    def make(dt_):
+        return tuple(x.to(dt_) for x in (q, v, m, eps2))
+
+    k, p, p64, pr, ms, pms = _runs(
+        lambda *a: bk.composition_multistep(*a, **kw),
+        lambda *a: bk.composition_multistep_plain(*a, **kw), make,
+        lambda a: (a[0][:, rev], a[1][:, rev], a[2][:, rev], a[3]),
+        lambda o: (o[0][:, rev], o[1][:, rev]))
+    err = row_gate(f"composition {scheme} (B={B}, {steps} steps)",
+                   {n: (k[i], p[i], p64[i], pr[i], STATE_TOL)
+                    for i, n in enumerate(("pos", "vel"))})
+    stages = len(bk.SCHEME_STAGES[scheme])
+    b_ms, b_by = bound_composition(B, 3, 2, steps, stages)
+    print(f"  composition {scheme}: kernel {ms:.3f} ms, plain {pms:.3f} ms, "
+          f"bound {b_ms:.3f} ms ({b_by})", flush=True)
+    return dict(ms=ms, plain_ms=pms, err=err, bound=(b_ms, b_by))
+
+
+def hamsoft_bench_batch(cfg, dev):
+    """bench.py's ham_soft population: built with softening 5e-2, n_sub
+    capped at HS_NSUB_CAP; returns (states, dyns, kernel kwargs)."""
+    from nbodysimproject_tpu_torch.parallel.batch_engine import build_batch
+
+    m, q, v = bench_ics(B_HS, 11, dev)
+    mask = torch.ones(m.shape, dtype=torch.bool, device=dev)
+    st, dy = build_batch(m, q, v, mask, cfg, 1.0, 5e-2, 0.0, DT)
+    dy = dy.replace(n_sub=torch.clamp_max(dy.n_sub, HS_NSUB_CAP))
+    return st, dy
+
+
+def multistep_kw(cfg, dy, steps, policy):
+    n_sub = torch.clamp_min(dy.n_sub, 1)
+    return dict(k_soft=dy.k_soft, mu=dy.mu_soft, alpha=dy.alpha_run,
+                eps_min=dy.min_softening, eps_max=dy.max_softening,
+                h=DT / n_sub.to(torch.float32), n_sub=n_sub,
+                n_sub_max=int(n_sub.max()), n_steps=steps, G=1.0,
+                k_wall=float(cfg.k_wall), eta=float(cfg.eta),
+                jcap=float(cfg.j_max_cap), bexp=int(cfg.barrier_exponent),
+                policy=policy)
+
+
+def compare_multistep(cfg, st, dy, policy, hk):
+    steps = CMP_MULTISTEP_STEPS
+    kw = multistep_kw(cfg, dy, steps, policy)
+    rev = torch.arange(2, -1, -1, device=st.pos.device)
+
+    def make(dt_):
+        per = {k: (v.to(dt_) if torch.is_floating_point(v) else v)
+               if torch.is_tensor(v) else v for k, v in kw.items()}
+        return (tuple(x.to(dt_) for x in (st.pos, st.vel, st.mass, st.eps,
+                                          st.pi)), per)
+
+    k, p, p64, pr, ms, pms = _runs(
+        lambda a, per: hk.hamsoft_multistep(*a, **per),
+        lambda a, per: hk.hamsoft_multistep_plain(*a, **per),
+        lambda dt_: make(dt_),
+        lambda ap: ((ap[0][0][:, rev], ap[0][1][:, rev], ap[0][2][:, rev],
+                     ap[0][3], ap[0][4]), ap[1]),
+        lambda o: (o[0][:, rev], o[1][:, rev], o[2], o[3]))
+    err = row_gate(f"multistep {policy} (B={st.pos.shape[0]}, {steps} steps)",
+                   {n: (k[i], p[i], p64[i], pr[i], STATE_TOL)
+                    for i, n in enumerate(("pos", "vel", "eps", "pi"))})
+    b_ms, b_by = bound_multistep(dy.n_sub.cpu().numpy(), kw["n_sub_max"],
+                                 steps, 3, 2)
+    print(f"  multistep {policy}: kernel {ms:.3f} ms, plain {pms:.3f} ms, "
+          f"bound {b_ms:.4f} ms ({b_by})", flush=True)
+    return dict(ms=ms, plain_ms=pms, err=err, bound=(b_ms, b_by))
+
+
+def compare_eps(label, st, dy, clamp, ek):
+    n = st.pos.shape[1]
+    rev = torch.arange(n - 1, -1, -1, device=st.pos.device)
+
+    def make(dt_):
+        return (st.pos.to(dt_), st.mass.to(dt_), st.eps.to(dt_),
+                dy.alpha_run.to(dt_), dy.min_softening.to(dt_),
+                dy.max_softening.to(dt_), st.mask)
+
+    k, p, p64, pr, ms, pms = _runs(
+        lambda *a: ek.eps_star_and_grad_fused(*a, clamp=clamp),
+        lambda *a: ek.eps_star_and_grad_fused_plain(*a, clamp=clamp), make,
+        lambda a: (a[0][:, rev], a[1][:, rev]) + a[2:6] + (a[6][:, rev],),
+        lambda o: (o[0], o[1][:, rev]))
+    err = row_gate(f"eps {label} clamp={clamp} (B={st.pos.shape[0]}, N={n})",
+                   {"es": (k[0], p[0], p64[0], pr[0], EPS_TOL["es"]),
+                    "grad": (k[1], p[1], p64[1], pr[1], EPS_TOL["grad"])})
+    b_ms, b_by = bound_eps(st.pos.shape[0], n, 2)
+    print(f"  eps {label} clamp={clamp}: kernel {ms:.3f} ms, plain "
+          f"{pms:.3f} ms, bound {b_ms:.4f} ms ({b_by}); nonzero gradient on "
+          f"{int((p[1].abs().amax((1, 2)) > 0).sum())} rows", flush=True)
+    return dict(ms=ms, plain_ms=pms, err=err, bound=(b_ms, b_by))
+
+
+def nonfinite(pos):
+    """Systems whose final positions are not all finite."""
+    return int((~torch.isfinite(pos)).reshape(pos.shape[0], -1).any(1).sum())
+
+
+def reset_counts(*fns):
+    for fn in fns:
+        fn.launches = 0
+
+
+def drift_sys0(cfg, dy0, before, after):
+    """bench.py's health check: system 0's relative drift of the extended
+    Hamiltonian between two states of it."""
+    from nbodysimproject_tpu_torch.diagnostics.energy import \
+        extended_hamiltonian
+
+    H0 = float(extended_hamiltonian(before, dy0, cfg)[0])
+    H1 = float(extended_hamiltonian(after, dy0, cfg)[0])
+    return abs((H1 - H0) / H0) if H0 != 0 else float("nan")
+
+
+def run_leg(name, fn, B, steps, counted):
+    """One cold and WARM_REPS warm runs of ``fn`` between CUDA events;
+    the launch counts of ``counted`` are set to 0 before the cold run
+    and read after it.  Returns (last output, cold ms, warm median ms,
+    launches)."""
+    reset_counts(*counted)
+    cold = Timed(fn)
+    out = cold()
+    launches = {f.__name__: f.launches for f in counted}
+    warm = []
+    for _ in range(WARM_REPS):
+        t = Timed(fn)
+        out = t()
+        warm.append(t.ms)
+    med = float(np.median(warm))
+    print(f"  {name}: B={B}, {steps} steps, cold {cold.ms:.1f} ms, warm "
+          f"median {med:.3f} ms ({', '.join(f'{w:.3f}' for w in warm)}): "
+          f"{B * steps / (med / 1e3):.4e} system-steps/s; launches in the "
+          f"cold run {launches}", flush=True)
+    return out, cold.ms, med, launches
+
+
+def slice_legs(dev, hk, ek, bk):
+    """bench.py's six legs at full width through the port's entry
+    points.  Returns {leg: (cold ms, warm ms, launches, drift)}."""
+    from nbodysimproject_tpu_torch import SimConfig
+    from nbodysimproject_tpu_torch.parallel.batch_engine import (
+        build_batch, integrate_batch)
+
+    kernels = (hk.hamsoft_analysis_multistep, hk.hamsoft_megno_multistep,
+               hk.hamsoft_multistep, ek.eps_star_and_grad_fused,
+               bk.composition_multistep)
+    legs = {}
+    m, q, v = bench_ics(B_SCAN, 0, dev)
+    mask = torch.ones(m.shape, dtype=torch.bool, device=dev)
+    for mode in ("verlet", "yoshida4"):
+        cfg = SimConfig(integrator_mode=mode)
+        st, dy = build_batch(m, q, v, mask, cfg, 1.0, 1e-3, 0.0, DT)
+        nsm = int(dy.n_sub.max())
+        out, cold, med, la = run_leg(
+            f"{mode} scan (integrate_batch, n_sub_max {nsm})",
+            lambda: integrate_batch(st, dy, cfg, DT, SCAN_STEPS, nsm),
+            B_SCAN, SCAN_STEPS, kernels)
+        dr = drift_sys0(cfg, dy.take(slice(0, 1)), st.take(slice(0, 1)),
+                        out.take(slice(0, 1)))
+        print(f"    drift(sys0) {dr:.3e}; non-finite systems "
+              f"{nonfinite(out.pos)}")
+        legs[f"{mode} scan"] = (cold, med, la, dr)
+        if mode == "verlet":
+            st_v, dy_v, cfg_v = st, dy, cfg
+    for scheme, B in (("verlet", B_VERLET_FUSED), ("yoshida4", B_Y4_FUSED)):
+        mf, qf, vf = bench_ics(B, 7 if scheme == "verlet" else 17, dev)
+        eps2 = torch.full((B,), FUSED_EPS2, device=dev)
+        fn = bk.verlet_multistep if scheme == "verlet" \
+            else bk.yoshida4_multistep
+        (po, vo), cold, med, la = run_leg(
+            f"{scheme} fused ({fn.__name__})",
+            lambda: fn(qf, vf, mf, eps2, h=DT, G=1.0, n_steps=SCAN_STEPS),
+            B, SCAN_STEPS, kernels)
+        if la["composition_multistep"] == 0:
+            raise SystemExit(f"{scheme} fused leg launched no kernel")
+        s0 = st_v.take(slice(0, 1)).replace(
+            pos=qf[:1], vel=vf[:1], eps=torch.sqrt(eps2[:1]),
+            step_s2=eps2[:1])
+        dr = drift_sys0(cfg_v, dy_v.take(slice(0, 1)), s0,
+                        s0.replace(pos=po[:1], vel=vo[:1]))
+        stages = len(bk.SCHEME_STAGES[scheme])
+        b_ms, b_by = bound_composition(B, 3, 2, SCAN_STEPS, stages)
+        print(f"    drift(sys0) {dr:.3e}; non-finite systems {nonfinite(po)}; "
+              f"bound {b_ms:.3f} ms ({b_by}), {med / b_ms:.2f}x the bound")
+        legs[f"{scheme} fused"] = (cold, med, la, dr)
+        del mf, qf, vf, eps2, po, vo
+        torch.cuda.empty_cache()
+    cfg_hs = SimConfig(integrator_mode="ham_soft", fast_float32=True)
+    st, dy = hamsoft_bench_batch(cfg_hs, dev)
+    print(f"  ham_soft batch: B={B_HS}, n_sub counts "
+          f"{torch.bincount(dy.n_sub).tolist()} (capped at {HS_NSUB_CAP})")
+    nsm = int(dy.n_sub.max())
+    one = lambda x: x.take(slice(0, 1))
+    for policy in ("soft", "reflection"):
+        cfg = cfg_hs.replace(use_soft_barrier=(policy == "soft"))
+        out, cold, med, la = run_leg(
+            f"ham_soft scan {policy} (integrate_batch, n_sub_max {nsm})",
+            lambda: integrate_batch(st, dy, cfg, DT, HS_STEPS, nsm),
+            B_HS, HS_STEPS, kernels)
+        if la["eps_star_and_grad_fused"] == 0:
+            raise SystemExit(f"ham_soft scan {policy}: the eps kernel was "
+                             f"not launched")
+        dr = drift_sys0(cfg, one(dy), one(st), one(out))
+        print(f"    drift(sys0) {dr:.3e}; non-finite systems "
+              f"{nonfinite(out.pos)}")
+        legs[f"ham_soft scan {policy}"] = (cold, med, la, dr)
+        kw = multistep_kw(cfg, dy, HS_STEPS, policy)
+        (po, vo, eo, pio), cold, med, la = run_leg(
+            f"ham_soft fused {policy} (hamsoft_multistep)",
+            lambda: hk.hamsoft_multistep(st.pos, st.vel, st.mass, st.eps,
+                                         st.pi, **kw),
+            B_HS, HS_STEPS, kernels)
+        if la["hamsoft_multistep"] == 0:
+            raise SystemExit(f"ham_soft fused {policy} launched no kernel")
+        after = one(st).replace(pos=po[:1], vel=vo[:1], eps=eo[:1],
+                                pi=pio[:1], s=eo[:1], step_s2=eo[:1] ** 2)
+        dr = drift_sys0(cfg, one(dy), one(st), after)
+        b_ms, b_by = bound_multistep(dy.n_sub.cpu().numpy(), nsm, HS_STEPS,
+                                     3, 2)
+        print(f"    drift(sys0) {dr:.3e}; non-finite systems {nonfinite(po)}; "
+              f"bound {b_ms:.3f} ms ({b_by}), {med / b_ms:.2f}x the bound")
+        legs[f"ham_soft fused {policy}"] = (cold, med, la, dr)
+    return legs
+
+
+def _outside(a, x, rtol, atol):
+    """Rows of ``x`` outside (rtol, atol) of ``a``, or finite where ``a``
+    is not (and the reverse)."""
+    both = np.isfinite(a) & np.isfinite(x)
+    with np.errstate(invalid="ignore"):
+        err = np.where(both, np.abs(x - a), 0.0)
+    return (err > atol + rtol * np.abs(np.where(both, a, 0.0))) \
+        | (np.isfinite(a) != np.isfinite(x))
+
+
+def cols_outside(ref, got, rows):
+    """Rows outside TOL in any column of TOL, over ``rows`` entries."""
+    out = np.zeros(rows, bool)
+    for col, (rtol, atol) in TOL.items():
+        out |= _outside(ref[col], got[col], rtol, atol)
+    return out
+
+
+def chunked_parity_horizon(states, dyns, cfg, n_sub_max, engine):
+    """use_fused_metrics=False against True on every lane (core mode) at
+    each horizon of CHUNK_PARITY_STEPS: rows that differ at all and rows
+    outside TOL, by n_sub.  At one step every row must lie within TOL."""
+    B = states.pos.shape[0]
+    ns = np.minimum(dyns.n_sub.cpu().numpy(), n_sub_max)
+    groups = ((ns <= 2), (ns > 2) & (ns < 64), (ns >= 64))
+    for steps in CHUNK_PARITY_STEPS:
+        res, fin = {}, {}
+        for flag in (True, False):
+            r, st1 = engine(states, dyns,
+                            cfg.replace(use_fused_metrics=flag), steps, DT,
+                            "core", n_sub_max, 0)
+            res[flag] = {k: v.cpu().numpy().astype(np.float64)
+                         for k, v in r.items()}
+            fin[flag] = torch.cat([x.reshape(B, -1) for x in (
+                st1.pos, st1.vel, st1.eps, st1.pi)], 1)
+        same = (fin[True] == fin[False]) | (torch.isnan(fin[True])
+                                            & torch.isnan(fin[False]))
+        differ = np.zeros(B, bool)
+        for col in TOL:
+            a, b = res[True][col], res[False][col]
+            differ |= ~((a == b) | (np.isnan(a) & np.isnan(b)))
+        outside = cols_outside(res[True], res[False], B)
+        print(f"  {steps} step(s) on {B} lanes: final pos/vel/eps/pi differ "
+              f"on {int((~same.all(1)).sum())} rows; columns differ at all on "
+              f"{int(differ.sum())} rows, {int(outside.sum())} outside TOL; "
+              f"outside "
+              f"TOL by n_sub <= 2 / 3-63 / >= 64: " + ", ".join(
+                  f"{int((outside & g).sum())} of {int(g.sum())}"
+                  for g in groups))
+        if steps == 1 and outside.any():
+            raise SystemExit("use_fused_metrics=False: one step disagrees "
+                             "with the fused way")
+
+
+def chunked_full_horizon(df, df_c, df_rev, sane):
+    """The full-horizon use_fused_metrics=False run (``df_c``) beside the
+    main path's (``df``) and the reversed-slot run (``df_rev``, the
+    population's rounding floor), on the rows whose energy is sane in
+    the main run: printed, not gated."""
+    differ = np.zeros(len(df), bool)
+    outside = np.zeros(len(df), bool)
+    floor = np.zeros(len(df), bool)
+    for col, (rtol, atol) in TOL.items():
+        a = df[col].to_numpy(float)
+        b = df_c[col].to_numpy(float)
+        o = _outside(a, b, rtol, atol) & sane
+        f = _outside(a, df_rev[col].to_numpy(float), rtol, atol) & sane
+        differ |= sane & ~((a == b) | (np.isnan(a) & np.isnan(b)))
+        outside |= o
+        floor |= f
+    print(f"    {int(sane.sum())} sane rows: {int(differ.sum())} differ at "
+          f"all, {int(outside.sum())} outside TOL, {int(floor.sum())} where "
+          f"the reversed-slot run is outside TOL, "
+          f"{int((outside & ~floor).sum())} outside TOL where the "
+          f"reversed-slot run is not")
+    print_agreement("the fused way (first) against use_fused_metrics=False "
+                    "(second), all rows",
+                    label_agreement(df, df_c, np.ones(len(df), bool)))
 
 def main():
     if not torch.cuda.is_available():
@@ -463,6 +945,9 @@ def main():
     from nbodysimproject_tpu_torch.analysis.fused import analyze_batch_fused
     from nbodysimproject_tpu_torch.diagnostics.megno import (
         init_tangent, population_normals)
+    from nbodysimproject_tpu_torch.ops import batch_kernels as bk
+    from nbodysimproject_tpu_torch.ops import cuda_build
+    from nbodysimproject_tpu_torch.ops import eps_kernels as ek
     from nbodysimproject_tpu_torch.ops import hamsoft_kernels as hk
 
     phase("card")
@@ -474,9 +959,11 @@ def main():
 
     phase("build")
     t0 = time.perf_counter()
-    built = hk.build()
-    for (n, d), (path, secs, report) in sorted(built.items()):
-        print(f"  N={n} d={d}: {os.path.basename(path)} in {secs:.1f}s")
+    built = cuda_build.build(hk.build_jobs() + ek.build_jobs()
+                             + bk.build_jobs())
+    for (src, n, d), (path, secs, report) in sorted(built.items()):
+        print(f"  {src} N={n} d={d}: {os.path.basename(path)} in "
+              f"{secs:.1f}s")
         for line in report.splitlines():
             print(f"    {line.strip()}")
     print(f"  build wall {time.perf_counter() - t0:.1f}s")
@@ -515,6 +1002,26 @@ def main():
                                   nsm, hk, analyze_batch_fused, tangent_of,
                                   widen))
         print(f"  {label} done in {time.perf_counter() - t0:.1f}s")
+
+    phase("compare the batched slice's kernels with their plain versions")
+    new_cmp = {}
+    for scheme, B in (("verlet", B_VERLET_FUSED), ("yoshida4", B_Y4_FUSED)):
+        new_cmp[f"composition {scheme}"] = compare_composition(scheme, B, dev)
+        torch.cuda.empty_cache()
+    cfg_hs = SimConfig(integrator_mode="ham_soft", fast_float32=True)
+    st_h, dy_h = hamsoft_bench_batch(cfg_hs, dev)
+    for policy in ("soft", "reflection"):
+        new_cmp[f"multistep {policy}"] = compare_multistep(
+            cfg_hs.replace(use_soft_barrier=(policy == "soft")), st_h, dy_h,
+            policy, hk)
+    first = torch.arange(B_CMP, device=dev)
+    for clamp in (True, False):
+        new_cmp[f"eps bench clamp={clamp}"] = compare_eps(
+            "bench", st_h, dy_h, clamp, ek)
+        new_cmp[f"eps dataset clamp={clamp}"] = compare_eps(
+            "dataset", states.take(first), dyns.take(first), clamp, ek)
+    del st_h, dy_h
+    torch.cuda.empty_cache()
 
     phase("slice: full-mode analyze_population on the card")
     kw = dict(G=G, softening=soft, min_softening=min_soft, dt=DT,
@@ -594,6 +1101,43 @@ def main():
                     "(second), the same rows",
                     label_agreement(df, df_rev, untouched))
 
+    phase("use_fused_metrics=False on the main path's population")
+    cfg_c = cfg.replace(use_fused_metrics=False)
+    chunked_cases = []
+    reset_counts(hk.hamsoft_analysis_multistep, hk.hamsoft_megno_multistep,
+                 hk.hamsoft_multistep)
+    t0 = time.perf_counter()
+    df_c = analyze_population(mass, pos, vel, mask, cfg_c, **kw)
+    t_c = time.perf_counter() - t0
+    launches_c = {f.__name__: f.launches for f in (
+        hk.hamsoft_analysis_multistep, hk.hamsoft_megno_multistep,
+        hk.hamsoft_multistep)}
+    print(f"  {t_c:.3f}s ({B_MAIN / t_c:.1f} systems/s), launches "
+          f"{launches_c}")
+    if launches_c["hamsoft_multistep"] == 0 \
+            or launches_c["hamsoft_analysis_multistep"] != 0:
+        raise SystemExit("use_fused_metrics=False did not run the "
+                         "multi-step kernel alone")
+    if len(df_c) != B_MAIN or not np.isfinite(df_c["is_stable"]).all():
+        raise SystemExit("use_fused_metrics=False: missing or non-finite "
+                         "is_stable")
+    chunked_full_horizon(df, df_c, df_rev,
+                         ~df["pathological_energy"].to_numpy(bool))
+    rows_c, nsm_c, _ = dispatch_plan(n_sub_raw, cfg)
+    lanes_c = torch.as_tensor(rows_c, device=dev)
+    chunked_parity_horizon(states.take(lanes_c), dyns.take(lanes_c), cfg,
+                           nsm_c, analyze_batch_fused)
+    for label, lanes, steps, nsm, widen in (
+            ("lowest bucket, use_fused_metrics=False", low, 20,
+             int(buckets[low].max()), False),
+            ("top bucket, use_fused_metrics=False", top, 2,
+             int(cfg.analysis_n_sub_cap), True)):
+        t0 = time.perf_counter()
+        chunked_cases.append(compare_case(
+            label, states, dyns, cfg_c, torch.as_tensor(lanes, device=dev),
+            steps, nsm, hk, analyze_batch_fused, tangent_of, widen))
+        print(f"  {label} done in {time.perf_counter() - t0:.1f}s")
+
     phase("main-path kernel times")
     # the main path's one launch of each kernel, replayed on the same
     # inputs (the lane order of analyze_population's dispatch plan and
@@ -614,6 +1158,9 @@ def main():
         print(f"  {kind}: {len(ns_lanes)} lanes, one launch {t.ms:.1f} ms, "
               f"bound {b_ms:.3f} ms ({b_by}), "
               f"{t.ms / b_ms:.0f}x the bound", flush=True)
+
+    phase("the batched slice: bench.py's six legs at full width")
+    legs = slice_legs(dev, hk, ek, bk)
 
     phase("report")
     entries = []
@@ -636,6 +1183,35 @@ def main():
               f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}); "
               f"lowest-bucket case kernel {low_ms:.3f} ms, plain "
               f"{low_plain:.3f} ms")
+    for name, src, replaces, leg, case, err_of in (
+            ("hamsoft_multistep", "hamsoft_multistep.cu",
+             "nbodysimproject_tpu/ops/pallas_hamsoft.py:508",
+             "ham_soft fused soft", "multistep soft", ("multistep",)),
+            ("eps_star_and_grad_fused", "eps_grad.cu",
+             "nbodysimproject_tpu/ops/pallas_eps.py:50",
+             "ham_soft scan soft", "eps bench clamp=True", ("eps",)),
+            ("composition_multistep", "composition.cu",
+             "nbodysimproject_tpu/ops/pallas_batch.py:49", "verlet fused",
+             "composition verlet", ("composition",))):
+        c = new_cmp[case]
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": f"nbodysimproject_tpu_torch/csrc/{src}",
+            "replaces": replaces, "launches": legs[leg][2][name],
+            "max_abs_err": max([v["err"] for k, v in new_cmp.items()
+                                if k.startswith(err_of)]
+                               + [c[name[8:]][2] for c in chunked_cases
+                                  if name == "hamsoft_multistep"]),
+            "ms": c["ms"], "plain_ms": c["plain_ms"],
+            "bound_ms": c["bound"][0], "bound_by": c["bound"][1],
+            "library_ms": None})
+        print(f"  {name}: {case} case kernel {c['ms']:.3f} ms, plain "
+              f"{c['plain_ms']:.3f} ms, bound {c['bound'][0]:.4f} ms "
+              f"({c['bound'][1]}); launches in the {leg} leg "
+              f"{legs[leg][2][name]}")
+    for leg, (cold, med, la, dr) in legs.items():
+        print(f"  leg {leg}: cold {cold:.1f} ms, warm median {med:.3f} ms, "
+              f"drift(sys0) {dr:.3e}")
     print(f"  total {time.perf_counter() - T0:.1f}s")
     print(card)
     print(json.dumps({"kernels": entries, "card": card}))

@@ -1,20 +1,27 @@
-"""Batched ham_soft analysis driven by the fused analysis and MEGNO kernels.
+"""Batched ham_soft analysis driven by the fused kernels.
 
-Counterpart of ``nbodysimproject_tpu/analysis/fused.py`` on the branch
-the dataset pipeline takes: ``cfg.use_fused_metrics`` (one analysis
-kernel call for the whole sampled horizon, metric moments accumulated
-in-kernel, J_eps and theta_eps derived here from the sampled (eps, pi)
-rows) and ``cfg.use_fused_megno`` (the MEGNO continuation in its own
-kernel).  The metric sampling keeps the scan path's semantics: after
-macro step i, sample when ``i % interval == 0``.
+Counterpart of ``nbodysimproject_tpu/analysis/fused.py``.  Two ways to
+the metric moments, as in the JAX package:
+
+* ``cfg.use_fused_metrics`` (the dataset pipeline's): one analysis
+  kernel call for the whole sampled horizon, the metric moments
+  accumulated in-kernel, J_eps and theta_eps derived here from the
+  sampled (eps, pi) rows;
+* otherwise: the plain multi-step kernel in chunks of [1, interval,
+  interval, ...] steps, ``diagnostics/metrics.py::step_metrics`` after
+  each chunk, and an unsampled tail.  Each chunk seeds its SPH solve
+  from its own entry eps (the fused call seeds once), so the two ways
+  agree to the fused-vs-scan tolerances, not bit for bit.
+
+Both keep the scan path's sampling semantics: after macro step i, sample
+when ``i % interval == 0``.  ``cfg.use_fused_megno`` runs the MEGNO
+continuation in its own kernel.
 
 The JAX package falls back to its scan engine on the CPU
-(``fused_path_applicable``); this slice has no scan engine, so the
-engine runs wherever the configuration is covered
-(``fused_config_covered``), and on the CPU the kernel wrappers run
-their plain versions because the tensors lie there.  The other
-branches (``use_fused_metrics=False``, ``use_fused_megno=False``,
-the reflection policy, the "reference" gradient) raise.
+(``fused_path_applicable``); here the engine runs wherever the
+configuration is covered (``fused_config_covered``), and on the CPU the
+kernel wrappers run their plain versions because the tensors lie there.
+``use_fused_megno=False``, the "reference" gradient and d = 3 raise.
 """
 
 from __future__ import annotations
@@ -24,8 +31,10 @@ import math
 import torch
 
 from ..diagnostics import energy as E
+from ..diagnostics.metrics import step_metrics
 from ..ops.hamsoft_kernels import (hamsoft_analysis_multistep,
-                                   hamsoft_megno_multistep)
+                                   hamsoft_megno_multistep,
+                                   hamsoft_multistep)
 from .stability import _mean, _rel_drift, _running_update, _std
 
 
@@ -61,21 +70,18 @@ def analyze_batch_fused(states, dyns, cfg, n_steps: int, dt, mode: str,
                         n_sub_max: int, megno_steps: int, tangent=None,
                         g_static: float = 1.0,
                         analysis_fn=hamsoft_analysis_multistep,
-                        megno_fn=hamsoft_megno_multistep):
+                        megno_fn=hamsoft_megno_multistep,
+                        multistep_fn=hamsoft_multistep):
     """Analyse a batch of systems on the fused kernels (ham_soft, float32
     on the card; the plain versions on the CPU).
 
     ``states``/``dyns`` are batched with leading axis B; G must be the
     uniform ``g_static`` (checked by the caller).  ``tangent`` is the
     (dr0, dv0) pair of (B, N, d) initial MEGNO tangent vectors, required
-    in full mode.  ``analysis_fn``/``megno_fn`` default to the kernel
-    wrappers; a comparison passes their plain versions, which take the
-    same arguments.  Returns (result columns dict of (B,) tensors, final
-    state)."""
-    if not getattr(cfg, "use_fused_metrics", False):
-        raise NotImplementedError(
-            "analyze_batch_fused: use_fused_metrics=False needs the plain "
-            "multistep kernel, which is not ported yet")
+    in full mode.  ``analysis_fn``/``megno_fn``/``multistep_fn`` default
+    to the kernel wrappers; a comparison passes their plain versions,
+    which take the same arguments.  Returns (result columns dict of (B,)
+    tensors, final state)."""
     d = states.pos.shape[-1]
     if d != 2:
         raise NotImplementedError("analyze_batch_fused: ported for d = 2")
@@ -94,16 +100,23 @@ def analyze_batch_fused(states, dyns, cfg, n_steps: int, dt, mode: str,
     L0 = E.angular_momentum_z(states)
 
     sample_interval = max(1, n_steps // 100)
-    po, vo, eo, pio, accs, eps_s, pi_s = analysis_fn(
-        states.pos, states.vel, states.mass, states.eps, states.pi, L0,
-        n_steps=n_steps, interval=sample_interval, **kern)
-    mu_b = dyns.mu_soft[None, :]
-    j_s = eps_s * pi_s / torch.where(mu_b != 0.0, mu_b, torch.ones_like(mu_b))
-    ok = (mu_b * eps_s != 0.0) | (pi_s != 0.0)
-    th_s = torch.where(ok, torch.atan2(pi_s, mu_b * eps_s),
-                       torch.full_like(eps_s, math.nan))
-    accs = dict(accs, J_eps=_moments(j_s), theta_eps=_moments(th_s))
+    if getattr(cfg, "use_fused_metrics", False):
+        po, vo, eo, pio, accs, eps_s, pi_s = analysis_fn(
+            states.pos, states.vel, states.mass, states.eps, states.pi, L0,
+            n_steps=n_steps, interval=sample_interval, **kern)
+        mu_b = dyns.mu_soft[None, :]
+        j_s = eps_s * pi_s / torch.where(mu_b != 0.0, mu_b,
+                                         torch.ones_like(mu_b))
+        ok = (mu_b * eps_s != 0.0) | (pi_s != 0.0)
+        th_s = torch.where(ok, torch.atan2(pi_s, mu_b * eps_s),
+                           torch.full_like(eps_s, math.nan))
+        accs = dict(accs, J_eps=_moments(j_s), theta_eps=_moments(th_s))
+        quad = (po, vo, eo, pio)
+    else:
+        quad, accs = _chunked_samples(states, dyns, cfg, L0, n_steps,
+                                      sample_interval, multistep_fn, kern)
 
+    po, vo, eo, pio = quad
     st1 = _states_with(states, (po, vo, eo, pio))
     H1 = E.extended_hamiltonian(st1, dyns, cfg)
     energy_drift = _rel_drift(H1, H0)
@@ -150,19 +163,56 @@ def analyze_batch_fused(states, dyns, cfg, n_steps: int, dt, mode: str,
     return result, st1
 
 
+def _chunked_samples(states, dyns, cfg, L0, n_steps: int,
+                     sample_interval: int, multistep_fn, kern):
+    """The ``use_fused_metrics=False`` way: chunk 0 of one step, then
+    ``n_samples - 1`` chunks of ``sample_interval`` steps, each followed
+    by ``step_metrics``, then the unsampled tail.  Returns the final
+    (pos, vel, eps, pi) and the running moments."""
+    n_samples = -(-n_steps // sample_interval)  # the i % k == 0 count
+    tail = n_steps - 1 - (n_samples - 1) * sample_interval
+    z = torch.zeros_like(states.eps)
+    acc0 = (z, z, z, torch.full_like(z, -math.inf),
+            torch.full_like(z, math.inf))
+    accs = {k: acc0 for k in ("com_drift", "J_eps", "theta_eps",
+                              "cos_theta", "var_L", "tr_hessian")}
+
+    def run(quad, steps):
+        pos, vel, eps, pi = quad
+        return multistep_fn(pos, vel, states.mass, eps, pi, n_steps=steps,
+                            **kern)
+
+    def sample(quad, accs):
+        met = step_metrics(_states_with(states, quad), dyns, cfg, L0=L0,
+                           energies=False)
+        return {k: _running_update(accs[k], met[k]) for k in accs}
+
+    quad = run((states.pos, states.vel, states.eps, states.pi), 1)
+    accs = sample(quad, accs)
+    for _ in range(n_samples - 1):
+        quad = run(quad, sample_interval)
+        accs = sample(quad, accs)
+    if tail > 0:
+        quad = run(quad, tail)
+    return quad, accs
+
+
 def fused_config_covered(cfg, mode: str, dtype) -> bool:
-    """The configurations the fused engine covers in this slice: the
-    dataset pipeline's ham_soft defaults in float32, soft barrier,
-    exact eps* gradient, core or full mode."""
+    """The configurations the fused engine covers: the ham_soft
+    production eps* in float32 with the exact gradient, core or full
+    mode.  The analysis and MEGNO kernels take the soft barrier policy
+    only; with ``use_fused_metrics=False`` core mode also takes the
+    reflection and no-barrier policies (the multi-step kernel's)."""
+    soft = _kernel_policy(cfg) == "soft"
+    fused_metrics = bool(getattr(cfg, "use_fused_metrics", False))
     return (bool(getattr(cfg, "use_fused_analysis", False))
             and cfg.integrator_mode == "ham_soft"
             and mode in ("core", "full")
             and dtype == torch.float32
             and not cfg.use_legacy_eps_star
             and not cfg.fixed_eps_star
-            and _kernel_policy(cfg) == "soft"
+            and (soft or not fused_metrics)
+            and (mode != "full" or (soft and bool(cfg.use_fused_megno)))
             and cfg.eps_grad_mode == "exact"
-            and bool(getattr(cfg, "use_fused_metrics", False))
-            and (mode != "full" or bool(cfg.use_fused_megno))
             and not cfg.freeze_s_subsystem
             and not cfg._validate_S_only)

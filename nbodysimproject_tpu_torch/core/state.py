@@ -88,13 +88,16 @@ DYN_FIELDS = tuple(f.name for f in dataclasses.fields(DynParams))
 def state_from_numpy(arrays: dict, *, device=None, dtype=None):
     """Build the port's batched ``(SimState, DynParams)`` from a dict of
     numpy arrays keyed by field name — e.g. the JAX package's built
-    ``states``/``dyns`` converted with ``np.asarray``.  Float fields are
-    cast to ``dtype`` (default: the dtype of ``pos``), ``mask`` to bool
-    and ``n_sub`` to int32.  ``device`` defaults to the CPU because the
+    ``states``/``dyns`` converted with ``np.asarray``, for any integrator
+    mode (the classical modes' ``h_sub_ref``, ``frozen_dt`` and ``n_sub``
+    are fields like the others).  Float fields are cast to ``dtype``
+    (default: the dtype of ``pos``), ``mask`` to bool and ``n_sub`` to
+    int32.  ``device`` defaults to the CPU because the
     arrays come from the host."""
     dev = torch.device("cpu" if device is None else device)
     if dtype is None:
-        dtype = torch.from_numpy(np.asarray(arrays["pos"])[:0]).dtype
+        dtype = torch.from_numpy(
+            np.zeros(0, np.asarray(arrays["pos"]).dtype)).dtype
 
     def conv(name):
         a = np.asarray(arrays[name])

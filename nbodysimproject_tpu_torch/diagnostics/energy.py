@@ -61,12 +61,28 @@ def barrier_term(state, dyn, cfg):
     return torch.zeros_like(state.eps)
 
 
+def energy_breakdown(state, dyn, cfg):
+    """dict(T, V, K_eps, PE_spring, H) (diagnostics.py:158-235); classical
+    modes evaluate V at step_s2, ham_soft at eps^2."""
+    T = kinetic_energy(state)
+    s2 = state.eps * state.eps if cfg.integrator_mode == "ham_soft" \
+        else state.step_s2
+    V = _pair_potential(state, dyn.G, torch.sqrt(torch.clamp_min(s2, 0.0)))
+    K_eps, S_spring = spring_terms(state, dyn, hs.eps_target(state, dyn, cfg))
+    S_spring = torch.where(dyn.k_soft > 0.0, S_spring,
+                           torch.zeros_like(S_spring))
+    return dict(T=T, V=V, K_eps=K_eps, PE_spring=S_spring,
+                H=T + V + K_eps + S_spring)
+
+
 def extended_hamiltonian(state, dyn, cfg, eps_star=None):
     """H_ext with Kahan-compensated kinetic and pair sums
-    (diagnostics.py:457-549)."""
-    if cfg.integrator_mode != "ham_soft":
+    (diagnostics.py:457-549), for every ported integrator mode (the
+    Kepler-split tail's own Hamiltonian is not ported)."""
+    if cfg.integrator_mode == "kepler_split":
         raise NotImplementedError(
-            "extended_hamiltonian: only the ham_soft Hamiltonian is ported")
+            "extended_hamiltonian: the kepler_split Hamiltonian comes with "
+            "the Kepler slice")
     tk = state.mass * (state.vel * state.vel).sum(-1)
     tk = torch.where(state.mask, tk, torch.zeros_like(tk))
     T = 0.5 * kahan_sum(tk)

@@ -1,8 +1,10 @@
 """Timestep / spring calibration on batched systems.
 
 Counterpart of ``nbodysimproject_tpu/integrators/calibration.py``: the
-ham_soft half of it (k_soft autoset, mu from the timescales and from
-the pi budget, the frozen production schedule).  Inputs are per-system
+classical substep schedule (``init_substep_schedule``,
+``classical_n_sub``) and the ham_soft calibration (k_soft autoset, mu
+from the timescales and from the pi budget, the frozen production
+schedule).  Inputs are per-system
 ``(B,)`` tensors and ``(B, N[, d])`` bodies; ``n_sub`` is int32.
 """
 
@@ -25,15 +27,22 @@ def _ok(x):
     return torch.isfinite(x) & (x > 0.0)
 
 
-def tau_grav_min(q, m, G, eps=None, mask=None):
-    """Minimum softened two-body timescale per system: min over pairs
-    of sqrt((r^2 + eps^2)^{3/2} / (G (m_i + m_j))) (HSI:997-1018);
-    +inf without a valid pair.  ``eps=None`` is the unsoftened form."""
+def tau_grav_min(q, m, G, eps=0.0, mask=None, *, softened: bool):
+    """Minimum two-body gravitational timescale per system.
+
+    softened=True:  min over pairs sqrt((r^2 + eps^2)^{3/2} / (G (m_i + m_j)))
+      (HSI:997-1018, :262-276); ``eps`` is a (B,) tensor or a float.
+    softened=False: min over pairs sqrt(r^3 / (G (m_i + m_j)))
+      (timestep_manager.py:150-165) — the same formula at eps = 0.
+    +inf without a valid pair or with G == 0."""
     n = q.shape[-2]
     diff = pair_diff(q)
     r2 = (diff * diff).sum(-1)
-    if eps is not None:
-        r2 = r2 + (eps * eps)[..., None, None]
+    if softened:
+        e = torch.as_tensor(eps, dtype=q.dtype, device=q.device)
+        if e.dim():
+            e = e[..., None, None]
+        r2 = r2 + e * e
     pm = pair_mask(n, mask, q.device)
     denom = G[..., None, None] * (m[..., :, None] + m[..., None, :])
     valid = pm & (denom > 0.0) & (r2 > 0.0)
@@ -43,6 +52,66 @@ def tau_grav_min(q, m, G, eps=None, mask=None):
     tau = torch.where(valid, torch.sqrt(r3 / torch.where(valid, denom, one)),
                       torch.full_like(r2, math.inf))
     return tau.amin((-2, -1))
+
+
+def init_substep_schedule(q, m, vel, G, *, eps_cur, pi, k_soft, mu_soft,
+                          min_softening, max_softening, eps_star, grad_norm,
+                          theta_cap, dt_user, split_n_max: int, mask=None):
+    """h_sub_ref from four timescales (timestep_manager.py:139-253):
+    h_sub = min(0.9 tau_grav, tau_spr, tau_eps, tau_imp), fallback
+    dt_user (or 1.0), then capped so ceil(dt_user/h_sub) <= split_n_max.
+    Per-system (B,) inputs; ``theta_cap`` a float or (B,)."""
+    dt_user = torch.abs(dt_user)
+    inf = torch.full_like(dt_user, math.inf)
+    tau_grav = tau_grav_min(q, m, G, mask=mask, softened=False)
+
+    omega = torch.sqrt(torch.clamp_min(k_soft, 0.0)
+                       / torch.clamp_min(mu_soft, 1e-300))
+    theta_cap = torch.as_tensor(theta_cap, dtype=q.dtype, device=q.device)
+    tcap = torch.where(theta_cap > 0.0, theta_cap,
+                       torch.full_like(theta_cap, 0.25))
+    tau_spr = torch.where((k_soft > 0.0) & (mu_soft > 0.0) & (omega > 0.0),
+                          tcap / torch.clamp_min(omega, 1e-300), inf)
+
+    eps_safe = 0.1 * torch.clamp_min(max_softening - min_softening, 0.0)
+    v_eps = torch.abs(pi / torch.where(mu_soft != 0.0, mu_soft,
+                                       torch.ones_like(mu_soft)))
+    tau_eps = torch.where((pi != 0.0) & (mu_soft != 0.0) & (eps_safe > 0.0),
+                          CHI_GRAV * eps_safe / torch.clamp_min(v_eps, 1e-300),
+                          inf)
+
+    theta_imp = 0.1  # hard-coded in timestep_manager.py:199
+    eps_p = 1e-12
+    p = m[..., None] * vel
+    pn = torch.sqrt((p * p).sum(-1))
+    if mask is not None:
+        pn = torch.where(mask, pn, torch.zeros_like(pn))
+    p_max = pn.amax(-1) if pn.shape[-1] else torch.zeros_like(dt_user)
+    p_max = torch.where(torch.isfinite(p_max), p_max, torch.zeros_like(p_max))
+    delta = torch.abs(eps_cur - eps_star)
+    den = k_soft * delta * grad_norm
+    tau_imp = torch.where((k_soft > 0.0) & (grad_norm > 0.0) & (delta > 0.0)
+                          & (den > 0.0) & torch.isfinite(den),
+                          (2.0 * theta_imp * (p_max + eps_p))
+                          / torch.clamp_min(den, 1e-300), inf)
+
+    h_sub = torch.minimum(torch.minimum(CHI_GRAV * tau_grav, tau_spr),
+                          torch.minimum(tau_eps, tau_imp))
+    fallback = torch.where(dt_user > 0.0, dt_user, torch.ones_like(dt_user))
+    h_sub = torch.where(_ok(h_sub), h_sub, fallback)
+
+    if split_n_max > 0:
+        n_need = torch.ceil(dt_user / torch.clamp_min(h_sub, 1e-30))
+        h_sub = torch.where(n_need > split_n_max, dt_user / split_n_max,
+                            h_sub)
+    return h_sub
+
+
+def classical_n_sub(dt, h_sub_ref, split_n_max: int):
+    """n_sub = clamp(ceil(|dt|/h_sub_ref), 1, split_n_max), int32
+    (integrator.py:91)."""
+    n = torch.ceil(torch.abs(dt) / torch.clamp_min(h_sub_ref, 1e-300))
+    return torch.clamp(n.to(torch.int32), 1, split_n_max)
 
 
 def autoset_k_soft(k_cfg, G, m, eps_min, mask=None):
@@ -58,7 +127,7 @@ def autoset_k_soft(k_cfg, G, m, eps_min, mask=None):
 def calibrate_mu_from_timescales(q, m, G, eps0, k_soft, mask=None):
     """mu from omega_spr = 8 / tau_grav (HSI:251-296).  Returns
     (mu_soft, omega_spr0)."""
-    tau = tau_grav_min(q, m, G, eps=eps0, mask=mask)
+    tau = tau_grav_min(q, m, G, eps=eps0, mask=mask, softened=True)
     tau = torch.where(_ok(tau), tau, torch.ones_like(tau))
     omega_spr = C_OMEGA / tau
     one = torch.ones_like(tau)
@@ -114,7 +183,7 @@ def freeze_production_schedule(q, m, G, *, eps0, eps_star, k_soft, mu_soft,
     dt_abs = torch.abs(dt_user)
     dt_abs = torch.where(_ok(dt_abs), dt_abs, torch.full_like(dt_abs, 1e-2))
 
-    tau_grav = tau_grav_min(q, m, G, eps=eps0, mask=mask)
+    tau_grav = tau_grav_min(q, m, G, eps=eps0, mask=mask, softened=True)
     tau_grav = torch.where(_ok(tau_grav), tau_grav, dt_abs)
 
     omega_spr = torch.where(_ok(omega_spr0), omega_spr0, C_OMEGA / tau_grav)

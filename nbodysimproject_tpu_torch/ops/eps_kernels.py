@@ -1,0 +1,147 @@
+"""Fused (eps*, d eps*/dq) kernel for the ham_soft scan path.
+
+Counterpart of ``nbodysimproject_tpu/ops/pallas_eps.py``:
+``eps_star_and_grad_fused`` replaces the TPU kernel of the same name
+(``_eps_grad_kernel``).  The ham_soft scan (``integrators/hamsoft.py``)
+evaluates (eps*, grad) on every substep; on a float32 CUDA batch with at
+most ``MAX_SLOTS`` body slots it calls this kernel instead of the
+autograd evaluation of ``ops/eps_model.py``.
+
+On a CUDA tensor the wrapper launches the hand-written kernel in
+``csrc/eps_grad.cu`` (on the shared physics of
+``csrc/hamsoft_physics.cuh``; see the source note for what bounds it);
+on a CPU tensor it runs the plain PyTorch version beside it, which is
+the analysis kernels' plain physics (autograd through the 8 SPH
+iterations).  There is no fallback from one to the other.
+
+Semantics are the TPU kernel's: the 8 SPH iterations seeded from ``h0``
+with no convergence freeze (a <= 1e-6 relative eps* difference from the
+autograd evaluation, which keeps the freeze), the exact gradient of the
+truncated map, and with ``clamp`` the soft policy's value clamp with the
+gradient zeroed where it saturates.  Masked slots carry mass 0.  The
+"reference" degeneracy fallback (``use_fallback=True``) is not ported and
+raises ``NotImplementedError`` on both routes.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from . import cuda_build
+from .hamsoft_kernels import _Physics
+
+SOURCE = "eps_grad.cu"
+#: the scan path's gate (the JAX package's N <= 16)
+MAX_SLOTS = 16
+#: body-slot counts built ahead by ``build_jobs`` (any N <= MAX_SLOTS is
+#: built on first use)
+BUILD_SLOTS = (3, 8)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+
+def build_jobs(slots=BUILD_SLOTS):
+    return [(SOURCE, n, 2) for n in slots]
+
+
+@functools.lru_cache(maxsize=None)
+def _library(n: int, d: int):
+    lib = cuda_build.load(SOURCE, n, d)
+    lib.hs_eps_grad.argtypes = [_P] * 8 + [_I, _F, _I, _P]
+    lib.hs_eps_grad.restype = _I
+    return lib
+
+
+def _check(q, use_fallback: bool) -> None:
+    if use_fallback:
+        raise NotImplementedError(
+            "eps_star_and_grad_fused: the 'reference' gradient fallback is "
+            "not ported")
+    if q.dim() != 3 or q.shape[-1] != 2:
+        raise NotImplementedError(
+            f"eps_star_and_grad_fused: ported for (B, N, 2); got "
+            f"{tuple(q.shape)}")
+
+
+def _rows(x, like):
+    """A (B,) row like ``like`` from a tensor or scalar."""
+    return torch.broadcast_to(torch.as_tensor(x, dtype=like.dtype,
+                                              device=like.device),
+                              like.shape[:1]).contiguous()
+
+
+def eps_star_and_grad_fused_plain(q, m, h0, alpha, eps_min, eps_max, mask, *,
+                                  eta: float = 1.35, clamp: bool = False,
+                                  use_fallback: bool = False,
+                                  lam_align: float = 0.3):
+    """The plain PyTorch version of ``eps_star_and_grad_fused`` (same
+    arguments, same outputs), on any device."""
+    _check(q, use_fallback)
+    maskf = mask.to(q.dtype)
+    m_eff = m.to(q.dtype) * maskf
+    h0, alpha, emin, emax = (_rows(x, q) for x in (h0, alpha, eps_min,
+                                                   eps_max))
+    a = torch.minimum(emin, emax)
+    b = torch.maximum(emin, emax)
+    flo = torch.clamp_min(a, 1e-12)
+    cap = torch.maximum(flo, b)
+    one = torch.ones_like(h0)
+    ph = _Physics(m_eff, h0, one, one, alpha, flo, cap, G=1.0, k_wall=0.0,
+                  eta=float(eta), jcap=0.02, bexp=5)
+    es, g = ph.eps_star_and_grad(q)
+    if clamp:
+        gate = (es >= a) & (es <= b)
+        g = torch.where(gate[:, None, None], g, torch.zeros_like(g))
+        es = torch.minimum(torch.maximum(es, a), b)
+    return es, g * maskf[..., None]
+
+
+def eps_star_and_grad_fused(q, m, h0, alpha, eps_min, eps_max, mask, *,
+                            eta: float = 1.35, clamp: bool = False,
+                            use_fallback: bool = False,
+                            lam_align: float = 0.3):
+    """Batched (eps*, grad) on a (B, N, 2) float32 population: the CUDA
+    kernel for CUDA tensors, the plain version for CPU tensors.
+
+    Per-system h0 (the SPH seed; the scan passes state.eps), alpha,
+    eps_min, eps_max: (B,) tensors or scalars; mask (B, N) bool.
+    ``lam_align`` feeds only the fallback and is accepted for the JAX
+    signature.  Any B is taken (the TPU kernel's B % 8 tiling has no
+    counterpart here).  Returns (es (B,), grad (B, N, 2))."""
+    args = dict(eta=eta, clamp=clamp, use_fallback=use_fallback,
+                lam_align=lam_align)
+    if q.device.type == "cpu":
+        return eps_star_and_grad_fused_plain(q, m, h0, alpha, eps_min,
+                                             eps_max, mask, **args)
+    if q.device.type != "cuda":
+        raise RuntimeError(f"eps kernel: unsupported device {q.device}")
+    _check(q, use_fallback)
+    B, n, d = q.shape
+    if n > MAX_SLOTS:
+        raise NotImplementedError(
+            f"eps_star_and_grad_fused: N = {n} > {MAX_SLOTS} slots")
+    if q.dtype != torch.float32:
+        raise TypeError(f"eps kernel: q must be float32, got {q.dtype}")
+    if tuple(mask.shape) != (B, n) or tuple(m.shape) != (B, n):
+        raise ValueError("eps kernel: m and mask must be (B, N)")
+    q = q.contiguous()
+    m_eff = (m.to(torch.float32) * mask.to(torch.float32)).contiguous()
+    h0, alpha, emin, emax = (_rows(x, q) for x in (h0, alpha, eps_min,
+                                                   eps_max))
+    lib = _library(n, d)
+    es = torch.empty((B,), dtype=q.dtype, device=q.device)
+    grad = torch.empty_like(q)
+    code = lib.hs_eps_grad(
+        *cuda_build.pointers(q, m_eff, h0, alpha, emin, emax, es, grad),
+        B, float(eta), int(bool(clamp)), cuda_build.stream_of(q))
+    cuda_build.check_launch(lib, code, "eps_star_and_grad_fused")
+    eps_star_and_grad_fused.launches += 1
+    return es, grad * mask.to(q.dtype)[..., None]
+
+
+eps_star_and_grad_fused.launches = 0

@@ -10,11 +10,13 @@ Counterpart of ``nbodysimproject_tpu/ops/eps_model.py`` (parity:
   [eps_floor, eps_cap] every iteration;
   eps* = -alpha * logsumexp(-h_i / alpha).
 
-This module holds what construction and the energy diagnostic call (the
-value of eps*, the calibration).  The gradient of eps* on the
-integration path lives with the kernels (``ops/hamsoft_kernels.py``):
-autograd through the 8 iterations in the plain version, a hand-written
-reverse sweep in the CUDA kernel.
+This module holds the value of eps*, the calibration, and
+``eps_star_and_grad``: the value with its autograd gradient, the
+counterpart of the JAX package's XLA evaluation, which the ham_soft scan
+uses wherever the eps kernel (``ops/eps_kernels.py``) does not apply.
+The kernels' own gradient is the hand-written reverse sweep in
+``csrc/hamsoft_physics.cuh`` (autograd through the 8 iterations in their
+plain versions, ``ops/hamsoft_kernels.py``).
 """
 
 from __future__ import annotations
@@ -136,3 +138,78 @@ def calibrate_from_initial_conditions(q0, m, *, eps0, eps_min0, eps_max,
                                 eps_max)
     eps_new = torch.maximum(eps0, eps_min_new)
     return alpha_run, eps_min_new, eps_new
+
+
+def eps_star_and_grad(q, m, *, h0, alpha, eps_min, eps_max,
+                      eta: float = 1.35, clamp: bool = False, mask=None,
+                      lam_align: float = 0.3, use_fallback: bool = False):
+    """(eps*, d eps*/dq) of ``eps_target_production`` on (B, N, d)
+    positions: the value and its autograd gradient through the 8 SPH
+    iterations (convergence freeze included), non-finite entries zeroed
+    and masked rows zeroed (ops/eps_model.py:308-358 of the JAX package,
+    its XLA evaluation).  ``use_fallback`` (the "reference" gradient
+    mode's degeneracy fallback) is not ported and raises;
+    ``lam_align`` feeds only the fallback."""
+    if use_fallback:
+        raise NotImplementedError(
+            "eps_star_and_grad: the 'reference' gradient fallback is not "
+            "ported")
+    with torch.enable_grad():
+        qg = q.detach().requires_grad_(True)
+        es = eps_target_production(qg, m, h0=h0, alpha=alpha,
+                                   eps_min=eps_min, eps_max=eps_max, eta=eta,
+                                   clamp=clamp, mask=mask)
+        (g,) = torch.autograd.grad(es.sum(), qg)
+    g = torch.where(torch.isfinite(g), g, torch.zeros_like(g))
+    if mask is not None:
+        g = g * mask[..., None].to(g.dtype)
+    return es.detach(), g
+
+
+def production_grad_omega(q, m, *, h0, alpha, eps_min, eps_max,
+                          eta: float = 1.35, mask=None):
+    """The reference's Omega-corrected SPH gradient
+    (hamsoft_eps_model.py:451-556) on (B, N, d) positions: from the
+    unclamped SPH derivative chain, omega_i = softmax(-h_i/alpha),
+    Omega_i = 1 + h_i Sd_i / (2 Sigma_i), P_i = -h_i / (2 Sigma_i Omega_i)
+    and the pairwise-antisymmetric accumulation of s_i m_j gradW(r_ij, h_i)
+    with s_i = -omega_i P_i."""
+    a = torch.minimum(eps_min, eps_max)
+    b = torch.maximum(eps_min, eps_max)
+    eps_floor = torch.clamp_min(a, 1.0e-12)
+    eps_cap = torch.maximum(eps_floor, b)
+    h = solve_hi(q, m, h0=h0, eps_floor=eps_floor, eps_cap=eps_cap, eta=eta,
+                 mask=mask)
+    h_clamp_min = torch.clamp_min(0.1 * torch.clamp_min(eps_min, 1e-12),
+                                  1.0e-12)
+    hj = torch.maximum(h, h_clamp_min[..., None])
+
+    t = -h / alpha[..., None]
+    if mask is not None:
+        t = torch.where(mask, t, torch.full_like(t, -math.inf))
+    et = torch.exp(t - t.amax(-1, keepdim=True))
+    omega = et / torch.clamp_min(et.sum(-1, keepdim=True), 1e-300)
+
+    diff = pair_diff(q)
+    r2 = (diff * diff).sum(-1)
+    pm = pair_mask(q.shape[-2], mask, q.device).to(q.dtype)
+    c = 1.0 / (math.pi * hj * hj)
+    W = c[..., None] * torch.exp(-r2 / (hj * hj)[..., None]) * pm
+    dWh = W * (-2.0 / hj[..., None] + 2.0 * r2 / (hj ** 3)[..., None])
+    Sigma = torch.clamp_min((W * m[..., None, :]).sum(-1), 1e-30)
+    Sd = (dWh * m[..., None, :]).sum(-1)
+
+    Omega = 1.0 + hj * Sd / (2.0 * Sigma)
+    Omega = torch.where(torch.isfinite(Omega) & (Omega != 0.0), Omega,
+                        torch.ones_like(Omega))
+    P = -hj / (2.0 * Sigma * Omega)
+    s = -omega * P
+
+    coef = (-2.0 * W / (hj * hj)[..., None]) * (s[..., :, None]
+                                                * m[..., None, :])
+    A = coef[..., None] * diff
+    g = A.sum(-2) - A.sum(-3)
+    g = torch.where(torch.isfinite(g), g, torch.zeros_like(g))
+    if mask is not None:
+        g = g * mask[..., None].to(q.dtype)
+    return g

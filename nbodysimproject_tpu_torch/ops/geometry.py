@@ -46,3 +46,19 @@ def pairwise_geometry(pos, eps=0.0, mask=None):
 def triu_pairs(n: int, device=None):
     """Row-major i < j pair indices (``jnp.triu_indices(n, 1)``)."""
     return torch.triu_indices(n, n, 1, device=device).unbind(0)
+
+
+def pairwise_r2(pos, mask=None):
+    """Unsoftened pairwise squared distances with ``inf`` on the diagonal
+    and on masked pairs (the reference's ``fill_diagonal(r2, inf)``)."""
+    diff = pair_diff(pos)
+    r2 = (diff * diff).sum(-1)
+    pm = pair_mask(pos.shape[-2], mask, pos.device)
+    return torch.where(pm, r2, torch.full_like(r2, float("inf")))
+
+
+def min_separation(pos, mask=None):
+    """Minimum pairwise distance per system, floored at 1e-12
+    (minbody/simulation.py:659-665)."""
+    r2 = pairwise_r2(pos, mask)
+    return torch.clamp_min(torch.sqrt(r2.amin((-2, -1))), 1e-12)

@@ -1,4 +1,4 @@
-"""Fused multi-step ham_soft analysis and MEGNO kernels.
+"""Fused multi-step ham_soft kernels: analysis, MEGNO and plain integration.
 
 Counterpart of ``nbodysimproject_tpu/ops/pallas_hamsoft.py``:
 
@@ -8,38 +8,43 @@ Counterpart of ``nbodysimproject_tpu/ops/pallas_hamsoft.py``:
   cos_theta / var_L / tr_hessian moments sampled after step i when
   ``i % interval == 0`` and the (eps, pi) sample rows stored;
 * ``hamsoft_megno_multistep`` replaces ``_hamsoft_megno_kernel``: the
-  MEGNO continuation with the tangent map, one Y_t row per step.
+  MEGNO continuation with the tangent map, one Y_t row per step;
+* ``hamsoft_multistep`` replaces ``_hamsoft_multistep_kernel``: the same
+  integration with no sampling (the ``use_fused_metrics=False`` engine
+  and the ham_soft leg of ``bench.py``).
 
-On a CUDA tensor each wrapper launches the hand-written kernel in
-``csrc/hamsoft.cu`` (see the source note there for what bounds it and
-what its design does about that); on a CPU tensor it runs the plain
-PyTorch version beside it, which loops over the macro steps and
-``n_sub_max`` masked trips on ``(B, N, d)`` tensors and takes the exact
-eps* gradient by autograd through the 8 SPH iterations.  There is no
-fallback from one to the other.
+On a CUDA tensor each wrapper launches the hand-written kernel
+(``csrc/hamsoft.cu`` for the first two, ``csrc/hamsoft_multistep.cu``
+for the third, on the shared physics of ``csrc/hamsoft_physics.cuh``;
+see the source notes for what bounds them and what their design does
+about that); on a CPU tensor it runs the plain PyTorch version beside
+it, which loops over the macro steps and ``n_sub_max`` masked trips on
+``(B, N, d)`` tensors and takes the exact eps* gradient by autograd
+through the 8 SPH iterations.  There is no fallback from one to the
+other.
 
-The covered configuration is the dataset pipeline's: ``policy="soft"``
-and ``grad_mode="exact"``.  The reflection policy and the "reference"
-gradient raise ``NotImplementedError`` on both routes.  As in the TPU
-kernel, all 8 SPH iterations always run (no convergence freeze: a
-<= 1e-6 relative eps* perturbation, below float32 resolution).
+Covered configuration: ``grad_mode="exact"``; the analysis and MEGNO
+kernels take ``policy="soft"`` (the dataset pipeline's), the multi-step
+kernel also ``"reflection"`` and ``"none"``.  The "reference" gradient
+and the analysis/MEGNO kernels' reflection policy raise
+``NotImplementedError`` on both routes.  As in the TPU kernels, all 8
+SPH iterations always run (no convergence freeze: a <= 1e-6 relative
+eps* perturbation, below float32 resolution).
 
-The library is built with plain ``nvcc`` into ``_build/`` (git-ignored),
-one shared object per body-slot count, and loaded with ``ctypes``.
+The libraries are built with plain ``nvcc`` into ``_build/``
+(git-ignored), one shared object per source and body-slot count, and
+loaded with ``ctypes`` (``ops/cuda_build.py``).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-import time
 
 import torch
+
+from . import cuda_build
 
 #: metric order of the analysis kernel's accumulator rows (count, then
 #: sum, sumsq, max, min per metric)
@@ -48,76 +53,19 @@ _ACC_ROWS = 1 + 4 * len(ACC_METRICS)
 _INV_PI = 0.31830987  # float32(1 / pi)
 _ITERS = 8
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "hamsoft.cu")
-BUILD_DIR = os.path.join(_PKG, "_build")
-#: body-slot counts the library is built for (8: the pipeline's
+#: body-slot counts the libraries are built for (8: the pipeline's
 #: slot bucket; 3 and 4: the small systems of tests and comparisons)
 BUILD_SLOTS = (3, 4, 8)
-#: no multiply-add contraction: the kernel then rounds as the plain
-#: version does, and deep-n_sub systems (whose spring momentum amplifies
-#: a half-ulp per trip) stay within the comparison tolerances
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+#: the analysis and MEGNO kernels, and the plain multi-step kernel
+SOURCES = ("hamsoft.cu", "hamsoft_multistep.cu")
+#: the policies the multi-step kernel takes (the analysis and MEGNO
+#: kernels take "soft" only)
+MULTISTEP_POLICIES = ("soft", "reflection", "none")
 
 
-# --------------------------------------------------------------------------
-# build and bind
-# --------------------------------------------------------------------------
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    return os.path.join(home, "bin", "nvcc")
-
-
-def _lib_path(n: int, d: int) -> str:
-    with open(SOURCE, "rb") as fh:
-        tag = hashlib.sha256(fh.read() + repr(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR,
-                        f"libhamsoft_n{n}_d{d}_{tag.hexdigest()[:12]}.so")
-
-
-def _build_cmd(n: int, d: int, out: str):
-    return [_nvcc(), *NVCC_FLAGS, f"-DHS_N={n}", f"-DHS_D={d}", "-o", out,
-            SOURCE]
-
-
-def build(configs=None) -> dict:
-    """Build the library for every (n, d) in ``configs`` (default: each
-    of ``BUILD_SLOTS`` at d = 2), one ``nvcc`` per config, all started
-    together.  Returns {(n, d): (path, seconds, ptxas report)}; a
-    config already built from the same source is not rebuilt (its
-    report is empty).  Raises if any build fails."""
-    configs = [(n, 2) for n in BUILD_SLOTS] if configs is None else configs
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    procs, out = {}, {}
-    for n, d in configs:
-        path = _lib_path(n, d)
-        if os.path.exists(path):
-            out[(n, d)] = (path, 0.0, "")
-            continue
-        tmp = f"{path}.tmp{os.getpid()}"
-        procs[(n, d)] = (path, tmp, time.perf_counter(), subprocess.Popen(
-            _build_cmd(n, d, tmp), stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True))
-    failed = []
-    for key, (path, tmp, t0, proc) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"nvcc for n={key[0]} d={key[1]} failed:\n{log}")
-            continue
-        os.replace(tmp, path)
-        report = "\n".join(ln for ln in log.splitlines()
-                           if "registers" in ln or "spill" in ln
-                           or "Compiling entry" in ln)
-        out[key] = (path, time.perf_counter() - t0, report)
-    if failed:
-        raise RuntimeError("\n".join(failed))
-    return out
+def build_jobs(slots=BUILD_SLOTS):
+    """(source, n, d) of every library of this module, d = 2."""
+    return [(src, n, 2) for src in SOURCES for n in slots]
 
 
 _P = ctypes.c_void_p
@@ -125,35 +73,41 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 
 
-@functools.lru_cache(maxsize=None)
-def _library(n: int, d: int):
-    """The bound library for (n, d), built on first use."""
+def _check_slots(n: int, d: int) -> None:
     if d != 2 or n not in BUILD_SLOTS:
         raise NotImplementedError(
             f"hamsoft kernels are built for d = 2 and N in {BUILD_SLOTS}; "
             f"got N = {n}, d = {d}")
-    path = build([(n, d)])[(n, d)][0]
-    lib = ctypes.CDLL(path)
+
+
+@functools.lru_cache(maxsize=None)
+def _library(n: int, d: int):
+    """The bound analysis/MEGNO library for (n, d), built on first use."""
+    _check_slots(n, d)
+    lib = cuda_build.load(SOURCES[0], n, d)
     lib.hs_analysis.argtypes = [_P] * 20 + [_I] * 4 + [_F] * 4 + [_I, _I, _P]
     lib.hs_analysis.restype = _I
     lib.hs_megno.argtypes = [_P] * 22 + [_I] * 3 + [_F] * 4 + [_I, _I, _P]
     lib.hs_megno.restype = _I
-    lib.hs_error_string.argtypes = [_I]
-    lib.hs_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _check_launch(lib, code: int, name: str) -> None:
-    if code != 0:
-        raise RuntimeError(f"{name} launch failed: "
-                           f"{lib.hs_error_string(code).decode()}")
+@functools.lru_cache(maxsize=None)
+def _multistep_library(n: int, d: int):
+    """The bound multi-step library for (n, d), built on first use."""
+    _check_slots(n, d)
+    lib = cuda_build.load(SOURCES[1], n, d)
+    lib.hs_multistep.argtypes = [_P] * 16 + [_I] * 3 + [_F] * 4 \
+        + [_I, _I, _I, _P]
+    lib.hs_multistep.restype = _I
+    return lib
 
 
-def _check_config(policy: str, grad_mode: str) -> None:
-    if policy != "soft":
+def _check_config(policy: str, grad_mode: str, policies=("soft",)) -> None:
+    if policy not in policies:
         raise NotImplementedError(
             f"hamsoft kernels: barrier policy {policy!r} is not ported "
-            "(only 'soft')")
+            f"(only {policies})")
     if grad_mode != "exact":
         raise NotImplementedError(
             f"hamsoft kernels: eps_grad_mode {grad_mode!r} is not ported "
@@ -178,7 +132,7 @@ class _Physics:
     bodies instead of unrolled."""
 
     def __init__(self, mass, eps_seed, k_s, mu, alpha, flo, cap, *, G,
-                 k_wall, eta, jcap, bexp):
+                 k_wall, eta, jcap, bexp, policy="soft"):
         self.mass = mass
         self.valid = mass > 0.0
         zero = torch.zeros_like(mass)
@@ -194,7 +148,9 @@ class _Physics:
         self.flo, self.cap = flo, cap
         self.G, self.k_wall, self.eta, self.jcap = G, k_wall, eta, jcap
         self.bexp = bexp
-        self.barrier_on = _barrier_on(k_wall, bexp)
+        # wall kicks under the soft policy, folds under the reflection one
+        self.barrier_on = policy == "soft" and _barrier_on(k_wall, bexp)
+        self.refl = policy == "reflection"
 
     # ---------------- eps* and its exact gradient -----------------------
     def eps_star_and_grad(self, pos):
@@ -246,8 +202,25 @@ class _Physics:
             re = re * right
         return self.k_wall * (le - re)
 
+    def fold(self, e, p):
+        """Closed-form reflection fold of (eps, pi) into [flo, cap]
+        (ops/reflection.py:19-35, the Pallas kernel's ``fold``)."""
+        R = self.cap - self.flo
+        Pw = 2.0 * R
+        Psafe = torch.where(Pw > 0.0, Pw, torch.ones_like(Pw))
+        x = e - self.flo
+        y = x - Psafe * torch.floor(x / Psafe)
+        y = torch.where(Pw > 0.0, y, torch.zeros_like(y))
+        on_up = y <= R
+        e_out = torch.where(on_up, self.flo + y, self.cap - (y - R))
+        p_out = torch.where(on_up, p, -p)
+        ok = torch.isfinite(R) & (R > 0.0)
+        return torch.where(ok, e_out, self.flo), torch.where(ok, p_out, -p)
+
     # ---------------- S(h/2): spring rotation + J-capped impulse --------
     def s_half(self, vel, eps, pi, es, grad, hh):
+        if self.refl:
+            eps, pi = self.fold(eps, pi)
         dt_f = 0.5 * hh
         omega = torch.sqrt(self.k_s / self.mu)
         theta = omega * dt_f
@@ -285,6 +258,8 @@ class _Physics:
                             torch.ones_like(dp_inf))
         Ja = J * scale
         vel = vel + Ja[:, None, None] * grad * self.inv_m[..., None]
+        if self.refl:
+            eps_new, pi_new = self.fold(eps_new, pi_new)
         return vel, eps_new, pi_new
 
     # ---------------- V(h/2): gravity kick on p, dV/deps kick on pi ----
@@ -311,13 +286,17 @@ class _Physics:
 
     def strang_trip(self, pos, vel, eps, pi, es, grad, h, active):
         """One Strang substep S V T V S where ``active``; identity
-        elsewhere.  The (eps*, grad) cache carries across trips."""
-        vel1, eps1, pi1 = self.s_half(vel, eps, pi, es, grad, h)
+        elsewhere.  The (eps*, grad) cache carries across trips; the
+        reflection policy folds (eps, pi) around the substep too."""
+        eps0, pi0 = self.fold(eps, pi) if self.refl else (eps, pi)
+        vel1, eps1, pi1 = self.s_half(vel, eps0, pi0, es, grad, h)
         vel1, pi1 = self.v_half_kick(pos, vel1, eps1, pi1, h)
         pos1 = pos + h[:, None, None] * vel1
         vel1, pi1 = self.v_half_kick(pos1, vel1, eps1, pi1, h)
         es1, grad1 = self.eps_star_and_grad(pos1)
         vel1, eps1, pi1 = self.s_half(vel1, eps1, pi1, es1, grad1, h)
+        if self.refl:
+            eps1, pi1 = self.fold(eps1, pi1)
         a3 = active[:, None, None]
         return (torch.where(a3, pos1, pos), torch.where(a3, vel1, vel),
                 torch.where(active, eps1, eps), torch.where(active, pi1, pi),
@@ -490,14 +469,6 @@ def _check_cuda_inputs(pos, mass, bodies, per_system):
             raise TypeError(f"{name} must be {dt_want}, got {t.dtype}")
 
 
-def _pointers(*buffers):
-    """data_ptr of each buffer handed to a kernel (all contiguous)."""
-    for t in buffers:
-        if not t.is_contiguous():
-            raise ValueError("kernel buffers must be contiguous")
-    return [t.data_ptr() for t in buffers]
-
-
 def _kernel_scalars(B, like, n_sub, *xs):
     out = [_per_system(x, like) for x in xs]
     ns = torch.broadcast_to(torch.as_tensor(n_sub, device=like.device),
@@ -590,14 +561,15 @@ def hamsoft_analysis_multistep(pos, vel, mass, eps, pi, L0, *, k_soft, mu,
     out_es, out_ps = new(n_samples, B), new(n_samples, B)
     lib = _library(n, d)
     code = lib.hs_analysis(
-        *_pointers(pos_c, vel_c, mass_c, eps, pi, k_soft, mu, alpha, eps_min,
-                   eps_max, h, ns, L0, out_pos, out_vel, out_eps, out_pi,
-                   out_acc, out_es, out_ps),
+        *cuda_build.pointers(
+            pos_c, vel_c, mass_c, eps, pi, k_soft, mu, alpha, eps_min,
+            eps_max, h, ns, L0, out_pos, out_vel, out_eps, out_pi, out_acc,
+            out_es, out_ps),
         B, kw["n_steps"], kw["n_sub_max"], kw["interval"], kw["G"],
         kw["k_wall"], kw["eta"], kw["jcap"], kw["bexp"],
         int(_barrier_on(kw["k_wall"], kw["bexp"])),
-        torch.cuda.current_stream(pos.device).cuda_stream)
-    _check_launch(lib, code, "hamsoft_analysis_multistep")
+        cuda_build.stream_of(pos))
+    cuda_build.check_launch(lib, code, "hamsoft_analysis_multistep")
     hamsoft_analysis_multistep.launches += 1
     return (_from_coord_major(out_pos, B, n, d),
             _from_coord_major(out_vel, B, n, d), out_eps, out_pi,
@@ -694,13 +666,14 @@ def hamsoft_megno_multistep(pos, vel, mass, eps, pi, dr, dv, *, k_soft, mu,
     out_ys = new(kw["n_steps"], B)
     lib = _library(n, d)
     code = lib.hs_megno(
-        *_pointers(pos_c, vel_c, mass_c, eps, pi, k_soft, mu, alpha, eps_min,
-                   eps_max, h, ns, dt_b, dr_c, dv_c, out_pos, out_vel,
-                   out_eps, out_pi, out_accum, out_t, out_ys),
+        *cuda_build.pointers(
+            pos_c, vel_c, mass_c, eps, pi, k_soft, mu, alpha, eps_min,
+            eps_max, h, ns, dt_b, dr_c, dv_c, out_pos, out_vel, out_eps,
+            out_pi, out_accum, out_t, out_ys),
         B, kw["n_steps"], kw["n_sub_max"], kw["G"], kw["k_wall"], kw["eta"],
         kw["jcap"], kw["bexp"], int(_barrier_on(kw["k_wall"], kw["bexp"])),
-        torch.cuda.current_stream(pos.device).cuda_stream)
-    _check_launch(lib, code, "hamsoft_megno_multistep")
+        cuda_build.stream_of(pos))
+    cuda_build.check_launch(lib, code, "hamsoft_megno_multistep")
     hamsoft_megno_multistep.launches += 1
     return (_from_coord_major(out_pos, B, n, d),
             _from_coord_major(out_vel, B, n, d), out_eps, out_pi) \
@@ -708,3 +681,100 @@ def hamsoft_megno_multistep(pos, vel, mass, eps, pi, dr, dv, *, k_soft, mu,
 
 
 hamsoft_megno_multistep.launches = 0
+
+
+def _multistep_loop(pos, vel, mass, eps, pi, *, k_soft, mu, alpha, eps_min,
+                    eps_max, h, n_sub, n_steps: int, n_sub_max: int, G,
+                    k_wall, eta, jcap, bexp, policy):
+    """The multi-step kernel's loop on (B, N, d) tensors."""
+    ph = _Physics(mass, eps, k_soft, mu, alpha, eps_min, eps_max, G=G,
+                  k_wall=k_wall, eta=eta, jcap=jcap, bexp=bexp, policy=policy)
+    nsub = torch.clamp_min(n_sub, 1)
+    trips = _n_trips(n_sub, n_sub_max)
+    es, grad = ph.eps_star_and_grad(pos)
+    for _step in range(n_steps):
+        for sub in range(trips):
+            pos, vel, eps, pi, es, grad = ph.strang_trip(
+                pos, vel, eps, pi, es, grad, h, sub < nsub)
+    return pos, vel, eps, pi
+
+
+def _multistep_args(pos, n_sub, scalars, n_steps, n_sub_max, G, k_wall, eta,
+                    jcap, bexp, policy, grad_mode):
+    _check_config(policy, grad_mode, MULTISTEP_POLICIES)
+    if pos.shape[-1] != 2:
+        raise NotImplementedError("the multi-step kernel is ported for d = 2")
+    vals, ns = _kernel_scalars(pos.shape[0], pos, n_sub, *scalars)
+    kw = dict(n_sub=ns, n_steps=int(n_steps), n_sub_max=int(n_sub_max),
+              G=float(G), k_wall=float(k_wall), eta=float(eta),
+              jcap=float(jcap), bexp=int(bexp), policy=policy)
+    return vals, kw
+
+
+def hamsoft_multistep_plain(pos, vel, mass, eps, pi, *, k_soft, mu, alpha,
+                            eps_min, eps_max, h, n_sub, n_steps: int,
+                            n_sub_max: int, G: float = 1.0,
+                            k_wall: float = 1e9, eta: float = 1.35,
+                            jcap: float = 0.02, bexp: int = 5,
+                            policy: str = "soft", grad_mode: str = "exact"):
+    """The plain PyTorch version of ``hamsoft_multistep`` (same arguments,
+    same outputs), on any device."""
+    (eps, pi, k_soft, mu, alpha, eps_min, eps_max, h), kw = _multistep_args(
+        pos, n_sub, (eps, pi, k_soft, mu, alpha, eps_min, eps_max, h),
+        n_steps, n_sub_max, G, k_wall, eta, jcap, bexp, policy, grad_mode)
+    return _multistep_loop(pos, vel, mass, eps, pi, k_soft=k_soft, mu=mu,
+                           alpha=alpha, eps_min=eps_min, eps_max=eps_max,
+                           h=h, **kw)
+
+
+def hamsoft_multistep(pos, vel, mass, eps, pi, *, k_soft, mu, alpha, eps_min,
+                      eps_max, h, n_sub, n_steps: int, n_sub_max: int,
+                      G: float = 1.0, k_wall: float = 1e9, eta: float = 1.35,
+                      jcap: float = 0.02, bexp: int = 5, policy: str = "soft",
+                      grad_mode: str = "exact"):
+    """Advance a (B, N, d) float32 ham_soft batch ``n_steps`` macro steps,
+    each system running min(n_sub, n_sub_max) Strang substeps of size
+    ``h``, with no sampling: the CUDA kernel (``csrc/hamsoft_multistep.cu``)
+    for CUDA tensors, the plain version for CPU tensors.
+
+    Per-system (B,) inputs: eps, pi, k_soft, mu, alpha, eps_min, eps_max,
+    h, n_sub.  ``policy`` is "soft" (wall kicks), "reflection" (folds) or
+    "none"; the SPH solve is seeded from the entry eps for the whole call,
+    as in the TPU kernel.  Returns (pos, vel, eps, pi)."""
+    args = dict(k_soft=k_soft, mu=mu, alpha=alpha, eps_min=eps_min,
+                eps_max=eps_max, h=h, n_sub=n_sub, n_steps=n_steps,
+                n_sub_max=n_sub_max, G=G, k_wall=k_wall, eta=eta, jcap=jcap,
+                bexp=bexp, policy=policy, grad_mode=grad_mode)
+    if pos.device.type == "cpu":
+        return hamsoft_multistep_plain(pos, vel, mass, eps, pi, **args)
+    if pos.device.type != "cuda":
+        raise RuntimeError(f"hamsoft kernels: unsupported device {pos.device}")
+    (eps, pi, k_soft, mu, alpha, eps_min, eps_max, h), kw = _multistep_args(
+        pos, n_sub, (eps, pi, k_soft, mu, alpha, eps_min, eps_max, h),
+        n_steps, n_sub_max, G, k_wall, eta, jcap, bexp, policy, grad_mode)
+    B, n, d = pos.shape
+    ns = kw["n_sub"]
+    _check_cuda_inputs(pos, mass, dict(vel=vel), dict(
+        eps=eps, pi=pi, k_soft=k_soft, mu=mu, alpha=alpha, eps_min=eps_min,
+        eps_max=eps_max, h=h, n_sub=ns))
+    lib = _multistep_library(n, d)
+    pos_c, vel_c = _coord_major(pos), _coord_major(vel)
+    mass_c = mass.t().contiguous()
+    new = lambda *shape: torch.empty(shape, dtype=pos.dtype, device=pos.device)
+    out_pos, out_vel, out_eps, out_pi = new(n * d, B), new(n * d, B), \
+        new(B), new(B)
+    barrier = policy == "soft" and _barrier_on(kw["k_wall"], kw["bexp"])
+    code = lib.hs_multistep(
+        *cuda_build.pointers(
+            pos_c, vel_c, mass_c, eps, pi, k_soft, mu, alpha, eps_min,
+            eps_max, h, ns, out_pos, out_vel, out_eps, out_pi),
+        B, kw["n_steps"], kw["n_sub_max"], kw["G"], kw["k_wall"], kw["eta"],
+        kw["jcap"], kw["bexp"], int(barrier), int(policy == "reflection"),
+        cuda_build.stream_of(pos))
+    cuda_build.check_launch(lib, code, "hamsoft_multistep")
+    hamsoft_multistep.launches += 1
+    return (_from_coord_major(out_pos, B, n, d),
+            _from_coord_major(out_vel, B, n, d), out_eps, out_pi)
+
+
+hamsoft_multistep.launches = 0

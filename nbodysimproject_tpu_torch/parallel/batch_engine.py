@@ -4,8 +4,11 @@ Counterpart of ``nbodysimproject_tpu/parallel/batch_engine.py``
 (``build_batch``, ``init_system``, ``_init_hamsoft``): COM removal,
 eps-model calibration, k/mu calibration and the frozen schedule (the
 simulation.py:39-162 + HSI:47-141 cascade) as tensor operations over a
-leading system axis — no per-system host loop.  Only the ham_soft
-integrator mode is on this slice's path; the classical modes raise.
+leading system axis — no per-system host loop — and ``integrate_batch``
+/ ``step_batch`` (``integrate_dynamic`` / ``macro_step_dynamic`` of
+``integrators/step.py`` on the whole batch: the JAX package's vmap is
+the batch axis here).  Integrator modes ham_soft, verlet and yoshida4
+at d = 2; whfast and kepler_split raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -17,6 +20,8 @@ from ..core.state import DynParams, SimState, remove_center_of_mass_velocity
 from ..integrators import calibration as calib
 from ..integrators import hamsoft as hs
 from ..ops import eps_model as epsmod
+from ..integrators.step import check_mode, integrate_dynamic, \
+    macro_step_dynamic
 
 
 def _per_system(x, B, like):
@@ -30,10 +35,10 @@ def build_batch(mass, pos, vel, mask, cfg: SimConfig, G, softening,
     """Construct batched (SimState, DynParams) for a (B, N[, d])
     population; ``G`` / ``softening`` / ``min_softening`` may be scalars
     or (B,) arrays.  The tensors' device and dtype come from ``pos``."""
-    if cfg.integrator_mode != "ham_soft":
+    check_mode(cfg)
+    if pos.shape[-1] != 2:
         raise NotImplementedError(
-            "build_batch: only integrator_mode='ham_soft' is ported; "
-            f"got {cfg.integrator_mode!r}")
+            f"build_batch: the port covers d = 2; got d = {pos.shape[-1]}")
     B = pos.shape[0]
     f = lambda x: _per_system(x, B, pos)
     if not skip_cm_recenter:
@@ -59,7 +64,27 @@ def build_batch(mass, pos, vel, mask, cfg: SimConfig, G, softening,
         alpha_run=f(1.0), omega_spr0=zero, h_sub_ref=zero,
         n_sub=torch.ones(B, dtype=torch.int32, device=pos.device),
         frozen_dt=f(dt))
-    return _init_hamsoft(state, dyn, cfg, f(dt))
+    if cfg.integrator_mode == "ham_soft":
+        return _init_hamsoft(state, dyn, cfg, f(dt))
+    return _init_classical(state, dyn, cfg, f(dt))
+
+
+def _init_classical(state, dyn, cfg, dt):
+    """The verlet/yoshida4 schedule (timestep_manager.py:139-253,
+    integrator.py:91)."""
+    eps_star = torch.where(dyn.s0 > 0.0, dyn.s0,
+                           torch.where(dyn.softening_scale > 0.0,
+                                       dyn.softening_scale, state.eps))
+    h_sub = calib.init_substep_schedule(
+        state.pos, state.mass, state.vel, dyn.G, eps_cur=state.eps,
+        pi=state.pi, k_soft=dyn.k_soft, mu_soft=dyn.mu_soft,
+        min_softening=dyn.min_softening, max_softening=dyn.max_softening,
+        eps_star=eps_star, grad_norm=torch.zeros_like(eps_star),
+        theta_cap=float(cfg.theta_cap), dt_user=dt,
+        split_n_max=int(cfg.split_n_max), mask=state.mask)
+    n_sub = calib.classical_n_sub(dt, h_sub, int(cfg.split_n_max))
+    return state, dyn.replace(h_sub_ref=h_sub, n_sub=n_sub,
+                              frozen_dt=torch.abs(dt))
 
 
 def _init_hamsoft(state, dyn, cfg, dt):
@@ -109,3 +134,14 @@ def _init_hamsoft(state, dyn, cfg, dt):
     dyn = dyn.replace(h_sub_ref=h_sub, n_sub=n_sub, omega_spr0=omega,
                       mu_soft=mu2, frozen_dt=torch.abs(dt))
     return state, dyn
+
+
+def integrate_batch(states, dyns, cfg, dt, n_steps: int, n_sub_max: int):
+    """``n_steps`` macro steps for every system, each with its own
+    n_sub <= ``n_sub_max`` substeps; ``dt`` a float or (B,) tensor."""
+    return integrate_dynamic(states, dyns, cfg, dt, n_steps, n_sub_max)
+
+
+def step_batch(states, dyns, cfg, dt, n_sub_max: int):
+    """One macro step for every system."""
+    return macro_step_dynamic(states, dyns, cfg, dt, n_sub_max)

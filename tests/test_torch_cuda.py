@@ -1,5 +1,6 @@
 """The CUDA kernels of the port against their plain PyTorch versions, on
-the card.
+the card: the analysis, MEGNO and plain multi-step ham_soft kernels, the
+eps* kernel and the composition (Verlet/Yoshida4) kernel.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
 one; the file imports neither JAX nor the JAX package, so it runs on a
@@ -14,7 +15,11 @@ float32.  The raw kernel state agrees with the plain version to rtol
 1e-4 / atol 1e-5 (float32 rounding of two reduction orders and of
 autograd versus the hand-written reverse sweep over ~50 trips), the
 analysis columns within the fused-vs-scan tolerances of
-``tests/test_pallas_batch.py``.
+``tests/test_pallas_batch.py``.  The composition kernel runs bench.py's
+3-body system (B = 4096, 20 steps; rtol 1e-5 / atol 1e-6: the same
+operation sequence, a few ulps of rsqrt apart over 20 steps); the eps
+kernel holds eps* to rtol 1e-6 and the gradient to rtol 1e-5 / atol
+1e-5.
 """
 
 import numpy as np
@@ -188,3 +193,118 @@ def test_group_quantum_is_scheduling_only_on_the_card(cuda_device):
     for c in a.columns:
         np.testing.assert_array_equal(b[c].to_numpy(), a[c].to_numpy(),
                                       err_msg=c)
+
+
+# --------------------------------------------------------------------------
+# the kernels of the batched-integration slice
+# --------------------------------------------------------------------------
+
+def _bench_population(B, device, seed=13):
+    """bench.py's 3-body system with 1% perturbations (numpy seed)."""
+    rng = np.random.default_rng(seed)
+    q = np.array([[0.0, 0.0], [1.0, 0.0], [0.0, 2.0]])[None] \
+        + 0.01 * rng.normal(size=(B, 3, 2))
+    v = np.array([[0.0, 0.0], [0.0, 1.0], [-0.5, 0.0]])[None] \
+        + 0.01 * rng.normal(size=(B, 3, 2))
+    m = np.broadcast_to([1.0, 0.5, 0.1], (B, 3)).copy()
+    f = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
+    return f(m), f(q), f(v)
+
+
+@pytest.mark.parametrize("scheme", ["verlet", "yoshida4"])
+def test_composition_kernel_matches_plain(scheme, cuda_device):
+    from nbodysimproject_tpu_torch.ops import batch_kernels as bk
+
+    m, q, v = _bench_population(4096, cuda_device)
+    eps2 = torch.full((q.shape[0],), 1e-6, device=cuda_device)
+    before = bk.composition_multistep.launches
+    ref = bk.composition_multistep_plain(q, v, m, eps2, h=0.01, G=1.0,
+                                         n_steps=20, scheme=scheme)
+    got = bk.composition_multistep(q, v, m, eps2, h=0.01, G=1.0, n_steps=20,
+                                   scheme=scheme)
+    torch.cuda.synchronize()
+    assert bk.composition_multistep.launches == before + 1
+    for name, a, b in zip(("pos", "vel"), ref, got):
+        _close(a, b, name, rtol=1e-5, atol=1e-6)
+    with pytest.raises(ValueError):
+        bk.composition_multistep(q, v, m, eps2, h=0.01, G=1.0, n_steps=1,
+                                 mask=torch.ones_like(m, dtype=torch.bool))
+
+
+@pytest.mark.parametrize("policy", ["soft", "reflection"])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_multistep_kernel_matches_plain(case, policy, cuda_device):
+    cfg, st, dy, _tan = _built(case, cuda_device)
+    kw = _kw(cfg, dy, int(dy.n_sub.max()))
+    if policy == "reflection":
+        kw.update(eps_min=st.eps * 0.999, eps_max=st.eps * 1.001)
+    args = (st.pos, st.vel, st.mass, st.eps, st.pi)
+    before = hk.hamsoft_multistep.launches
+    ref = hk.hamsoft_multistep_plain(*args, n_steps=12, policy=policy, **kw)
+    got = hk.hamsoft_multistep(*args, n_steps=12, policy=policy, **kw)
+    torch.cuda.synchronize()
+    assert hk.hamsoft_multistep.launches == before + 1
+    for name, a, b in zip(("pos", "vel", "eps", "pi"), ref, got):
+        _close(a, b, f"{policy}.{name}")
+
+
+@pytest.mark.parametrize("clamp", [False, True])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_eps_kernel_matches_plain(case, clamp, cuda_device):
+    from nbodysimproject_tpu_torch.ops import eps_kernels as ek
+
+    _cfg, st, dy, _tan = _built(case, cuda_device)
+    args = (st.pos, st.mass, st.eps, dy.alpha_run, dy.min_softening,
+            dy.max_softening, st.mask)
+    before = ek.eps_star_and_grad_fused.launches
+    es0, g0 = ek.eps_star_and_grad_fused_plain(*args, clamp=clamp)
+    es1, g1 = ek.eps_star_and_grad_fused(*args, clamp=clamp)
+    torch.cuda.synchronize()
+    assert ek.eps_star_and_grad_fused.launches == before + 1
+    _close(es0, es1, "eps*", rtol=1e-6, atol=0.0)
+    _close(g0, g1, "grad", rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("policy", ["soft", "reflection"])
+def test_hamsoft_scan_goes_through_the_eps_kernel(policy, cuda_device):
+    """integrate_batch on the card: every substep's (eps*, grad) comes
+    from the eps kernel, and the trajectory matches the CPU route's
+    within the float32 scan tolerances of tests/test_pallas_batch.py."""
+    from nbodysimproject_tpu_torch.ops import eps_kernels as ek
+    from nbodysimproject_tpu_torch.parallel.batch_engine import \
+        integrate_batch
+
+    cfg = nt.SimConfig(fast_float32=True,
+                       use_soft_barrier=(policy == "soft"))
+    m, q, v = _bench_population(256, cuda_device)
+    mask = torch.ones(m.shape, dtype=torch.bool, device=cuda_device)
+    st, dy = build_batch(m, q, v, mask, cfg, 1.0, 0.05, 0.0, 0.01)
+    nsm = int(dy.n_sub.max())
+    before = ek.eps_star_and_grad_fused.launches
+    out = integrate_batch(st, dy, cfg, 0.01, 10, nsm)
+    torch.cuda.synchronize()
+    assert ek.eps_star_and_grad_fused.launches >= before + 10
+    cpu = lambda x: x.replace(**{k: getattr(x, k).cpu() for k in
+                                 x.__dataclass_fields__})
+    ref = integrate_batch(cpu(st), cpu(dy), cfg, 0.01, 10, nsm)
+    for name, (rtol, atol) in {"pos": (2e-5, 2e-6), "vel": (2e-5, 2e-5),
+                               "eps": (1e-5, 1e-6),
+                               "pi": (1e-3, 5e-5)}.items():
+        _close(getattr(ref, name), getattr(out, name), name, rtol, atol)
+
+
+def test_chunked_engine_columns_match_plain(cuda_device):
+    """use_fused_metrics=False on the multi-step kernel against the same
+    engine on its plain version, column by column."""
+    cfg, st, dy, tan = _built("n8_mixed", cuda_device)
+    cfg = cfg.replace(use_fused_metrics=False)
+    nsm = int(dy.n_sub.max())
+    rk, _ = analyze_batch_fused(st, dy, cfg, 12, 0.01, "full", nsm, 6,
+                                tangent=tan)
+    rp, _ = analyze_batch_fused(
+        st, dy, cfg, 12, 0.01, "full", nsm, 6, tangent=tan,
+        megno_fn=hk.hamsoft_megno_multistep_plain,
+        multistep_fn=hk.hamsoft_multistep_plain)
+    assert torch.equal(rk["is_stable"], rp["is_stable"])
+    for k, (rtol, atol) in TOL.items():
+        _close(rp[k], rk[k], k, rtol, atol)

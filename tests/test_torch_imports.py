@@ -61,3 +61,15 @@ def test_forbidden_matches_only_the_jax_package():
     assert _forbidden("jax.numpy") and _forbidden("nbodysimproject_tpu.ops")
     assert not _forbidden("nbodysimproject_tpu_torch.ops")
     assert not _forbidden("torch")
+
+
+def test_walk_covers_the_batched_slice_modules():
+    """The modules of the batched-integration slice are among the
+    sources checked above."""
+    names = {os.path.relpath(p, PKG) for p in _sources()}
+    for mod in ("integrators/classical.py", "integrators/step.py",
+                "integrators/hamsoft.py", "parallel/batch_engine.py",
+                "diagnostics/metrics.py", "ops/reflection.py",
+                "ops/cuda_build.py", "ops/eps_kernels.py",
+                "ops/batch_kernels.py", "ops/hamsoft_kernels.py"):
+        assert mod in names, mod
