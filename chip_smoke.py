@@ -3,14 +3,16 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths through their hand-written CUDA kernels:
+Drives the port's paths through their hand-written CUDA kernels:
 full-mode ``analyze_population`` under the dataset pipeline's
-configuration (``generators/pipeline.py::_PIPE_CFG`` of the JAX package,
-Kepler tail policy off) on real systems from
-``data/stability_131k.csv.gz`` (``csrc/hamsoft.cu``), and the batched
+configuration unmodified (``generators/pipeline.py::_PIPE_CFG`` of the
+JAX package, Kepler tail policy on) on real systems from
+``data/stability_131k.csv.gz`` (``csrc/hamsoft.cu`` for the fused lanes,
+the scan engine under kepler_split for the tail), and the batched
 integration of ``bench.py`` (``build_batch`` -> ``integrate_batch`` and
 the fused multi-step entry points; ``csrc/composition.cu``,
-``csrc/hamsoft_multistep.cu``, ``csrc/eps_grad.cu``).  Phases:
+``csrc/hamsoft_multistep.cu``, ``csrc/eps_grad.cu``, ``csrc/whfast.cu``).
+Phases (each prints its seconds):
 
 1. card: ``nvidia-smi`` name and power limit;
 2. build: one ``nvcc`` per kernel source and body-slot count, all
@@ -34,23 +36,33 @@ the fused multi-step entry points; ``csrc/composition.cu``,
    the legs' full widths and short horizons, under the same rule
    (``row_gate``): the composition kernel (verlet at B = 2^24, yoshida4
    at B = 2^22, 20 steps), the multi-step kernel under both barrier
-   policies (B = 2^20, 2 steps) and the eps kernel under both clamp
+   policies (B = 2^20, 2 steps), the eps kernel under both clamp
    settings (the bench population, and the first 1024 dataset rows with
-   their masked 8-slot systems);
-6. slice: ``analyze_population(mode="full", n_steps=1000, dt=0.01)`` on
-   all 16384 systems, one cold and three warm runs, with both kernels'
-   launch counts read around the cold run; its labels set beside the
-   dataset's own and beside a run on reversed body slots;
-7. the same population with ``use_fused_metrics=False`` (the multi-step
-   kernel in chunks, ``step_metrics`` between them), held to the main
-   run's columns within TOL on every row the reversed-slot run does not
-   already put outside TOL, but for MAX_CHUNKED_UNEXPLAINED rows;
-8. the main path's kernel launches replayed between CUDA events;
-9. ``bench.py``'s six legs at full width (verlet and yoshida4 scans at
+   their masked 8-slot systems), and the WHFast kernel (B = 2^22, 5
+   steps; and one step against the port's LC-8 WHFast scan);
+6. main path: ``analyze_population(mode="full", n_steps=1000, dt=0.01)``
+   on all 16384 systems under ``_PIPE_CFG`` (tail on), one cold and
+   three warm runs with the tail on its own stream, one with the tail
+   after the fused call; the tail's count and n_tail
+   histogram, the deepest fused lane, the fused call's and the tail's
+   device time; the launch counts read around the cold run;
+7. the tail-off run of the same population (one run): non-tail rows
+   bitwise equal to the main path's (gated), labels of the tail rows
+   beside it and beside the dataset, labels of the other rows beside
+   the dataset and beside a tail-off run on reversed body slots;
+8. the same population with ``use_fused_metrics=False`` (tail off; the
+   multi-step kernel in chunks, ``step_metrics`` between them), held
+   to its plain version and to the fused way at one step, the longer
+   horizons measured;
+9. the main path's kernel launches replayed between CUDA events;
+10. ``bench.py``'s legs at full width: verlet and yoshida4 scans at
    B = 16384 and 1000 steps, the fused verlet at 2^24 and yoshida4 at
-   2^22, the ham_soft scan and fused kernel at 2^20 and 100 steps under
-   both barrier policies), each with launch counts around its cold run,
-   the warm median of three runs between CUDA events and system 0's
+   2^22, the ham_soft scan and fused kernel at 2^20 and 100 steps
+   under both barrier policies, the WHFast scan (adaptive Kepler
+   solver) at B = 16384 and 1000 steps and the fused WHFast kernel at
+   2^22 and 100 steps (8 Laguerre-Conway updates), each with launch
+   counts around its cold run, the warm median of three runs between
+   CUDA events, the count of non-finite systems and system 0's
    relative drift of the extended Hamiltonian.
 
 It prints a ``{"kernels": [...]}`` line and, last, the device line.  Any
@@ -78,10 +90,11 @@ N_STEPS = 1000
 DT = 0.01
 WARM_REPS = 3
 #: the dataset pipeline's configuration (nbodysimproject_tpu/generators/
-#: pipeline.py:40-51) with the tail fast path off
+#: pipeline.py:40-51), unmodified: the Kepler tail policy is "kepler"
 PIPE = dict(slot_bucket=8, fast_float32=True, analysis_n_sub_cap=256,
-            use_fused_analysis=True, analysis_group_quantum=1024,
-            analysis_tail_policy="off")
+            use_fused_analysis=True, analysis_group_quantum=1024)
+#: the same with the tail fast path off
+PIPE_OFF = dict(PIPE, analysis_tail_policy="off")
 #: per-column (rtol, atol) of tests/test_pallas_batch.py:258-277
 #: (fused-vs-scan agreement at float32 trajectory noise)
 TOL = {
@@ -133,10 +146,16 @@ PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
 
 T0 = time.perf_counter()
+_PHASE = [None, T0]
 
 
 def phase(name):
-    print(f"[{time.perf_counter() - T0:8.1f}s] == {name}", flush=True)
+    """Print the previous phase's seconds and start ``name``."""
+    now = time.perf_counter()
+    if _PHASE[0] is not None:
+        print(f"  phase {_PHASE[0]!r} took {now - _PHASE[1]:.1f}s")
+    _PHASE[:] = [name, now]
+    print(f"[{now - T0:8.1f}s] == {name}", flush=True)
 
 
 def card_line():
@@ -723,6 +742,112 @@ def compare_eps(label, st, dy, clamp, ek):
     return dict(ms=ms, plain_ms=pms, err=err, bound=(b_ms, b_by))
 
 
+#: bench.py's WHFast legs (bench.py:342-411): a unit central mass and two
+#: 1e-3 planets (Jacobi order), 1% Gaussian perturbations; the scan at
+#: B = 16384 x 1000 steps (softening 1e-3, the adaptive Kepler solver),
+#: the fused kernel at B = 2^22 x 100 steps (eps^2 = 1e-6, 8
+#: Laguerre-Conway updates)
+WH_M = (1.0, 1e-3, 1e-3)
+WH_Q = ((0.0, 0.0), (1.0, 0.0), (0.0, 2.0))
+WH_V = ((0.0, 0.0), (0.0, 1.0), (-0.5 ** 0.5, 0.0))
+B_WH_FUSED, WH_FUSED_STEPS, WH_ITERS = 1 << 22, 100, 8
+#: kernel-vs-plain horizon of the WHFast kernel at full width, and the
+#: kernel against one substep of the port's LC-8 scan: (rtol, atol) of
+#: the JAX package's own kernel-vs-scan test (tests/test_pallas_whfast.py,
+#: 1e-5 / 1e-7): the kernel's reciprocal masses, exp-based cosh/sinh and
+#: rsqrt round apart from the scan's divisions, cosh/sinh and sqrt
+CMP_WH_STEPS = 5
+WH_SCAN_TOL = (1e-5, 1e-7)
+
+
+def whfast_ics(B, seed, dev):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    f = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)
+    dq = 0.01 * torch.randn((B, 3, 2), generator=gen, device=dev)
+    dv = 0.01 * torch.randn((B, 3, 2), generator=gen, device=dev)
+    return (f(WH_M).expand(B, 3).contiguous(), f(WH_Q)[None] + dq,
+            f(WH_V)[None] + dv)
+
+
+def whfast_ops(n, d, iters):
+    """(drift, kick) operations of the WHFast kernel per system, counted
+    off the loops of csrc/whfast.cu: each add, multiply, divide, fabsf,
+    sqrtf, rsqrtf, expf, logf, cosf and sinf counts one (the last five
+    cost many instructions each on the card; compares and selects are not
+    counted).  A Stumpff evaluation is 33 on a bound orbit (z > 0: cosf
+    and sinf; 38 on an unbound one); a Kepler solve 40 + 72 iters + 69; a
+    drift N - 1 solves and the Jacobi, centre-of-mass and reconstruction
+    sums; a kick the pair loop, the Jacobi back-reaction and the velocity
+    update."""
+    P = n * (n - 1) // 2
+    solve = 40 + 72 * iters + 69
+    drift = (8 * d * (n - 1) + 4 * d * n + (n - 1) * solve
+             + 2 * (n * d + (n - 1) * (1 + 2 * d)) + 2 * d * (2 * n - 1)
+             + 5 * d + 2 * n * d)
+    kick = (P * (7 * d + 7) + 4 * d * (n - 1) + (n - 1) * (3 * d + 5)
+            + n * (1 + 4 * d) + 2 * n * d)
+    return drift, kick
+
+
+def bound_whfast(B, n, d, steps, iters):
+    drift, kick = whfast_ops(n, d, iters)
+    return ops_bound(B * ((steps + 1) * drift + steps * kick + 4 * n),
+                     B * (4 * n * d + n + 1))
+
+
+def compare_whfast(dev, wk):
+    """The WHFast kernel against its plain version at B = 2^22 (row_gate;
+    the sensitivity is the plain version's float64 run alone: reordering
+    the bodies would change the Jacobi hierarchy, not only the rounding),
+    and one kernel step against one substep of the port's LC-8 scan."""
+    from nbodysimproject_tpu_torch import SimConfig
+    from nbodysimproject_tpu_torch.parallel.batch_engine import (
+        build_batch, integrate_batch)
+
+    B, steps = B_WH_FUSED, CMP_WH_STEPS
+    m, q, v = whfast_ics(B, 23, dev)
+    eps2 = torch.full((B,), FUSED_EPS2, device=dev)
+    kw = dict(h=DT, G=1.0, n_steps=steps, iters=WH_ITERS)
+
+    def make(dt_):
+        return tuple(x.to(dt_) for x in (q, v, m, eps2))
+
+    k, p, p64, pr, ms, pms = _runs(
+        lambda *a: wk.whfast_multistep(*a, **kw),
+        lambda *a: wk.whfast_multistep_plain(*a, **kw), make,
+        lambda a: a, lambda o: o)
+    err = row_gate(f"whfast (B={B}, {steps} steps)",
+                   {n: (k[i], p[i], p64[i], pr[i], STATE_TOL)
+                    for i, n in enumerate(("pos", "vel"))})
+    b_ms, b_by = bound_whfast(B, 3, 2, steps, WH_ITERS)
+    print(f"  whfast: kernel {ms:.3f} ms, plain {pms:.3f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by})", flush=True)
+    # one step of the kernel against one D(h/2) K(h) D(h/2) substep of
+    # the scan on the same Laguerre-Conway depth
+    cfg = SimConfig(integrator_mode="whfast", fast_float32=True,
+                    whfast_kepler_iters=WH_ITERS)
+    mask = torch.ones(m.shape, dtype=torch.bool, device=dev)
+    out, start = {}, {}
+    for dt_ in (torch.float32, torch.float64):
+        st, dy = build_batch(m.to(dt_), q.to(dt_), v.to(dt_), mask, cfg,
+                             1.0, FUSED_EPS2 ** 0.5, 0.0, DT,
+                             skip_cm_recenter=True)
+        dy = dy.replace(n_sub=torch.ones_like(dy.n_sub))
+        start[dt_] = st
+        out[dt_] = integrate_batch(st, dy, cfg, DT, 1, 1)
+    st = start[torch.float32]
+    k1 = wk.whfast_multistep(st.pos, st.vel, st.mass, st.step_s2, h=DT,
+                             G=1.0, n_steps=1, iters=WH_ITERS)
+    s32, s64 = out[torch.float32], out[torch.float64]
+    err1 = row_gate(f"whfast kernel vs LC-8 scan (B={B}, 1 step)",
+                    {n: (k1[i], getattr(s32, n), getattr(s64, n),
+                         getattr(s32, n), WH_SCAN_TOL)
+                     for i, n in enumerate(("pos", "vel"))})
+    return dict(ms=ms, plain_ms=pms, err=err, scan_err=err1,
+                bound=(b_ms, b_by))
+
+
 def nonfinite(pos):
     """Systems whose final positions are not all finite."""
     return int((~torch.isfinite(pos)).reshape(pos.shape[0], -1).any(1).sum())
@@ -766,16 +891,16 @@ def run_leg(name, fn, B, steps, counted):
     return out, cold.ms, med, launches
 
 
-def slice_legs(dev, hk, ek, bk):
-    """bench.py's six legs at full width through the port's entry
-    points.  Returns {leg: (cold ms, warm ms, launches, drift)}."""
+def slice_legs(dev, hk, ek, bk, wk):
+    """bench.py's legs at full width through the port's entry points.
+    Returns {leg: (cold ms, warm ms, launches, drift)}."""
     from nbodysimproject_tpu_torch import SimConfig
     from nbodysimproject_tpu_torch.parallel.batch_engine import (
         build_batch, integrate_batch)
 
     kernels = (hk.hamsoft_analysis_multistep, hk.hamsoft_megno_multistep,
                hk.hamsoft_multistep, ek.eps_star_and_grad_fused,
-               bk.composition_multistep)
+               bk.composition_multistep, wk.whfast_multistep)
     legs = {}
     m, q, v = bench_ics(B_SCAN, 0, dev)
     mask = torch.ones(m.shape, dtype=torch.bool, device=dev)
@@ -852,7 +977,61 @@ def slice_legs(dev, hk, ek, bk):
         print(f"    drift(sys0) {dr:.3e}; non-finite systems {nonfinite(po)}; "
               f"bound {b_ms:.3f} ms ({b_by}), {med / b_ms:.2f}x the bound")
         legs[f"ham_soft fused {policy}"] = (cold, med, la, dr)
+    del st, dy, out, po, vo, eo, pio
+    torch.cuda.empty_cache()
+    legs.update(whfast_legs(dev, kernels, wk))
     return legs
+
+
+def whfast_legs(dev, kernels, wk):
+    """bench.py's two WHFast legs: the scan (integrate_batch, adaptive
+    Kepler solver) at B = 16384 x 1000 steps and the fused kernel at
+    B = 2^22 x 100 steps."""
+    from nbodysimproject_tpu_torch import SimConfig
+    from nbodysimproject_tpu_torch.parallel.batch_engine import (
+        build_batch, integrate_batch)
+
+    legs = {}
+    one = lambda x: x.take(slice(0, 1))
+    m, q, v = whfast_ics(B_SCAN, 13, dev)
+    mask = torch.ones(m.shape, dtype=torch.bool, device=dev)
+    cfg = SimConfig(integrator_mode="whfast", fast_float32=True)
+    st, dy = build_batch(m, q, v, mask, cfg, 1.0, 1e-3, 0.0, DT)
+    nsm = int(dy.n_sub.max())
+    out, cold, med, la = run_leg(
+        f"whfast scan (integrate_batch, adaptive Kepler solver, n_sub "
+        f"counts {torch.bincount(dy.n_sub).tolist()})",
+        lambda: integrate_batch(st, dy, cfg, DT, SCAN_STEPS, nsm),
+        B_SCAN, SCAN_STEPS, kernels)
+    dr = drift_sys0(cfg, one(dy), one(st), one(out))
+    print(f"    drift(sys0) {dr:.3e}; non-finite systems "
+          f"{nonfinite(out.pos)}")
+    legs["whfast scan"] = (cold, med, la, dr)
+
+    B = B_WH_FUSED
+    mf, qf, vf = whfast_ics(B, 19, dev)
+    eps2 = torch.full((B,), FUSED_EPS2, device=dev)
+    (po, vo), cold, med, la = run_leg(
+        f"whfast fused (whfast_multistep, {WH_ITERS} Laguerre-Conway "
+        f"updates)",
+        lambda: wk.whfast_multistep(qf, vf, mf, eps2, h=DT, G=1.0,
+                                    n_steps=WH_FUSED_STEPS, iters=WH_ITERS),
+        B, WH_FUSED_STEPS, kernels)
+    if la["whfast_multistep"] == 0:
+        raise SystemExit("whfast fused leg launched no kernel")
+    s0 = one(st).replace(pos=qf[:1], vel=vf[:1])
+    dr = drift_sys0(cfg, one(dy), s0, s0.replace(pos=po[:1], vel=vo[:1]))
+    b_ms, b_by = bound_whfast(B, 3, 2, WH_FUSED_STEPS, WH_ITERS)
+    print(f"    drift(sys0) {dr:.3e}; non-finite systems {nonfinite(po)}; "
+          f"bound {b_ms:.3f} ms ({b_by}), {med / b_ms:.2f}x the bound")
+    legs["whfast fused"] = (cold, med, la, dr)
+    return legs
+
+
+def pd_isnan(x):
+    """NaN test for a frame column of any dtype (False where not float)."""
+    x = np.asarray(x)
+    return np.isnan(x) if x.dtype.kind == "f" else np.zeros(x.shape, bool)
 
 
 def _outside(a, x, rtol, atol):
@@ -934,6 +1113,53 @@ def chunked_full_horizon(df, df_c, df_rev, sane):
                     "(second), all rows",
                     label_agreement(df, df_c, np.ones(len(df), bool)))
 
+def tail_stats(states, dyns, cfg, n_sub_raw):
+    """The tail's selection on the population: (sel, n_tail) and a
+    printed summary (count, n_tail histogram, deepest fused lane)."""
+    from nbodysimproject_tpu_torch.analysis.batch import (_n_sub_cap,
+                                                          _tail_selection)
+
+    sel, n_tail = _tail_selection(states, dyns, cfg, n_sub_raw, DT)
+    capped = np.minimum(n_sub_raw, _n_sub_cap(cfg))
+    fused_max = int(capped[~sel].max()) if (~sel).any() else 0
+    hist = {int(k): int(c) for k, c in zip(*np.unique(n_tail[sel],
+                                                       return_counts=True))}
+    bodies = states.mask.sum(1).cpu().numpy()[sel]
+    print(f"  tail: {int(sel.sum())} systems, n_tail histogram {hist}, "
+          f"by body count {np.bincount(bodies, minlength=N_SLOTS + 1)}; "
+          f"{int((capped[~sel] >= 256).sum())} fused lanes at the n_sub cap, "
+          f"the deepest fused lane n_sub {fused_max}")
+    return sel, n_tail
+
+
+def check_output(df, what):
+    """Shape, columns and finiteness of a frame of the main path."""
+    assert len(df) == B_MAIN, len(df)
+    missing = [c for c in list(TOL) + [f"initial_{k}" for k in (
+        "total_energy", "virial_ratio", "softening_std")] if c not in df]
+    if missing:
+        raise SystemExit(f"{what}: missing columns {missing}")
+    if not np.isfinite(df["is_stable"]).all():
+        raise SystemExit(f"{what}: non-finite is_stable")
+    sane = ~df["pathological_energy"].to_numpy(bool)
+    cols = [c for c in TOL if c not in MEGNO_COLS] + [
+        c for c in df.columns if c.startswith("initial_")]
+    bad = {c: int((~np.isfinite(df.loc[sane, c].to_numpy(float))).sum())
+           for c in cols}
+    bad = {c: v for c, v in bad.items() if v}
+    if bad:
+        raise SystemExit(f"{what}: non-finite values on non-pathological "
+                         f"rows: {bad}")
+    megno_nf = ~np.isfinite(df[list(MEGNO_COLS)].to_numpy(float)).all(1)
+    if (df.loc[megno_nf, "is_stable"] != 0.0).any():
+        raise SystemExit(f"{what}: a row with non-finite MEGNO is labelled "
+                         f"stable")
+    print(f"  {what}: stable share {df['is_stable'].mean():.4f}; "
+          f"pathological energy {int((~sane).sum())}; non-finite MEGNO on "
+          f"{int((megno_nf & sane).sum())} non-pathological rows "
+          f"(labelled unstable)")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -949,6 +1175,7 @@ def main():
     from nbodysimproject_tpu_torch.ops import cuda_build
     from nbodysimproject_tpu_torch.ops import eps_kernels as ek
     from nbodysimproject_tpu_torch.ops import hamsoft_kernels as hk
+    from nbodysimproject_tpu_torch.ops import whfast_kernels as wk
 
     phase("card")
     card = card_line()
@@ -960,7 +1187,7 @@ def main():
     phase("build")
     t0 = time.perf_counter()
     built = cuda_build.build(hk.build_jobs() + ek.build_jobs()
-                             + bk.build_jobs())
+                             + bk.build_jobs() + wk.build_jobs())
     for (src, n, d), (path, secs, report) in sorted(built.items()):
         print(f"  {src} N={n} d={d}: {os.path.basename(path)} in "
               f"{secs:.1f}s")
@@ -977,6 +1204,7 @@ def main():
 
     phase("compare kernels with their plain versions")
     cfg = SimConfig(**PIPE)
+    cfg_off = SimConfig(**PIPE_OFF)
     states, dyns, n_sub_raw = prepare_population(
         mass, pos, vel, mask, cfg, G=G, softening=soft,
         min_softening=min_soft, dt=DT, device=dev)
@@ -1022,12 +1250,14 @@ def main():
             "dataset", states.take(first), dyns.take(first), clamp, ek)
     del st_h, dy_h
     torch.cuda.empty_cache()
+    new_cmp["whfast"] = compare_whfast(dev, wk)
+    torch.cuda.empty_cache()
 
-    phase("slice: full-mode analyze_population on the card")
+    phase("main path: analyze_population under _PIPE_CFG, tail on")
     kw = dict(G=G, softening=soft, min_softening=min_soft, dt=DT,
               n_steps=N_STEPS, mode="full", show_progress=False)
-    hk.hamsoft_analysis_multistep.launches = 0
-    hk.hamsoft_megno_multistep.launches = 0
+    sel, n_tail = tail_stats(states, dyns, cfg, n_sub_raw)
+    reset_counts(hk.hamsoft_analysis_multistep, hk.hamsoft_megno_multistep)
     tm = {}
     t0 = time.perf_counter()
     df = analyze_population(mass, pos, vel, mask, cfg, timing_out=tm, **kw)
@@ -1039,70 +1269,86 @@ def main():
     if not (launches["analysis"] > 0 and launches["megno"] > 0):
         raise SystemExit(f"the main path did not launch both kernels: "
                          f"{launches}")
-    warm = []
+    if tm["n_tail"] != int(sel.sum()) or not np.array_equal(
+            df["tail_fast_path"].to_numpy(bool), sel):
+        raise SystemExit("the main path's tail differs from its selection")
+    warm, fused_ms, tail_ms = [], [], []
     for _ in range(WARM_REPS):
         tm = {}
         t0 = time.perf_counter()
         df = analyze_population(mass, pos, vel, mask, cfg, timing_out=tm,
                                 **kw)
         warm.append(time.perf_counter() - t0)
+        fused_ms.append(tm["fused_ms"])
+        tail_ms.append(tm["tail_ms"])
         print(f"  warm {warm[-1]:.3f}s phases {tm}")
     t_med = float(np.median(warm))
     print(f"  warm median {t_med:.3f}s over {WARM_REPS}: "
           f"{B_MAIN / t_med:.1f} systems/s (B={B_MAIN}, n_steps={N_STEPS}, "
-          f"N={N_SLOTS}, d=2) on {card}")
+          f"N={N_SLOTS}, d=2, tail on its own stream) on {card}; fused call "
+          f"{np.median(fused_ms):.1f} ms, tail {np.median(tail_ms):.1f} ms "
+          f"(medians, device time)")
+    check_output(df, "tail on")
+    tm = {}
+    t0 = time.perf_counter()
+    df_serial = analyze_population(mass, pos, vel, mask, cfg,
+                                   timing_out=tm, tail_stream=False, **kw)
+    t_serial = time.perf_counter() - t0
+    print(f"  tail after the fused call, same stream: {t_serial:.3f}s "
+          f"({B_MAIN / t_serial:.1f} systems/s); fused call "
+          f"{tm['fused_ms']:.1f} ms, tail {tm['tail_ms']:.1f} ms; phases "
+          f"{tm}")
+    differ = [c for c in df.columns if not np.array_equal(
+        df[c].to_numpy(), df_serial[c].to_numpy(),
+        equal_nan=df[c].dtype.kind == "f")]
+    if differ:
+        raise SystemExit(f"the side stream changes rows: {differ}")
+    del df_serial
 
-    # output checks: shape, columns, finiteness where the energy is sane
-    assert len(df) == B_MAIN, len(df)
-    missing = [c for c in list(TOL) + [f"initial_{k}" for k in (
-        "total_energy", "virial_ratio", "softening_std")] if c not in df]
-    if missing:
-        raise SystemExit(f"missing columns {missing}")
-    if not np.isfinite(df["is_stable"]).all():
-        raise SystemExit("non-finite is_stable")
-    sane = ~df["pathological_energy"].to_numpy(bool)
-    cols = [c for c in TOL if c not in MEGNO_COLS] + [
-        c for c in df.columns if c.startswith("initial_")]
-    bad = {c: int((~np.isfinite(df.loc[sane, c].to_numpy(float))).sum())
-           for c in cols}
-    bad = {c: v for c, v in bad.items() if v}
-    if bad:
-        raise SystemExit(f"non-finite values on non-pathological rows: {bad}")
-    megno_nf = ~np.isfinite(df[list(MEGNO_COLS)].to_numpy(float)).all(1)
-    if (df.loc[megno_nf, "is_stable"] != 0.0).any():
-        raise SystemExit("a row with non-finite MEGNO is labelled stable")
-    print(f"  stable share {df['is_stable'].mean():.4f}; pathological "
-          f"energy {int((~sane).sum())}; non-finite MEGNO on "
-          f"{int((megno_nf & sane).sum())} non-pathological rows "
-          f"(labelled unstable)")
-
-    phase("labels against the dataset and against reordered body slots")
-    # the dataset's own rows are the JAX package's analysis of the same
-    # initial conditions at the same n_steps and dt, with the Kepler tail
-    # policy on; it can touch only rows with n_sub >= tail_min_n_sub
-    untouched = ref["n_sub"].to_numpy() < cfg.tail_min_n_sub
+    phase("tail off: bitwise non-tail rows, labels")
+    t0 = time.perf_counter()
+    df_off = analyze_population(mass, pos, vel, mask, cfg_off, **kw)
+    t_off = time.perf_counter() - t0
+    print(f"  tail-off run {t_off:.3f}s ({B_MAIN / t_off:.1f} systems/s)")
+    check_output(df_off, "tail off")
+    keep = ~sel
+    differ = {c: int((~((df[c].to_numpy()[keep] == df_off[c].to_numpy()[keep])
+                        | (pd_isnan(df[c].to_numpy()[keep])
+                           & pd_isnan(df_off[c].to_numpy()[keep])))).sum())
+              for c in df_off.columns}
+    differ = {c: v for c, v in differ.items() if v}
+    print(f"  non-tail rows ({int(keep.sum())}) bitwise equal to the tail-off "
+          f"run in every column: {not differ}")
+    if differ:
+        raise SystemExit(f"non-tail rows differ from the tail-off run: "
+                         f"{differ}")
     print(f"  n_sub equal to the dataset's on "
           f"{float((df['n_sub'] == ref['n_sub']).mean()):.4f} of the rows")
-    print_agreement("this run (first) against the dataset (second), rows "
-                    "the tail policy cannot touch",
-                    label_agreement(df, ref, untouched))
+    print_agreement("tail rows: this run (first) against the dataset "
+                    "(second)", label_agreement(df, ref, sel))
+    print_agreement("tail rows: this run (first) against the tail-off run "
+                    "(second)", label_agreement(df, df_off, sel))
+    print_agreement("tail rows: the tail-off run (first) against the "
+                    "dataset (second)", label_agreement(df_off, ref, sel))
+    print_agreement("other rows: this run (first) against the dataset "
+                    "(second)", label_agreement(df, ref, keep))
     # the rounding floor: the same systems with their body slots (and
     # MEGNO tangents) reversed, the same physics with every sum in
-    # another order
+    # another order (tail off)
     rev = slice(None, None, -1)
     z1, z2 = population_normals(0, B_MAIN, (N_SLOTS, 2), torch.float32)
     dr0, dv0 = init_tangent(z1.to(dev), z2.to(dev), states)
     t0 = time.perf_counter()
     df_rev = analyze_population(
-        mass[:, rev], pos[:, rev], vel[:, rev], mask[:, rev], cfg,
+        mass[:, rev], pos[:, rev], vel[:, rev], mask[:, rev], cfg_off,
         tangent=(dr0.flip(1), dv0.flip(1)), **kw)
-    print(f"  reversed-slot run {time.perf_counter() - t0:.3f}s")
-    print_agreement("this run (first) against the reversed-slot run "
-                    "(second), the same rows",
-                    label_agreement(df, df_rev, untouched))
+    print(f"  reversed-slot run (tail off) {time.perf_counter() - t0:.3f}s")
+    print_agreement("other rows: the tail-off run (first) against the "
+                    "reversed-slot run (second)",
+                    label_agreement(df_off, df_rev, keep))
 
-    phase("use_fused_metrics=False on the main path's population")
-    cfg_c = cfg.replace(use_fused_metrics=False)
+    phase("use_fused_metrics=False on the main path's population (tail off)")
+    cfg_c = cfg_off.replace(use_fused_metrics=False)
     chunked_cases = []
     reset_counts(hk.hamsoft_analysis_multistep, hk.hamsoft_megno_multistep,
                  hk.hamsoft_multistep)
@@ -1121,11 +1367,12 @@ def main():
     if len(df_c) != B_MAIN or not np.isfinite(df_c["is_stable"]).all():
         raise SystemExit("use_fused_metrics=False: missing or non-finite "
                          "is_stable")
-    chunked_full_horizon(df, df_c, df_rev,
-                         ~df["pathological_energy"].to_numpy(bool))
-    rows_c, nsm_c, _ = dispatch_plan(n_sub_raw, cfg)
+    chunked_full_horizon(df_off, df_c, df_rev,
+                         ~df_off["pathological_energy"].to_numpy(bool))
+    del df_c, df_rev
+    rows_c, nsm_c, _ = dispatch_plan(n_sub_raw, cfg_off)
     lanes_c = torch.as_tensor(rows_c, device=dev)
-    chunked_parity_horizon(states.take(lanes_c), dyns.take(lanes_c), cfg,
+    chunked_parity_horizon(states.take(lanes_c), dyns.take(lanes_c), cfg_off,
                            nsm_c, analyze_batch_fused)
     for label, lanes, steps, nsm, widen in (
             ("lowest bucket, use_fused_metrics=False", low, 20,
@@ -1140,10 +1387,11 @@ def main():
 
     phase("main-path kernel times")
     # the main path's one launch of each kernel, replayed on the same
-    # inputs (the lane order of analyze_population's dispatch plan and
+    # inputs (the fused lanes in analyze_population's dispatch order and
     # its seed-0 tangents) with CUDA events around each launch
-    rows, n_sub_max, _ = dispatch_plan(n_sub_raw, cfg)
-    lanes = torch.as_tensor(rows, device=dev)
+    fused_rows = np.nonzero(~sel)[0]
+    order, n_sub_max, _ = dispatch_plan(n_sub_raw[fused_rows], cfg)
+    lanes = torch.as_tensor(fused_rows[order], device=dev)
     ta, tm_ = Timed(hk.hamsoft_analysis_multistep), Timed(
         hk.hamsoft_megno_multistep)
     megno_steps = min(100, min(50, N_STEPS // 2))
@@ -1155,12 +1403,12 @@ def main():
     for kind, t in (("analysis", ta), ("megno", tm_)):
         b_ms, b_by = bound(kind, ns_lanes, n_sub_max, N_STEPS,
                            megno_steps, N_SLOTS, 2)
-        print(f"  {kind}: {len(ns_lanes)} lanes, one launch {t.ms:.1f} ms, "
-              f"bound {b_ms:.3f} ms ({b_by}), "
+        print(f"  {kind}: {len(ns_lanes)} fused lanes (tail on), one launch "
+              f"{t.ms:.1f} ms, bound {b_ms:.3f} ms ({b_by}), "
               f"{t.ms / b_ms:.0f}x the bound", flush=True)
 
-    phase("the batched slice: bench.py's six legs at full width")
-    legs = slice_legs(dev, hk, ek, bk)
+    phase("the batched slice: bench.py's legs at full width")
+    legs = slice_legs(dev, hk, ek, bk, wk)
 
     phase("report")
     entries = []
@@ -1192,7 +1440,10 @@ def main():
              "ham_soft scan soft", "eps bench clamp=True", ("eps",)),
             ("composition_multistep", "composition.cu",
              "nbodysimproject_tpu/ops/pallas_batch.py:49", "verlet fused",
-             "composition verlet", ("composition",))):
+             "composition verlet", ("composition",)),
+            ("whfast_multistep", "whfast.cu",
+             "nbodysimproject_tpu/ops/pallas_whfast.py:162", "whfast fused",
+             "whfast", ("whfast",))):
         c = new_cmp[case]
         entries.append({
             "name": name, "route": "cuda",
@@ -1212,6 +1463,10 @@ def main():
     for leg, (cold, med, la, dr) in legs.items():
         print(f"  leg {leg}: cold {cold:.1f} ms, warm median {med:.3f} ms, "
               f"drift(sys0) {dr:.3e}")
+    print(f"  main path (tail on): warm median {t_med:.3f}s = "
+          f"{B_MAIN / t_med:.1f} systems/s; tail after the fused call "
+          f"{t_serial:.3f}s; tail off {t_off:.3f}s")
+    phase("done")
     print(f"  total {time.perf_counter() - T0:.1f}s")
     print(card)
     print(json.dumps({"kernels": entries, "card": card}))

@@ -108,8 +108,12 @@ def analyze_batch_fused(states, dyns, cfg, n_steps: int, dt, mode: str,
         j_s = eps_s * pi_s / torch.where(mu_b != 0.0, mu_b,
                                          torch.ones_like(mu_b))
         ok = (mu_b * eps_s != 0.0) | (pi_s != 0.0)
-        th_s = torch.where(ok, torch.atan2(pi_s, mu_b * eps_s),
-                           torch.full_like(eps_s, math.nan))
+        # atan2 in float64, rounded back: the CPU's vectorised float32
+        # atan2 rounds the last elements of a tensor apart from the
+        # others, which would make a lane's value depend on the lanes
+        # that share the call (the tail's rows leave it)
+        th = torch.atan2(pi_s.double(), (mu_b * eps_s).double()).to(dtype)
+        th_s = torch.where(ok, th, torch.full_like(eps_s, math.nan))
         accs = dict(accs, J_eps=_moments(j_s), theta_eps=_moments(th_s))
         quad = (po, vo, eo, pio)
     else:

@@ -1,12 +1,20 @@
-"""Running-moment helpers of the stability analysis.
+"""Stability analysis on the scan engine, batched.
 
-Counterpart of the helpers of ``nbodysimproject_tpu/analysis/stability.py``
-that the fused engine uses; the JAX package's scan engine
-(``analyze_system``/``analyze_batch_jit``) is not part of this slice.
-Elementwise on (B,) tensors.
+Counterpart of ``nbodysimproject_tpu/analysis/stability.py``
+(``analyze_system`` / ``analyze_batch_jit``; parity:
+``minbody/stability_analyzer.py:69-259``): the running-moment helpers
+the fused engine shares, and ``analyze_batch``, the scan engine, which
+integrates every system of a batch with ``integrators/step.py`` (each
+its own n_sub, as masked trips), samples the step metrics every
+``max(1, n_steps // 100)`` steps, runs the MEGNO continuation and
+returns the verdict columns.  The analysis tail's kepler_split lanes run
+here (``analysis/batch.py``); the JAX package runs its tail chunks on
+its scan engine too.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -37,3 +45,91 @@ def _rel_drift(x1, x0):
     return torch.where(ok_rel, rel,
                        torch.where(ok_abs, torch.abs(x1 - x0),
                                    torch.full_like(x0, float("inf"))))
+
+
+def _running_init(like):
+    z = torch.zeros_like(like)
+    return (z, z, z, torch.full_like(z, -math.inf),
+            torch.full_like(z, math.inf))
+
+
+#: the step metrics whose sampled running moments feed the columns
+_SAMPLED = ("com_drift", "J_eps", "theta_eps", "cos_theta", "var_L",
+            "tr_hessian")
+
+
+def analyze_batch(states, dyns, cfg, n_steps: int, dt, mode: str,
+                  n_sub_max: int, megno_steps: int = 0, tangent=None,
+                  trips=None):
+    """Analyse a batch of systems on the scan engine; returns (result
+    columns dict of (B,) tensors, final state).
+
+    ``mode``: "core" or "full" (the modes ``analyze_population`` runs;
+    the JAX package's "minimal" is not ported); ``megno_steps`` > 0 runs
+    the MEGNO continuation in full mode from ``tangent`` = (dr0, dv0),
+    the (B, N, d) initial tangent vectors.  ``dt`` is a float or a (B,)
+    tensor.  ``trips`` is the substep loop length (at most
+    ``n_sub_max``; read off ``dyns.n_sub`` when None, which costs a
+    device-to-host read).  The step metrics are evaluated on the
+    sampled steps only: the JAX package computes them on every step and
+    discards the others."""
+    from ..diagnostics import energy as E
+    from ..diagnostics.megno import megno_scan
+    from ..diagnostics.metrics import step_metrics
+    from ..integrators.step import _per_system, _trips, macro_step_dynamic
+
+    if states.pos.shape[-1] != 2:
+        raise NotImplementedError("analyze_batch: the port covers d = 2")
+    if mode not in ("core", "full"):
+        raise NotImplementedError(f"analyze_batch: mode {mode!r} is not "
+                                  f"ported")
+    dtype = states.pos.dtype
+    dtv = _per_system(dt, states.eps)
+    if trips is None:
+        trips = _trips(torch.clamp_min(dyns.n_sub, 1), n_sub_max)
+    step = lambda s: macro_step_dynamic(s, dyns, cfg, dtv, n_sub_max, trips)
+    H0 = E.extended_hamiltonian(states, dyns, cfg)
+    state = states
+    L0 = E.angular_momentum_z(states)
+    sample_interval = max(1, int(n_steps) // 100)
+    accs = {k: _running_init(states.eps) for k in _SAMPLED}
+    for i in range(int(n_steps)):
+        state = step(state)
+        if i % sample_interval == 0:
+            met = step_metrics(state, dyns, cfg, L0=L0, energies=False)
+            accs = {k: _running_update(accs[k], met[k]) for k in accs}
+
+    energy_drift = _rel_drift(E.extended_hamiltonian(state, dyns, cfg), H0)
+    ang_mom_drift = _rel_drift(E.angular_momentum_z(state), L0)
+    if mode == "full" and megno_steps > 0:
+        state, megno, lyap, slope_med = megno_scan(
+            state, dyns, cfg, tangent[0], tangent[1], megno_steps, dtv,
+            n_sub_max, trips)
+    else:
+        megno = torch.full_like(H0, 2.0)
+        lyap = torch.full_like(H0, math.inf)
+        slope_med = torch.zeros_like(H0)
+
+    com_mean = _mean(accs["com_drift"])
+    is_stable = ((energy_drift < 0.01) & (ang_mom_drift < 0.01)
+                 & (com_mean < 1.0) & (megno < 10.0))
+    return {
+        "is_stable": is_stable.to(dtype),
+        "energy_drift": energy_drift,
+        "angular_momentum_drift": ang_mom_drift,
+        "com_drift_mean": com_mean,
+        "com_drift_max": accs["com_drift"][3],
+        "j_eps_mean": _mean(accs["J_eps"]),
+        "j_eps_std": _std(accs["J_eps"]),
+        "theta_eps_mean": _mean(accs["theta_eps"]),
+        "theta_eps_std": _std(accs["theta_eps"]),
+        "cos_theta_mean": _mean(accs["cos_theta"]),
+        "cos_theta_min": accs["cos_theta"][4],
+        "ang_mom_var_mean": _mean(accs["var_L"]),
+        "ang_mom_var_max": accs["var_L"][3],
+        "tidal_trace_mean": _mean(accs["tr_hessian"]),
+        "tidal_trace_max": accs["tr_hessian"][3],
+        "MEGNO": megno,
+        "lyapunov_time": lyap,
+        "megno_slope_med": slope_med,
+    }, state

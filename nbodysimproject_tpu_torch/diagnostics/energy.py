@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from ..integrators import hamsoft as hs
+from ..integrators.kepler_split import split_hamiltonian
 from ..ops.barrier import barrier_energy
 from ..ops.geometry import pair_diff, pair_mask, triu_pairs
 from ..utils.summation import kahan_sum
@@ -77,12 +78,11 @@ def energy_breakdown(state, dyn, cfg):
 
 def extended_hamiltonian(state, dyn, cfg, eps_star=None):
     """H_ext with Kahan-compensated kinetic and pair sums
-    (diagnostics.py:457-549), for every ported integrator mode (the
-    Kepler-split tail's own Hamiltonian is not ported)."""
+    (diagnostics.py:457-549).  The kepler_split tail conserves another
+    Hamiltonian (point-mass dominant pair, frozen eps and pi), so its
+    analysis measures that one (``integrators/kepler_split.py``)."""
     if cfg.integrator_mode == "kepler_split":
-        raise NotImplementedError(
-            "extended_hamiltonian: the kepler_split Hamiltonian comes with "
-            "the Kepler slice")
+        return split_hamiltonian(state, dyn, cfg)
     tk = state.mass * (state.vel * state.vel).sum(-1)
     tk = torch.where(state.mask, tk, torch.zeros_like(tk))
     T = 0.5 * kahan_sum(tk)

@@ -43,3 +43,48 @@ def init_tangent(z1, z2, state):
         return d / torch.clamp_min(norm, 1e-300)[..., None, None]
 
     return make(z1), make(z2)
+
+
+def megno_scan(state, dyn, cfg, dr0, dv0, n_steps: int, dt,
+               n_sub_max: int, trips=None):
+    """``n_steps`` MEGNO steps fused with the integrator on the
+    dynamic-n_sub path (megno.py:47-106 of the JAX package): per step a
+    macro step of every system's own n_sub, the tangent update with
+    ``diagnostics/tangent.py``, the reference's norm_r < 1e-12 quirk, and
+    the running accumulator.  ``dr0``/``dv0`` are the initial tangents
+    (``init_tangent``); ``dt`` a float or (B,) tensor; ``trips`` the
+    substep loop length (read off ``dyn.n_sub`` when None).  Returns
+    (final state, Y, lyapunov_time, slope_med), each (B,)."""
+    from ..integrators.step import _per_system, _trips, macro_step_dynamic
+    from ..ops.hamsoft_kernels import _megno_summary
+    from .tangent import variational_accel_state
+
+    dtv = _per_system(dt, state.eps)
+    if trips is None:
+        trips = _trips(torch.clamp_min(dyn.n_sub, 1), n_sub_max)
+    dt3 = dtv[..., None, None]
+    dr, dv = dr0, dv0
+    accum = torch.zeros_like(dtv)
+    t = torch.zeros_like(dtv)
+    ys = []
+    for _ in range(int(n_steps)):
+        state = macro_step_dynamic(state, dyn, cfg, dtv, n_sub_max, trips)
+        dr = dr + dv * dt3
+        da = variational_accel_state(state, dyn, cfg, dr)
+        dv = dv + da * dt3
+        t = t + dtv
+        norm_r = torch.sqrt((dr * dr).sum((-2, -1)))
+        tiny = norm_r < 1e-12
+        scale = torch.where(tiny, torch.clamp_min(norm_r, 1e-300),
+                            torch.ones_like(norm_r))[..., None, None]
+        dr = dr / scale
+        dv = dv / scale
+        norm_r = torch.where(tiny, torch.ones_like(norm_r), norm_r)
+        norm_v = torch.sqrt((dv * dv).sum((-2, -1)))
+        accum = accum + (norm_v / torch.clamp_min(norm_r, 1e-300)) * t * dtv
+        ys.append(2.0 * accum / torch.clamp_min(t, 1e-300))
+    ys = torch.stack(ys) if ys else torch.zeros((0,) + dtv.shape,
+                                                dtype=dtv.dtype,
+                                                device=dtv.device)
+    Y, lyap, slope_med = _megno_summary(accum, t, ys, dtv)
+    return state, Y, lyap, slope_med

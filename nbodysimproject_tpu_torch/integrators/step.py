@@ -16,8 +16,10 @@ or a (B,) tensor.
   identities and are skipped.
 
 ham_soft threads the (eps*, grad) cache across substep boundaries
-(``strang_substep_cached``).  ``substep_fn`` raises for ``whfast`` and
-``kepler_split``, which are not ported yet.
+(``strang_substep_cached``).  Every integrator mode of the JAX package
+has its substep: verlet, yoshida4, ham_soft, whfast
+(``integrators/whfast.py``) and the Kepler-split tail's kepler_split
+(``integrators/kepler_split.py``).
 """
 
 from __future__ import annotations
@@ -29,16 +31,8 @@ import torch
 from .classical import adaptive_softening_refresh, verlet_kernel, \
     yoshida4_kernel
 from .hamsoft import strang_substep, strang_substep_cached
-
-_NOT_PORTED = ("whfast", "kepler_split")
-
-
-def check_mode(cfg) -> None:
-    """Raise for the integrator modes this package does not have yet."""
-    if cfg.integrator_mode in _NOT_PORTED:
-        raise NotImplementedError(
-            f"integrator_mode {cfg.integrator_mode!r} is not ported; "
-            "WHFast and the Kepler-split tail come with the Kepler slice")
+from .kepler_split import kepler_split_substep
+from .whfast import whfast_substep
 
 
 def begin_step(state, cfg):
@@ -59,12 +53,15 @@ def finish_step(state, cfg):
 
 
 def substep_fn(cfg):
-    """The substep body for the integrator mode (integrator.py:200-227)."""
-    check_mode(cfg)
+    """The substep body for the integrator mode (integrator.py:200-227).
+    kepler_split freezes eps, so no adaptive refresh applies to it."""
     mode = cfg.integrator_mode
     if mode == "ham_soft":
         return strang_substep
-    kernel = yoshida4_kernel if mode == "yoshida4" else verlet_kernel
+    if mode == "kepler_split":
+        return kepler_split_substep
+    kernel = {"yoshida4": yoshida4_kernel,
+              "whfast": whfast_substep}.get(mode, verlet_kernel)
     if not cfg.adaptive_softening:
         return kernel
 
@@ -97,7 +94,6 @@ def _select(active, new, old):
 
 def macro_step(state, dyn, cfg, dt, n_sub: int):
     """One sim.step(dt) with the same static substep count everywhere."""
-    check_mode(cfg)
     dt = _per_system(dt, state.eps)
     h = dt / n_sub
     state = begin_step(state, cfg)
@@ -123,7 +119,6 @@ def macro_step_dynamic(state, dyn, cfg, dt, n_sub_max: int, trips=None):
     the systems with i < n_sub, each with its own h = dt / n_sub.
     ``trips`` (the loop length, read off ``dyn.n_sub`` when None) lets a
     caller read it once for many steps."""
-    check_mode(cfg)
     n_sub = torch.clamp_min(dyn.n_sub, 1)
     h = _per_system(dt, state.eps) / n_sub.to(state.pos.dtype)
     if trips is None:

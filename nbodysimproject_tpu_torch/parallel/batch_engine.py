@@ -8,7 +8,7 @@ leading system axis — no per-system host loop — and ``integrate_batch``
 / ``step_batch`` (``integrate_dynamic`` / ``macro_step_dynamic`` of
 ``integrators/step.py`` on the whole batch: the JAX package's vmap is
 the batch axis here).  Integrator modes ham_soft, verlet and yoshida4
-at d = 2; whfast and kepler_split raise ``NotImplementedError``.
+and, with the classical construction, whfast and kepler_split, at d = 2.
 """
 
 from __future__ import annotations
@@ -20,8 +20,7 @@ from ..core.state import DynParams, SimState, remove_center_of_mass_velocity
 from ..integrators import calibration as calib
 from ..integrators import hamsoft as hs
 from ..ops import eps_model as epsmod
-from ..integrators.step import check_mode, integrate_dynamic, \
-    macro_step_dynamic
+from ..integrators.step import integrate_dynamic, macro_step_dynamic
 
 
 def _per_system(x, B, like):
@@ -35,7 +34,6 @@ def build_batch(mass, pos, vel, mask, cfg: SimConfig, G, softening,
     """Construct batched (SimState, DynParams) for a (B, N[, d])
     population; ``G`` / ``softening`` / ``min_softening`` may be scalars
     or (B,) arrays.  The tensors' device and dtype come from ``pos``."""
-    check_mode(cfg)
     if pos.shape[-1] != 2:
         raise NotImplementedError(
             f"build_batch: the port covers d = 2; got d = {pos.shape[-1]}")

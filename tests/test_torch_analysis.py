@@ -163,11 +163,21 @@ def test_default_tangents_are_chunk_independent(frames):
 
 
 def test_tail_policy_kepler_raises():
+    """The Kepler tail policy is ported (tests/test_torch_analysis_tail.py
+    holds it to the JAX package); what stays unported around it raises:
+    the early-exit probe.  With the policy on, a population with no
+    dominated deep-schedule system runs and carries the tail column."""
     m, q, v, mask = _raw_population(3, False, B=4)
     cfg = nt.SimConfig(**{**PIPE, "analysis_tail_policy": "kepler"})
-    with pytest.raises(NotImplementedError):
-        nt.analyze_population(m, q, v, mask, cfg, n_steps=2, mode="full",
-                              show_progress=False, device="cpu")
+    df = nt.analyze_population(m, q, v, mask, cfg, n_steps=2, mode="full",
+                               show_progress=False, device="cpu")
+    assert "tail_fast_path" in df.columns
+    assert not df["tail_fast_path"].any()
+    with pytest.raises(NotImplementedError, match="early-exit"):
+        nt.analyze_population(m, q, v, mask,
+                              cfg.replace(early_exit_probe=0.1), n_steps=2,
+                              mode="full", show_progress=False,
+                              device="cpu")
 
 
 @pytest.mark.parametrize("device", [None, "cuda"])

@@ -1,6 +1,7 @@
 """The CUDA kernels of the port against their plain PyTorch versions, on
 the card: the analysis, MEGNO and plain multi-step ham_soft kernels, the
-eps* kernel and the composition (Verlet/Yoshida4) kernel.
+eps* kernel, the composition (Verlet/Yoshida4) kernel and the WHFast
+kernel; and the Kepler tail of ``analyze_population`` on the card.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
 one; the file imports neither JAX nor the JAX package, so it runs on a
@@ -19,7 +20,11 @@ analysis columns within the fused-vs-scan tolerances of
 3-body system (B = 4096, 20 steps; rtol 1e-5 / atol 1e-6: the same
 operation sequence, a few ulps of rsqrt apart over 20 steps); the eps
 kernel holds eps* to rtol 1e-6 and the gradient to rtol 1e-5 / atol
-1e-5.
+1e-5.  The WHFast kernel runs planetary systems (B = 4096, 20 steps;
+rtol 1e-5 / atol 1e-6 against its plain version, 1e-5 / 1e-7 against
+one substep of the LC-8 scan); the tail's rows are bitwise equal between
+its own stream and the serial run, and the non-tail rows to the
+tail-off run.
 """
 
 import numpy as np
@@ -308,3 +313,113 @@ def test_chunked_engine_columns_match_plain(cuda_device):
     assert torch.equal(rk["is_stable"], rp["is_stable"])
     for k, (rtol, atol) in TOL.items():
         _close(rp[k], rk[k], k, rtol, atol)
+
+
+def _planets(B, n, device, seed=17):
+    """The WHFast planetary systems (unit central mass, 1e-3 planets at
+    radii 1, 2, ...), float32 on the card; with ``n`` = 4 the last slot is
+    a zero-mass padded body at the origin."""
+    rng = np.random.default_rng(seed)
+    live = min(n, 3)
+    q = np.zeros((B, n, 2))
+    v = np.zeros((B, n, 2))
+    for i in range(1, live):
+        q[:, i, 0] = float(i)
+        v[:, i, 1] = 1.0 / np.sqrt(float(i))
+    q[:, :live] += 0.01 * rng.normal(size=(B, live, 2))
+    v[:, :live] += 0.01 * rng.normal(size=(B, live, 2))
+    m = np.zeros((B, n))
+    m[:, 0] = 1.0
+    m[:, 1:live] = 1e-3
+    f = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
+    return f(q), f(v), f(m), torch.full((B,), 1e-6, device=device)
+
+
+@pytest.mark.parametrize("n", [3, 4])
+def test_whfast_kernel_matches_plain(n, cuda_device):
+    """The WHFast kernel against its plain version (B = 4096, 20 steps;
+    rtol 1e-5 / atol 1e-6: the same operation sequence, so only a few
+    ulps of the card's math functions apart); the padded slot stays
+    inert."""
+    from nbodysimproject_tpu_torch.ops import whfast_kernels as wk
+
+    q, v, m, e2 = _planets(4096, n, cuda_device)
+    before = wk.whfast_multistep.launches
+    kw = dict(h=0.01, G=1.0, n_steps=20, iters=8)
+    k = wk.whfast_multistep(q, v, m, e2, **kw)
+    p = wk.whfast_multistep_plain(q, v, m, e2, **kw)
+    torch.cuda.synchronize()
+    assert wk.whfast_multistep.launches == before + 1
+    for name, a, b in zip(("pos", "vel"), p, k):
+        _close(a, b, name, 1e-5, 1e-6)
+    if n == 4:
+        k3 = wk.whfast_multistep(q[:, :3].contiguous(), v[:, :3].contiguous(),
+                                 m[:, :3].contiguous(), e2, **kw)
+        for a, b in zip(k3, k):
+            assert torch.equal(a, b[:, :3])
+
+
+def test_whfast_kernel_matches_lc8_scan_step(cuda_device):
+    """One kernel step against one D(h/2) K(h) D(h/2) substep of the
+    port's WHFast scan on the same LC-8 solver (rtol 1e-5 / atol 1e-7, as
+    the JAX package's kernel-versus-scan test)."""
+    from nbodysimproject_tpu_torch.ops import whfast_kernels as wk
+
+    q, v, m, _e2 = _planets(4096, 3, cuda_device)
+    cfg = nt.SimConfig(integrator_mode="whfast", fast_float32=True,
+                       whfast_kepler_iters=8)
+    mask = torch.ones(m.shape, dtype=torch.bool, device=cuda_device)
+    st, dy = build_batch(m, q, v, mask, cfg, 1.0, 1e-3, 0.0, 0.01,
+                         skip_cm_recenter=True)
+    dy = dy.replace(n_sub=torch.ones_like(dy.n_sub))
+    ref = nt.integrate_batch(st, dy, cfg, 0.01, 1, 1)
+    po, vo = wk.whfast_multistep(st.pos, st.vel, st.mass, st.step_s2,
+                                 h=0.01, G=1.0, n_steps=1, iters=8)
+    _close(ref.pos, po, "pos", 1e-5, 1e-7)
+    _close(ref.vel, vo, "vel", 1e-5, 1e-7)
+
+
+def _hier_triples(reps, device):
+    """Hierarchical triples with a tight inner binary (the Kepler tail's
+    systems) and wide triples (the fused engine's), ``reps`` copies."""
+    out = []
+    for a_in, a_out in [(0.01 * (1 + 0.1 * k), 20.0) for k in range(4)] \
+            + [(1.2 + 0.1 * k, 12.0) for k in range(4)]:
+        m = np.array([1.0, 0.8, 0.3])
+        mu = m[0] + m[1]
+        vi = np.sqrt(mu / a_in)
+        q = np.array([[-m[1] / mu * a_in, 0.0], [m[0] / mu * a_in, 0.0],
+                      [a_out, 0.0]])
+        v = np.array([[0.0, -m[1] / mu * vi], [0.0, m[0] / mu * vi],
+                      [0.0, np.sqrt((mu + m[2]) / a_out)]])
+        q -= (m[:, None] * q).sum(0) / m.sum()
+        v -= (m[:, None] * v).sum(0) / m.sum()
+        out.append((m, q, v))
+    m, q, v = (np.concatenate([np.stack([x[i] for x in out])] * reps)
+               for i in range(3))
+    return m, q, v, np.ones(m.shape, bool)
+
+
+def test_tail_path_on_the_card(cuda_device):
+    """analyze_population under the dataset configuration (tail on): the
+    tail's own stream and thread give the rows of the serial run, and
+    the non-tail rows those of the tail-off run, bit for bit."""
+    pop = _hier_triples(16, cuda_device)
+    cfg = nt.SimConfig(slot_bucket=8, fast_float32=True,
+                       analysis_n_sub_cap=256, use_fused_analysis=True,
+                       analysis_group_quantum=1024)
+    kw = dict(G=1.0, softening=5e-3, min_softening=0.0, dt=0.01,
+              n_steps=20, mode="full", show_progress=False)
+    tm = {}
+    on = nt.analyze_population(*pop, cfg, timing_out=tm, **kw)
+    serial = nt.analyze_population(*pop, cfg, tail_stream=False, **kw)
+    off = nt.analyze_population(*pop, cfg.replace(
+        analysis_tail_policy="off"), **kw)
+    tail = on["tail_fast_path"].to_numpy()
+    assert tm["n_tail"] == 64 == int(tail.sum())
+    for c in serial.columns:
+        a, b = on[c].to_numpy(), serial[c].to_numpy()
+        assert np.array_equal(a, b, equal_nan=a.dtype.kind == "f"), c
+    for c in off.columns:
+        a, b = on[c].to_numpy()[~tail], off[c].to_numpy()[~tail]
+        assert np.array_equal(a, b, equal_nan=a.dtype.kind == "f"), c

@@ -73,3 +73,14 @@ def test_walk_covers_the_batched_slice_modules():
                 "ops/cuda_build.py", "ops/eps_kernels.py",
                 "ops/batch_kernels.py", "ops/hamsoft_kernels.py"):
         assert mod in names, mod
+
+
+def test_walk_covers_the_kepler_slice_modules():
+    """The modules of the Kepler slice (WHFast, the Kepler-split tail
+    and the scan analysis engine) are among the sources checked above."""
+    names = {os.path.relpath(p, PKG) for p in _sources()}
+    for mod in ("ops/kepler.py", "ops/whfast_kernels.py",
+                "integrators/whfast.py", "integrators/kepler_split.py",
+                "diagnostics/tangent.py", "diagnostics/megno.py",
+                "analysis/stability.py", "analysis/batch.py"):
+        assert mod in names, mod

@@ -17,7 +17,9 @@ build their own batch from the same numpy arrays.
   pi 1e-3 / 5e-5): the same operations in other reduction orders.
 * The JAX package's states carry over with ``state_from_numpy`` and
   equal the port's own build (classical and ham_soft fields).
-* whfast, kepler_split, the "reference" gradient and d = 3 raise
+* whfast and kepler_split build and integrate (their parity tests are
+  ``test_torch_whfast.py`` and ``test_torch_kepler_split.py``); WHFast's
+  large-N force routes, the "reference" gradient and d = 3 raise
   ``NotImplementedError``.
 """
 
@@ -174,16 +176,24 @@ def test_state_from_numpy_carries_the_jax_build(mode):
 
 @pytest.mark.parametrize("mode", ["whfast", "kepler_split"])
 def test_unported_modes_raise(mode):
+    """Both modes are ported (tests/test_torch_whfast.py and
+    tests/test_torch_kepler_split.py hold them to the JAX package) and
+    build, integrate and step here; what stays unported in them raises:
+    WHFast's large-N force routes (``force_mode`` other than "direct")
+    and d = 3."""
     m, q, v, mask = (torch.as_tensor(a) for a in _bench_ics(B=4))
     cfg = nt.SimConfig(integrator_mode=mode)
-    with pytest.raises(NotImplementedError, match="Kepler slice"):
-        build_batch(m, q, v, mask, cfg, 1.0, 1e-3, 0.0, 0.01)
-    st, dt = build_batch(m, q, v, mask, nt.SimConfig(integrator_mode="verlet"),
-                         1.0, 1e-3, 0.0, 0.01)
+    st, dt = build_batch(m, q, v, mask, cfg, 1.0, 1e-3, 0.0, 0.01)
+    out = integrate_batch(st, dt, cfg, 0.01, 2, 1)
+    assert torch.isfinite(out.pos).all()
+    assert torch.isfinite(step_batch(st, dt, cfg, 0.01, 1).vel).all()
+    if mode == "whfast":
+        with pytest.raises(NotImplementedError, match="large-N"):
+            step_batch(st, dt, cfg.replace(force_mode="p3m"), 0.01, 1)
+    q3 = torch.cat([q, torch.zeros_like(q[..., :1])], -1)
     with pytest.raises(NotImplementedError):
-        integrate_batch(st, dt, cfg, 0.01, 1, 1)
-    with pytest.raises(NotImplementedError):
-        step_batch(st, dt, cfg, 0.01, 1)
+        build_batch(m, q3, torch.cat([v, torch.zeros_like(v[..., :1])], -1),
+                    mask, cfg, 1.0, 1e-3, 0.0, 0.01)
 
 
 def test_reference_gradient_and_d3_raise():
