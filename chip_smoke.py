@@ -11,12 +11,15 @@ JAX package, Kepler tail policy on) on real systems from
 the scan engine under kepler_split for the tail), and the batched
 integration of ``bench.py`` (``build_batch`` -> ``integrate_batch`` and
 the fused multi-step entry points; ``csrc/composition.cu``,
-``csrc/hamsoft_multistep.cu``, ``csrc/eps_grad.cu``, ``csrc/whfast.cu``).
-Phases (each prints its seconds):
+``csrc/hamsoft_multistep.cu``, ``csrc/eps_grad.cu``, ``csrc/whfast.cu``),
+and the large-N slice at the widths of the JAX package's
+``tools/bench_largen.py`` and ``tools/bench_whfast_largen.py``
+(``largen_rollout``, P3M, the classical and many-planet WHFast force
+routes; ``csrc/pairwise_force.cu``).  Phases (each prints its seconds):
 
 1. card: ``nvidia-smi`` name and power limit;
-2. build: one ``nvcc`` per kernel source and body-slot count, all
-   started together, into the git-ignored
+2. build: one ``nvcc`` per kernel source and body-slot count (the
+   tiled force kernel: per dimension, 2 and 3), all started together, into the git-ignored
    ``nbodysimproject_tpu_torch/_build/``; prints each build's seconds
    and ptxas' register and spill lines;
 3. population: the first 16384 rows of the dataset (empty slots: mass
@@ -63,9 +66,33 @@ Phases (each prints its seconds):
    2^22 and 100 steps (8 Laguerre-Conway updates), each with launch
    counts around its cold run, the warm median of three runs between
    CUDA events, the count of non-finite systems and system 0's
-   relative drift of the extended Hamiltonian.
+   relative drift of the extended Hamiltonian;
+11. the tiled force kernel against its plain version: N = 4097 (not a
+   tile multiple) at d = 2 and N = 1000 at d = 3 on all rows, B = 4
+   systems with their own eps and G, and bench_largen's N = 10^5 cloud
+   on 4096 sampled rows; each row's error from the float64 plain version
+   over its magnitude sum, gated (FORCE_ERR_*), and the momentum;
+12. bench_largen's single evaluations at N = 10^4, 32768, 10^5, 10^6
+   (its ICs drawn again with numpy in its order, its mesh sizes): P3M
+   (and its short-range pass alone), the tiled kernel and, up to 32768,
+   the dense eager force; P3M's
+   error median and p99 against the dense force (else the kernel),
+   gated (P3M_ERR_GATE, n_dropped = 0);
+13. bench_largen's rollouts, ``largen_rollout`` (dt 1e-4, eps 6 / Ng):
+   p3m and direct_pallas at 10^4 and 10^5, p3m at 10^6, 50 steps
+   each, cold and the warm median of three in steps/s;
+   n_dropped_max = 0, finite states, the kernel's launches > 0 on the
+   direct route;
+14. verlet through ``build_batch`` -> ``integrate_batch`` with
+   ``use_pallas_forces`` on one 4096-body cloud for 100 steps, against
+   the same run on the dense force, both timed;
+15. bench_whfast_largen: 4096, 16384 and 65536 planets, LC-8, the kick
+   on direct_pallas and on P3M with the star split: 20 timed substeps,
+   the drift over 200 (float64 energy on the card, gated), P3M's kick
+   error against direct_pallas (p99 gated).
 
-It prints a ``{"kernels": [...]}`` line and, last, the device line.  Any
+It prints a ``{"kernels": [...]}`` line (seven kernels) and, last, the
+device line.  Any
 failed check raises, so the script exits non-zero; without a CUDA
 device it exits non-zero before printing any result.  It writes
 nothing outside the build directory.
@@ -1028,6 +1055,411 @@ def whfast_legs(dev, kernels, wk):
     return legs
 
 
+#: the large-N slice at the widths of the JAX package's tools:
+#: tools/bench_largen.py's single force evaluations and 50-step rollouts
+#: (its ICs drawn again from numpy.random.default_rng(0) in its order,
+#: its mesh sizes, r_cut of 6 cells) and tools/bench_whfast_largen.py's
+#: many-planet WHFast (planetary_system(N, seed=1), LC-8, 20 timed
+#: substeps, 200 for the energy drift)
+LN_NS = (10_000, 32_768, 100_000, 1_000_000)
+LN_NG = {10_000: 256, 32_768: 384, 100_000: 640, 1_000_000: 3072}
+LN_R_CUT = 6.0
+LN_DENSE_MAX = 32_768
+LN_ROLL_DT = 1e-4
+LN_ROLL_NS, LN_ROLL_STEPS = (10_000, 100_000, 1_000_000), 50
+#: P3M's relative force error against the direct force, (median, p99)
+#: gates at about twice the JAX package's record (data/bench_largen.json:
+#: at most 1.02e-3 and 8.6e-3)
+P3M_ERR_GATE = (2e-3, 2e-2)
+#: the tiled kernel against its plain version: each row's largest error
+#: from the float64 plain version over the row's magnitude sum S_i (the
+#: two float32 versions sum in different orders, so they are not held to
+#: each other); the kernel's worst at most FORCE_ERR_FACTOR times the
+#: float32 plain version's worst on the same rows, and at most
+#: FORCE_ERR_MAX
+FORCE_ERR_FACTOR, FORCE_ERR_MAX = 4.0, 1e-4
+FORCE_SAMPLE_ROWS = 4096
+CLASSICAL_N, CLASSICAL_STEPS = 4096, 100
+WL_NS, WL_TIMED, WL_STEPS, WL_ITERS = (4096, 16384, 65536), 20, 200, 8
+#: above this many bodies the tool builds the WHFast state directly
+#: (build_batch's calibration is O(N^2) dense)
+WL_BUILD_MAX = 16384
+WL_DRIFT_MAX, WL_KICK_P99_MAX = 1e-5, 0.06
+
+
+def pairwise_ops(d):
+    """Operations of one valid pair in csrc/pairwise_force.cu's inner loop:
+    d subtractions, d multiplies and d - 1 adds for r^2, the eps^2 add,
+    rsqrtf, three multiplies for m_j / r^3, d multiplies and d adds into
+    the partial sums."""
+    return 5 * d + 4
+
+
+def bound_pairwise(B, n, d, tj=512):
+    """The tiled kernel's bound for B unpadded systems of n bodies: every
+    ordered pair i != j is valid, plus d subtractions per tile and 2 d
+    multiplies per body; positions and masses read once, forces written
+    once."""
+    tiles = -(-n // tj)
+    ops = B * (n * (n - 1) * pairwise_ops(d) + n * d * (tiles + 2))
+    return ops_bound(ops, B * (2 * n * d + n + 2))
+
+
+def largen_ics():
+    """tools/bench_largen.py's initial conditions, drawn in its order from
+    numpy.random.default_rng(0): {N: (q, m)} of the single evaluations
+    and {N: (q, m, v)} of the rollouts, float32."""
+    rng = np.random.default_rng(0)
+    f32 = lambda a: np.asarray(a, np.float32)
+    evals, rolls = {}, {}
+    for N in LN_NS:
+        q = f32(rng.normal(0, 1.0, (N, 2)))
+        evals[N] = (q, f32(np.abs(rng.normal(1, 0.3, N))))
+    for N in LN_ROLL_NS:
+        q = f32(rng.normal(0, 1.0, (N, 2)))
+        m = f32(np.abs(rng.normal(1, 0.3, N)) / N)
+        rolls[N] = (q, m, f32(rng.normal(0, 0.3, (N, 2))))
+    return evals, rolls
+
+
+def span_eps(q, Ng):
+    """The tool's softening: the float32 span of the positions over Ng."""
+    return float(np.float32(float(q.max() - q.min()) / Ng))
+
+
+def force_case(fk, label, q, m, eps, G, rows=None):
+    """The tiled kernel against its plain version on (B, N, d) float32
+    tensors: both in float32 on all rows, each row of ``rows`` (default:
+    all) held to the float64 plain version under the FORCE_ERR gate, and
+    the momentum |sum_i F_i| / sum_i |F_i| printed.  Returns the kernel's
+    and the plain version's ms, the largest |kernel - plain| and the
+    bound."""
+    B, n, d = q.shape
+    fk.pairwise_force(q, m, eps, G)
+    tk, tp = Timed(fk.pairwise_force), Timed(fk.pairwise_force_plain)
+    F = tk(q, m, eps, G)
+    P = tp(q, m, eps, G)
+    idx = torch.arange(n, device=q.device) if rows is None else rows
+    args64 = [x.double() for x in (q, m, eps, G)]
+    P64 = fk.pairwise_force_plain(*args64, rows=idx)
+    S = fk.magnitude_sum(*args64, rows=idx)
+    rel = lambda X: ((X[:, idx].double() - P64).abs().amax(-1) / S).max()
+    ek, ep = float(rel(F)), float(rel(P))
+    F64 = F.double()
+    mom = float((F64.sum(1).norm(dim=-1) / F64.norm(dim=-1).sum(1)).max())
+    err = float((F - P).abs().max())
+    b_ms, b_by = bound_pairwise(B, n, d)
+    print(f"  pairwise_force {label}: kernel {tk.ms:.3f} ms, plain "
+          f"{tp.ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}); rows held to "
+          f"float64: {idx.numel()} of {n} x {B}, worst error / S_i kernel "
+          f"{ek:.3e}, float32 plain {ep:.3e}; max |kernel - plain| "
+          f"{err:.3e}; momentum |sum F| / sum |F| {mom:.3e}", flush=True)
+    if not (ek <= FORCE_ERR_FACTOR * ep and ek <= FORCE_ERR_MAX):
+        raise SystemExit(f"pairwise_force {label}: kernel error {ek:.3e} "
+                         f"against float32 plain {ep:.3e}")
+    return dict(ms=tk.ms, plain_ms=tp.ms, err=err, bound=(b_ms, b_by))
+
+
+def compare_pairwise(fk, dev, evals):
+    """The tiled kernel against its plain version: N = 4097 (not a tile
+    multiple) and N = 1000 at d = 3, all rows; B = 4 systems with their
+    own eps and G; bench_largen's N = 10^5 cloud on 4096 sampled rows."""
+    rng = np.random.default_rng(5)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    cases = {}
+    for label, B, n, d in (("N=4097 d=2", 1, 4097, 2),
+                           ("N=1000 d=3", 1, 1000, 3),
+                           ("B=4 N=2048 d=2", 4, 2048, 2)):
+        q = t(rng.normal(size=(B, n, d)) * 3)
+        m = t(rng.uniform(0.1, 2.0, (B, n)))
+        eps = t(rng.uniform(0.01, 0.1, B))
+        G = t(rng.uniform(0.5, 2.0, B)) if B > 1 else t([1.0])
+        cases[label] = force_case(fk, label, q, m, eps, G)
+    N = 100_000
+    q, m = evals[N]
+    rows = torch.as_tensor(np.sort(np.random.default_rng(6).choice(
+        N, FORCE_SAMPLE_ROWS, replace=False)), device=dev)
+    cases["N=1e5"] = force_case(
+        fk, f"N={N} d=2 (bench_largen's cloud)", t(q)[None], t(m)[None],
+        t([span_eps(q, LN_NG[N])]), t([1.0]), rows=rows)
+    return cases
+
+
+def rel_err(F, ref):
+    """Per-body |F - ref| / |ref| (the tool's P3M error)."""
+    return ((F - ref).norm(dim=1)
+            / ref.norm(dim=1).clamp_min(1e-30)).double().cpu().numpy()
+
+
+def largen_evals(fk, pm, dev, evals):
+    """bench_largen's single evaluations: P3M, the tiled kernel and, up to
+    N = 32768, the dense eager force; P3M's error against the dense force
+    (else the kernel), gated.  Returns {N: row}."""
+    from nbodysimproject_tpu_torch.ops.forces import gravitational_force
+
+    out = {}
+    for N in LN_NS:
+        q_np, m_np = evals[N]
+        q, m = (torch.as_tensor(a, device=dev) for a in (q_np, m_np))
+        Ng = LN_NG[N]
+        eps = span_eps(q_np, Ng)
+        p3m = lambda: pm.p3m_force(q, m, eps, 1.0, Ng=Ng,
+                                   r_cut_cells=LN_R_CUT)
+        p3m()
+        tp = Timed(p3m)
+        F_p3m, dropped = tp()
+        # the short-range pass alone, on the mesh frame p3m_force takes
+        lo, cell = pm._mesh_frame(q, Ng, None)
+        n_rows = pm.pp_rows(Ng, LN_R_CUT)
+        ts = Timed(pm._pp_short_range_banded)
+        ts(q, m, torch.as_tensor(eps, device=dev),
+           torch.ones((), device=dev), LN_R_CUT * cell, lo, n_rows, 256,
+           pm.default_pp_window(N, n_rows))
+        tk = Timed(fk.pairwise_force)
+        F_k = tk(q, m, eps, 1.0)
+        row = dict(p3m_ms=tp.ms, short_ms=ts.ms, kernel_ms=tk.ms,
+                   n_dropped=int(dropped), bound=bound_pairwise(1, N, 2))
+        ref = F_k
+        if N <= LN_DENSE_MAX:
+            torch.cuda.empty_cache()
+            e1 = torch.ones(1, device=dev)
+            dense = lambda: gravitational_force(q[None], m[None], eps * e1,
+                                                e1)[0]
+            td = Timed(dense)
+            ref = td()
+            row["dense_ms"] = td.ms
+            kd = rel_err(F_k, ref)
+            print(f"    kernel against the dense force: median "
+                  f"{np.median(kd):.3e}, max {kd.max():.3e}")
+            torch.cuda.empty_cache()
+        rel = rel_err(F_p3m, ref)
+        row["p3m_med"], row["p3m_p99"] = (float(np.median(rel)),
+                                          float(np.percentile(rel, 99)))
+        print(f"  N={N}: P3M {tp.ms:.3f} ms (Ng {Ng}, n_dropped "
+              f"{row['n_dropped']}; its short-range pass alone "
+              f"{ts.ms:.3f} ms, {ts.ms / tp.ms:.2f} of it), tiled kernel {tk.ms:.3f} ms (bound "
+              f"{row['bound'][0]:.3f} ms, {row['bound'][1]}), dense "
+              f"{row.get('dense_ms', float('nan')):.3f} ms; P3M error "
+              f"against the {'dense force' if N <= LN_DENSE_MAX else 'kernel'}"
+              f": median {row['p3m_med']:.3e}, p99 {row['p3m_p99']:.3e}",
+              flush=True)
+        if not (row["p3m_med"] <= P3M_ERR_GATE[0]
+                and row["p3m_p99"] <= P3M_ERR_GATE[1]
+                and row["n_dropped"] == 0):
+            raise SystemExit(f"P3M at N={N} outside its gate: {row}")
+        out[N] = row
+        del q, m, F_p3m, F_k, ref
+        torch.cuda.empty_cache()
+    return out
+
+
+def largen_rollouts(fk, dev, rolls):
+    """bench_largen's rollouts through largen_rollout: p3m and
+    direct_pallas at 10^4 and 10^5, p3m at 10^6; one cold and WARM_REPS
+    warm runs between CUDA events, the kernel's launches counted around
+    the cold run.  Returns {(mode, N): row}."""
+    from nbodysimproject_tpu_torch import SimConfig, largen_rollout
+
+    out = {}
+    steps = LN_ROLL_STEPS
+    for N in LN_ROLL_NS:
+        q, m, v = (torch.as_tensor(a, device=dev) for a in rolls[N])
+        Ng = LN_NG[N]
+        for mode in ("p3m", "direct_pallas"):
+            if mode == "direct_pallas" and N >= 1_000_000:
+                continue
+            cfg = SimConfig(integrator_mode="verlet", force_mode=mode,
+                            pm_grid=Ng, pm_r_cut_cells=LN_R_CUT)
+            run = lambda: largen_rollout(q, v, m, 6.0 / Ng, 1.0, LN_ROLL_DT,
+                                         steps, cfg)
+            (qo, vo, info), cold, med, la = run_leg(
+                f"largen_rollout {mode} N={N}", run, 1, steps,
+                (fk.pairwise_force,))
+            fin = bool(torch.isfinite(qo).all() and torch.isfinite(vo).all())
+            dropped = int(info.n_dropped_max)
+            launches = la["pairwise_force"]
+            print(f"    {steps / (med / 1e3):.3f} steps/s; n_dropped_max "
+                  f"{dropped}, finite {fin}, kinetic {float(info.kinetic):.6e}")
+            if not fin or dropped != 0:
+                raise SystemExit(f"rollout {mode} N={N}: finite {fin}, "
+                                 f"n_dropped_max {dropped}")
+            if mode == "direct_pallas" and launches == 0:
+                raise SystemExit(f"rollout {mode} N={N} launched no kernel")
+            out[(mode, N)] = dict(steps=steps, cold=cold, med=med,
+                                  launches=launches)
+        del q, m, v
+        torch.cuda.empty_cache()
+    return out
+
+
+def classical_route(fk, dev):
+    """verlet through build_batch -> integrate_batch with
+    use_pallas_forces on one cloud of CLASSICAL_N bodies, against the same
+    run on the dense force."""
+    from nbodysimproject_tpu_torch import SimConfig
+    from nbodysimproject_tpu_torch.parallel.batch_engine import (
+        build_batch, integrate_batch)
+
+    rng = np.random.default_rng(3)
+    N = CLASSICAL_N
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    q = t(rng.normal(0, 1.0, (1, N, 2)))
+    m = t(np.abs(rng.normal(1, 0.3, (1, N))) / N)
+    v = t(rng.normal(0, 0.3, (1, N, 2)))
+    mask = torch.ones((1, N), dtype=torch.bool, device=dev)
+    runs = {}
+    for pallas in (True, False):
+        cfg = SimConfig(integrator_mode="verlet", use_pallas_forces=pallas)
+        st, dy = build_batch(m, q, v, mask, cfg, 1.0, 0.05, 0.0, DT)
+        nsm = int(dy.n_sub.max())
+        reset_counts(fk.pairwise_force)
+        tr = Timed(lambda: integrate_batch(st, dy, cfg, DT, CLASSICAL_STEPS,
+                                           nsm))
+        out = tr()
+        runs[pallas] = (out, tr.ms, fk.pairwise_force.launches, nsm)
+    (ok, k_ms, k_la, nsm), (od, d_ms, d_la, _) = runs[True], runs[False]
+    scale = float((q - q.mean(1, keepdim=True)).norm(dim=-1).max())
+    diff = float((ok.pos - od.pos).norm(dim=-1).max()) / scale
+    print(f"  verlet N={N}, {CLASSICAL_STEPS} steps of {DT} (n_sub {nsm}): "
+          f"tiled kernel {k_ms:.1f} ms ({k_la} launches), dense {d_ms:.1f} "
+          f"ms ({d_la} launches); max position difference / cloud radius "
+          f"{diff:.3e}", flush=True)
+    if k_la == 0 or d_la != 0:
+        raise SystemExit("classical route: use_pallas_forces did not (alone) "
+                         "launch the kernel")
+    if not bool(torch.isfinite(ok.pos).all()):
+        raise SystemExit("classical route: non-finite state")
+    return dict(kernel_ms=k_ms, dense_ms=d_ms, launches=k_la, diff=diff,
+                n_sub=nsm)
+
+
+def planetary_system(n_planets, seed):
+    """tools/bench_whfast.py's generator: a unit central mass and
+    n_planets 1e-4 planets on near-circular orbits ordered by radius."""
+    rng = np.random.default_rng(seed)
+    n = n_planets + 1
+    m = np.full((n,), 1e-4)
+    m[0] = 1.0
+    a = np.linspace(1.0, 1.0 + 0.5 * n_planets, n - 1)
+    th = rng.uniform(0, 2 * np.pi, n - 1)
+    q = np.zeros((n, 2))
+    v = np.zeros((n, 2))
+    q[1:, 0] = a * np.cos(th)
+    q[1:, 1] = a * np.sin(th)
+    vc = 1.0 / np.sqrt(a)
+    v[1:, 0] = -vc * np.sin(th)
+    v[1:, 1] = vc * np.cos(th)
+    return m, q, v
+
+
+def energy64(st, chunk=1024):
+    """The exact unsoftened energy of system 0 in float64 on the card, in
+    row chunks (the tool's two_body_energy)."""
+    m, q, v = (x[0].double() for x in (st.mass, st.pos, st.vel))
+    ke = 0.5 * (m * (v * v).sum(-1)).sum()
+    n = q.shape[0]
+    jj = torch.arange(n, device=q.device)
+    pe = torch.zeros((), dtype=torch.float64, device=q.device)
+    for s0 in range(0, n, chunk):
+        ii = jj[s0:s0 + chunk]
+        diff = q[ii, None, :] - q[None, :, :]
+        r = torch.sqrt((diff * diff).sum(-1))
+        pe -= torch.where(jj[None, :] > ii[:, None],
+                          m[ii, None] * m[None, :] / r,
+                          torch.zeros_like(r)).sum()
+    return float(ke + pe)
+
+
+def whfast_state(m, q, v, cfg, dev):
+    """The tool's WHFast state: build_batch up to WL_BUILD_MAX bodies,
+    else the fixed-schedule state built directly."""
+    from nbodysimproject_tpu_torch.core.state import DynParams, SimState
+    from nbodysimproject_tpu_torch.parallel.batch_engine import build_batch
+
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32)[None],
+                                  device=dev)
+    mask = torch.ones((1, len(m)), dtype=torch.bool, device=dev)
+    if len(m) <= WL_BUILD_MAX:
+        return build_batch(t(m), t(q), t(v), mask, cfg, 1.0, 0.0, 0.0, DT)
+    z = torch.zeros(1, device=dev)
+    st = SimState(mass=t(m), pos=t(q), vel=t(v), mask=mask, eps=z, pi=z,
+                  s=z, step_s2=z, softening_energy_delta=z, hist_count=z,
+                  hist_sum=z, hist_sumsq=z)
+    dy = DynParams(G=z + 1.0, s0=z, min_softening=z, max_softening=z,
+                   softening_scale=z, k_soft=z, mu_soft=z, chi_eps=z,
+                   k_wall=z, alpha_run=z, omega_spr0=z, h_sub_ref=z + DT,
+                   n_sub=torch.ones(1, dtype=torch.int32, device=dev),
+                   frozen_dt=z + DT)
+    return st, dy
+
+
+def whfast_many_planets(fk, dev):
+    """bench_whfast_largen: the interaction kick on direct_pallas and on
+    P3M with the star split, WL_TIMED substeps timed after as many cold,
+    the energy drift over WL_STEPS substeps (float64 energy on the card),
+    P3M's kick error against direct_pallas at the ICs.  Returns
+    {N: row}."""
+    from nbodysimproject_tpu_torch import SimConfig
+    from nbodysimproject_tpu_torch.integrators.whfast import (
+        wh_interaction_accel, whfast_substep)
+
+    out = {}
+    for N in WL_NS:
+        m, q, v = planetary_system(N, 1)
+        row, accs = {}, {}
+        for name, kw in (("direct_pallas", dict(force_mode="direct_pallas",
+                                                use_pallas_forces=True)),
+                         ("p3m", dict(force_mode="p3m"))):
+            cfg = SimConfig(integrator_mode="whfast", fast_float32=True,
+                            whfast_kepler_iters=WL_ITERS, **kw)
+            st, dy = whfast_state(m, q, v, cfg, dev)
+            h = torch.full((1,), DT, device=dev)
+            reset_counts(fk.pairwise_force)
+            accs[name] = wh_interaction_accel(st, dy, cfg)[0].double()
+
+            def run(s, k):
+                for _ in range(k):
+                    s = whfast_substep(s, dy, cfg, h)
+                return s
+
+            run(st, WL_TIMED)
+            tr = Timed(run)
+            s20 = tr(st, WL_TIMED)
+            launches = fk.pairwise_force.launches
+            E0 = energy64(st)
+            s_end = run(st, WL_STEPS)
+            drift = abs((energy64(s_end) - E0) / E0)
+            fin = bool(torch.isfinite(s_end.pos).all()
+                       and torch.isfinite(s20.pos).all())
+            row[name] = dict(ms=tr.ms, steps_s=WL_TIMED / (tr.ms / 1e3),
+                             drift=drift, launches=launches)
+            print(f"  N={N} planets, {name}: {row[name]['steps_s']:.2f} "
+                  f"steps/s ({tr.ms:.1f} ms per {WL_TIMED} substeps), "
+                  f"drift over {WL_STEPS} substeps {drift:.3e}, finite "
+                  f"{fin}, kernel launches {launches}", flush=True)
+            if not fin or not drift < WL_DRIFT_MAX:
+                raise SystemExit(f"WHFast N={N} {name}: finite {fin}, drift "
+                                 f"{drift:.3e}")
+            if name == "direct_pallas" and launches == 0:
+                raise SystemExit(f"WHFast N={N}: the kick launched no kernel")
+            del st, dy, s20, s_end
+        ref, app = accs["direct_pallas"], accs["p3m"]
+        scale = ref.norm(dim=1)
+        scale = torch.maximum(scale, torch.quantile(scale, 0.01))
+        rel = ((app - ref).norm(dim=1) / scale).cpu().numpy()
+        row["kick"] = (float(np.percentile(rel, 50)),
+                       float(np.percentile(rel, 99)), float(rel.max()))
+        print(f"  N={N}: P3M kick error against direct_pallas p50 "
+              f"{row['kick'][0]:.3e}, p99 {row['kick'][1]:.3e}, max "
+              f"{row['kick'][2]:.3e}", flush=True)
+        if not row["kick"][1] <= WL_KICK_P99_MAX:
+            raise SystemExit(f"WHFast N={N}: P3M kick error p99 "
+                             f"{row['kick'][1]:.3e}")
+        out[N] = row
+        torch.cuda.empty_cache()
+    return out
+
+
 def pd_isnan(x):
     """NaN test for a frame column of any dtype (False where not float)."""
     x = np.asarray(x)
@@ -1174,7 +1606,9 @@ def main():
     from nbodysimproject_tpu_torch.ops import batch_kernels as bk
     from nbodysimproject_tpu_torch.ops import cuda_build
     from nbodysimproject_tpu_torch.ops import eps_kernels as ek
+    from nbodysimproject_tpu_torch.ops import force_kernels as fk
     from nbodysimproject_tpu_torch.ops import hamsoft_kernels as hk
+    from nbodysimproject_tpu_torch.ops import pm_force as pm
     from nbodysimproject_tpu_torch.ops import whfast_kernels as wk
 
     phase("card")
@@ -1187,7 +1621,8 @@ def main():
     phase("build")
     t0 = time.perf_counter()
     built = cuda_build.build(hk.build_jobs() + ek.build_jobs()
-                             + bk.build_jobs() + wk.build_jobs())
+                             + bk.build_jobs() + wk.build_jobs()
+                             + fk.build_jobs())
     for (src, n, d), (path, secs, report) in sorted(built.items()):
         print(f"  {src} N={n} d={d}: {os.path.basename(path)} in "
               f"{secs:.1f}s")
@@ -1410,6 +1845,22 @@ def main():
     phase("the batched slice: bench.py's legs at full width")
     legs = slice_legs(dev, hk, ek, bk, wk)
 
+    torch.cuda.empty_cache()
+    evals, rolls = largen_ics()
+    phase("the large-N slice: the tiled force kernel against its plain "
+          "version")
+    force_cmp = compare_pairwise(fk, dev, evals)
+    torch.cuda.empty_cache()
+    phase("the large-N slice: bench_largen's single force evaluations")
+    ln_evals = largen_evals(fk, pm, dev, evals)
+    phase("the large-N slice: bench_largen's rollouts (largen_rollout)")
+    ln_rolls = largen_rollouts(fk, dev, rolls)
+    phase("the large-N slice: verlet through integrate_batch with "
+          "use_pallas_forces")
+    classical = classical_route(fk, dev)
+    phase("the large-N slice: bench_whfast_largen's many-planet WHFast")
+    wl = whfast_many_planets(fk, dev)
+
     phase("report")
     entries = []
     for kind, replaces in (
@@ -1460,6 +1911,42 @@ def main():
               f"{c['plain_ms']:.3f} ms, bound {c['bound'][0]:.4f} ms "
               f"({c['bound'][1]}); launches in the {leg} leg "
               f"{legs[leg][2][name]}")
+    c = force_cmp["N=1e5"]
+    main_roll = ln_rolls[("direct_pallas", 100_000)]
+    entries.append({
+        "name": "pairwise_force", "route": "cuda",
+        "source": "nbodysimproject_tpu_torch/csrc/pairwise_force.cu",
+        "replaces": "nbodysimproject_tpu/ops/pallas_kernels.py:28",
+        "launches": main_roll["launches"],
+        "max_abs_err": max(v["err"] for v in force_cmp.values()),
+        "ms": c["ms"], "plain_ms": c["plain_ms"],
+        "bound_ms": c["bound"][0], "bound_by": c["bound"][1],
+        "library_ms": None})
+    print(f"  pairwise_force: N=1e5 case kernel {c['ms']:.3f} ms, plain "
+          f"{c['plain_ms']:.3f} ms, bound {c['bound'][0]:.4f} ms "
+          f"({c['bound'][1]}); launches in the direct_pallas rollout at "
+          f"N=1e5 {main_roll['launches']}")
+    for N, row in ln_evals.items():
+        print(f"  bench_largen N={N}: P3M {row['p3m_ms']:.3f} ms (short "
+              f"range {row['short_ms']:.3f} ms; error "
+              f"median {row['p3m_med']:.3e}, p99 {row['p3m_p99']:.3e}), "
+              f"kernel {row['kernel_ms']:.3f} ms (bound "
+              f"{row['bound'][0]:.3f} ms), dense "
+              f"{row.get('dense_ms', float('nan')):.3f} ms")
+    for (mode, N), row in ln_rolls.items():
+        print(f"  rollout {mode} N={N}: {row['steps']} steps, warm median "
+              f"{row['med']:.3f} ms = {row['steps'] / (row['med'] / 1e3):.3f}"
+              f" steps/s (cold {row['cold']:.1f} ms)")
+    print(f"  classical verlet N={CLASSICAL_N}: tiled {classical['kernel_ms']:.1f}"
+          f" ms, dense {classical['dense_ms']:.1f} ms, position difference "
+          f"{classical['diff']:.3e}")
+    for N, row in wl.items():
+        print(f"  WHFast N={N}: direct_pallas "
+              f"{row['direct_pallas']['steps_s']:.2f} steps/s (drift "
+              f"{row['direct_pallas']['drift']:.3e}), p3m "
+              f"{row['p3m']['steps_s']:.2f} steps/s (drift "
+              f"{row['p3m']['drift']:.3e}); kick error p50/p99/max "
+              f"{row['kick'][0]:.3e}/{row['kick'][1]:.3e}/{row['kick'][2]:.3e}")
     for leg, (cold, med, la, dr) in legs.items():
         print(f"  leg {leg}: cold {cold:.1f} ms, warm median {med:.3f} ms, "
               f"drift(sys0) {dr:.3e}")

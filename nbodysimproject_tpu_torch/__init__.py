@@ -3,7 +3,7 @@
 The JAX package ``nbodysimproject_tpu`` stays the reference; this
 package mirrors its layout (``core/``, ``ops/``, ``integrators/``,
 ``diagnostics/``, ``analysis/``, ``parallel/``) and imports neither JAX
-nor the JAX package.  Ported so far (d = 2):
+nor the JAX package.  Ported so far (d = 2 unless stated):
 
 * full- and core-mode ``analyze_population`` under the dataset
   pipeline's configuration, through hand-written CUDA kernels for the
@@ -20,7 +20,12 @@ nor the JAX package.  Ported so far (d = 2):
   "kepler"``) on the scan engine under ``integrator_mode=
   "kepler_split"``, and ``integrator_mode="whfast"`` through
   ``build_batch`` -> ``integrate_batch`` and the fused
-  ``whfast_multistep`` (``ops/whfast_kernels.py``).
+  ``whfast_multistep`` (``ops/whfast_kernels.py``);
+* the large-N slice: ``largen_rollout`` (``integrators/largen.py``) over
+  P3M (``ops/pm_force.py``, plain PyTorch), the dense force or the
+  tiled exact force kernel (``ops/force_kernels.py``, d = 2 and 3),
+  which also serves verlet and yoshida4 under ``use_pallas_forces`` and
+  the many-planet WHFast kick (``force_mode`` other than "direct").
 
 Entry points run on the current CUDA device unless the caller passes
 ``device="cpu"``; the batched-integration functions run where their
@@ -30,6 +35,7 @@ tensors lie.
 from .analysis.batch import analyze_population
 from .core.config import SimConfig
 from .core.state import DynParams, SimState, state_from_numpy
+from .integrators.largen import largen_rollout
 from .ops.batch_kernels import verlet_multistep, yoshida4_multistep
 from .ops.hamsoft_kernels import hamsoft_multistep
 from .ops.whfast_kernels import whfast_multistep
@@ -38,4 +44,4 @@ from .parallel.batch_engine import build_batch, integrate_batch, step_batch
 __all__ = ["SimConfig", "SimState", "DynParams", "state_from_numpy",
            "analyze_population", "build_batch", "integrate_batch",
            "step_batch", "verlet_multistep", "yoshida4_multistep",
-           "hamsoft_multistep", "whfast_multistep"]
+           "hamsoft_multistep", "whfast_multistep", "largen_rollout"]

@@ -16,7 +16,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.barrier import barrier_energy
-from ..ops.forces import gravitational_force
+from ..ops.forces import force_auto
 from ..ops.geometry import min_separation, pair_diff, pair_mask
 
 CBRT2 = 2.0 ** (1.0 / 3.0)
@@ -25,17 +25,11 @@ _W2 = -CBRT2 / (2.0 - CBRT2)
 
 
 def _force(state, dyn, cfg, eps):
-    """Dense pairwise force (``ops/forces.py::force_auto``).  The tiled
-    large-N force kernel that ``cfg.use_pallas_forces`` selects is not
-    ported; that configuration raises."""
-    n = state.pos.shape[-2]
-    if cfg is not None and cfg.use_pallas_forces \
-            and n >= cfg.pallas_force_min_n:
-        raise NotImplementedError(
-            "the tiled large-N force kernel (use_pallas_forces) is not "
-            "ported")
-    return gravitational_force(state.pos, state.mass, eps, dyn.G,
-                               mask=state.mask)
+    """Force dispatch (``ops/forces.py::force_auto``): the dense pairwise
+    force for few-body systems, the tiled large-N kernel for unpadded
+    systems when ``cfg.use_pallas_forces`` (shared with the WHFast
+    interaction kick)."""
+    return force_auto(state.pos, state.mass, eps, dyn.G, state.mask, cfg)
 
 
 def _div_mass(F, state):

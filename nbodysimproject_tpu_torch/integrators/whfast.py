@@ -9,18 +9,20 @@ H = H_kep + H_int, in closed form.  Every function takes a batched
 ``(B, N, d)`` state; ``h``/``dt`` are (B,) tensors.  Bodies are ordered
 with the dominant mass first (the Jacobi convention).
 
-The interaction kick runs the direct route only: ``force_mode`` other
-than ``"direct"`` (the many-planet mesh routes) and the tiled large-N
-force kernel raise, as in ``integrators/classical.py``.  The fused
-multi-step kernel of the same scheme is ``ops/whfast_kernels.py``.
+The interaction kick's direct force takes the large-N engines for many
+planets (``force_mode`` other than ``"direct"``: the tiled kernel of
+``ops/force_kernels.py``, or P3M with the star split off) and the tiled
+kernel under ``cfg.use_pallas_forces``.  The fused multi-step kernel of
+the same scheme is ``ops/whfast_kernels.py``.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..ops.forces import gravitational_force
+from ..ops.forces import force_auto
 from ..ops.kepler import kepler_propagate, kepler_propagate_fixed
+from .largen import make_force_fn
 
 
 def to_jacobi(m, pos, vel):
@@ -84,20 +86,46 @@ def wh_kepler_drift(state, dyn, dt, kepler_iters: int = 0):
                          vel=vel0 + dv[..., None, :])
 
 
-def _check_force_route(cfg, n: int) -> None:
-    """The direct route only (whfast.py:175-230 of the JAX package take
-    the large-N engines for n >= 3 otherwise)."""
-    if cfg is None:
-        return
-    if getattr(cfg, "force_mode", "direct") != "direct" and n >= 3:
-        raise NotImplementedError(
-            f"WHFast interaction kick: force_mode "
-            f"{cfg.force_mode!r} needs the large-N force engines, which "
-            f"are not ported")
-    if cfg.use_pallas_forces and n >= cfg.pallas_force_min_n:
-        raise NotImplementedError(
-            "the tiled large-N force kernel (use_pallas_forces) is not "
-            "ported")
+def _direct_part(state, dyn, cfg):
+    """The softened direct force F of the interaction kick
+    (``integrators/whfast.py:207-241`` of the JAX package).
+
+    With ``cfg.force_mode`` other than "direct" and n >= 3, the
+    many-planet route shares the large-N force engines of
+    ``integrators/largen.py``; every slot is taken as live (no mask:
+    masked slots would enter the mesh bounds and deposit).  Under "p3m"
+    the star is split off: body 0 (the dominant mass, Jacobi order) gets
+    the exact O(N) pair force and the mesh sees only the planets (its
+    TSC-smeared near field of the star would enter the kick and must
+    cancel exactly against the Kepler gradient).  Below n = 3, or with
+    "direct", ``ops/forces.py::force_auto``."""
+    m, q = state.mass, state.pos
+    n, d = q.shape[-2:]
+    eps = torch.sqrt(state.step_s2)
+    mode = "direct" if cfg is None else cfg.force_mode
+    if mode == "direct" or n < 3:
+        return force_auto(q, m, eps, dyn.G, state.mask, cfg)
+    if mode != "p3m":
+        return _per_system(make_force_fn(cfg, n, d), q, m, eps, dyn.G)
+    F_pp = _per_system(make_force_fn(cfg, n - 1, d), q[..., 1:, :],
+                       m[..., 1:], eps, dyn.G)
+    d0 = q[..., 1:, :] - q[..., :1, :]
+    r2_0 = (d0 * d0).sum(-1) + state.step_s2[..., None]
+    ok = r2_0 > 0
+    r0 = torch.sqrt(torch.where(ok, r2_0, torch.ones_like(r2_0)))
+    w0 = torch.where(ok, (dyn.G * m[..., 0])[..., None] * m[..., 1:]
+                     / (r0 * r0 * r0), torch.zeros_like(r0))
+    F_sp = -w0[..., None] * d0          # pull toward the star
+    return torch.cat([-F_sp.sum(-2, keepdim=True), F_pp + F_sp], -2)
+
+
+def _per_system(force_fn, q, m, eps, G):
+    """A force of ``integrators/largen.py::make_force_fn`` on (B, N, d):
+    the direct engines take the batch, P3M one system at a time."""
+    if force_fn.mode != "p3m":
+        return force_fn(q, m, eps, G)[0]
+    return torch.stack([force_fn(q[b], m[b], eps[b], G[b])[0]
+                        for b in range(q.shape[0])])
 
 
 def wh_interaction_accel(state, dyn, cfg=None):
@@ -108,8 +136,7 @@ def wh_interaction_accel(state, dyn, cfg=None):
     m, q = state.mass, state.pos
     s2 = state.step_s2
     n = q.shape[-2]
-    _check_force_route(cfg, n)
-    F = gravitational_force(q, m, torch.sqrt(s2), dyn.G, mask=state.mask)
+    F = _direct_part(state, dyn, cfg)
     msafe = torch.where(m > 0.0, m, torch.ones_like(m))
     a_direct = F / msafe[..., None]
 

@@ -18,6 +18,24 @@ def gravitational_force(q, m, eps, G, mask=None):
     return (coeff[..., None] * diff).sum(-2)
 
 
+def force_auto(q, m, eps, G, mask, cfg):
+    """Config-driven force dispatch shared by the classical and WHFast
+    paths (``ops/forces.py:34-52`` of the JAX package): the tiled kernel
+    of ``ops/force_kernels.py`` when ``cfg.use_pallas_forces`` and
+    N >= ``cfg.pallas_force_min_n``, the dense ``gravitational_force``
+    otherwise.  The tiled route ignores ``mask``, as the JAX route does:
+    it takes the system as unpadded, and a padded slot, which carries
+    zero mass, adds nothing to the other bodies' forces and receives
+    F = 0."""
+    n = q.shape[-2]
+    if cfg is not None and cfg.use_pallas_forces \
+            and n >= cfg.pallas_force_min_n:
+        from .force_kernels import pairwise_force
+
+        return pairwise_force(q, m, eps, G)
+    return gravitational_force(q, m, eps, G, mask=mask)
+
+
 def dV_d_epsilon(q, m, eps, G, mask=None):
     """dV/d(eps) = G eps sum_{i<j} m_i m_j / (r_ij^2 + eps^2)^{3/2}
     per system (minbody/forces.py:77-112)."""

@@ -1,7 +1,8 @@
 """The CUDA kernels of the port against their plain PyTorch versions, on
 the card: the analysis, MEGNO and plain multi-step ham_soft kernels, the
-eps* kernel, the composition (Verlet/Yoshida4) kernel and the WHFast
-kernel; and the Kepler tail of ``analyze_population`` on the card.
+eps* kernel, the composition (Verlet/Yoshida4) kernel, the WHFast kernel
+and the tiled large-N force kernel; the Kepler tail of
+``analyze_population`` and ``largen_rollout`` on the card.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
 one; the file imports neither JAX nor the JAX package, so it runs on a
@@ -24,7 +25,13 @@ kernel holds eps* to rtol 1e-6 and the gradient to rtol 1e-5 / atol
 rtol 1e-5 / atol 1e-6 against its plain version, 1e-5 / 1e-7 against
 one substep of the LC-8 scan); the tail's rows are bitwise equal between
 its own stream and the serial run, and the non-tail rows to the
-tail-off run.
+tail-off run.  The tiled force kernel (N = 4097 and d = 2, N = 1000 and
+d = 3, B = 4 with per-system eps and G) is held, row by row, to the
+float64 plain version relative to the row's magnitude sum: at most 4x the
+float32 plain version's worst error and 1e-4; a float64 input gives the
+float32 result cast back, and d = 4 raises.  ``largen_rollout`` on the
+tiled kernel matches the dense force for 5 steps (rtol 1e-5 / atol
+1e-6).
 """
 
 import numpy as np
@@ -423,3 +430,67 @@ def test_tail_path_on_the_card(cuda_device):
     for c in off.columns:
         a, b = on[c].to_numpy()[~tail], off[c].to_numpy()[~tail]
         assert np.array_equal(a, b, equal_nan=a.dtype.kind == "f"), c
+
+
+def _force_cloud(B, n, d, dev, seed=31):
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    return (t(rng.normal(size=(B, n, d)) * 3), t(rng.uniform(0.1, 2.0, (B, n))),
+            t(rng.uniform(0.01, 0.1, B)), t(rng.uniform(0.5, 2.0, B)))
+
+
+@pytest.mark.parametrize("B,n,d", [(1, 4097, 2), (1, 1000, 3), (4, 2048, 2)])
+def test_pairwise_force_kernel_matches_plain(B, n, d, cuda_device):
+    """The tiled force kernel against its plain version: each row's error
+    from the float64 plain version over its magnitude sum S_i, the
+    kernel's worst at most 4x the float32 plain version's and 1e-4 (the
+    two float32 versions sum in different orders)."""
+    from nbodysimproject_tpu_torch.ops import force_kernels as fk
+
+    q, m, eps, G = _force_cloud(B, n, d, cuda_device)
+    before = fk.pairwise_force.launches
+    F = fk.pairwise_force(q, m, eps, G)
+    assert fk.pairwise_force.launches == before + 1
+    P = fk.pairwise_force_plain(q, m, eps, G)
+    a64 = [x.double() for x in (q, m, eps, G)]
+    P64 = fk.pairwise_force_plain(*a64)
+    S = fk.magnitude_sum(*a64)
+    rel = lambda X: float(((X.double() - P64).abs().amax(-1) / S).max())
+    assert rel(F) <= 4.0 * rel(P) and rel(F) <= 1e-4, (rel(F), rel(P))
+
+
+def test_pairwise_force_casts_float64_and_refuses_d4(cuda_device):
+    from nbodysimproject_tpu_torch.ops import force_kernels as fk
+
+    q, m, eps, G = _force_cloud(2, 700, 2, cuda_device)
+    F32 = fk.pairwise_force(q, m, eps, G)
+    F64 = fk.pairwise_force(q.double(), m.double(), eps.double(), G.double())
+    assert F64.dtype == torch.float64
+    assert torch.equal(F64, F32.double())
+    with pytest.raises(NotImplementedError):
+        fk.pairwise_force(torch.zeros((1, 10, 4), device=cuda_device),
+                          torch.ones((1, 10), device=cuda_device), 0.1, 1.0)
+
+
+def test_largen_rollout_direct_pallas_matches_direct(cuda_device):
+    """Five KDK steps of a 2048-body cloud on the tiled kernel and on the
+    dense force, float32 on the card: rtol 1e-5 / atol 1e-6 (the two
+    forces sum in different orders)."""
+    from nbodysimproject_tpu_torch.ops import force_kernels as fk
+
+    rng = np.random.default_rng(2)
+    N = 2048
+    q = rng.normal(0, 1.0, (N, 2)).astype(np.float32)
+    m = (np.abs(rng.normal(1, 0.3, N)) / N).astype(np.float32)
+    v = rng.normal(0, 0.3, (N, 2)).astype(np.float32)
+    out = {}
+    for mode in ("direct_pallas", "direct"):
+        before = fk.pairwise_force.launches
+        out[mode] = nt.largen_rollout(q, v, m, 0.05, 1.0, 1e-3, 5,
+                                      nt.SimConfig(force_mode=mode))
+        launched = fk.pairwise_force.launches - before
+        assert launched == (6 if mode == "direct_pallas" else 0)
+    (qk, vk, _), (qd, vd, _) = out["direct_pallas"], out["direct"]
+    assert qk.device.type == "cuda"
+    torch.testing.assert_close(qk, qd, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(vk, vd, rtol=1e-5, atol=1e-6)

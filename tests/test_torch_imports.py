@@ -84,3 +84,12 @@ def test_walk_covers_the_kepler_slice_modules():
                 "diagnostics/tangent.py", "diagnostics/megno.py",
                 "analysis/stability.py", "analysis/batch.py"):
         assert mod in names, mod
+
+
+def test_walk_covers_the_large_n_slice_modules():
+    """The modules of the large-N slice (the tiled force kernel's
+    wrapper, P3M and the rollouts) are among the sources checked above."""
+    names = {os.path.relpath(p, PKG) for p in _sources()}
+    for mod in ("ops/force_kernels.py", "ops/pm_force.py", "ops/forces.py",
+                "integrators/largen.py", "integrators/whfast.py"):
+        assert mod in names, mod

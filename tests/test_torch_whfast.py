@@ -11,7 +11,8 @@ package from the same arrays.
   rtol 1e-9), and ``build_batch`` -> ``integrate_batch`` / ``step_batch``
   with the adaptive Newton solver (``whfast_kepler_iters=0``, the
   default) and with the fixed-depth LC-8 solver.
-* ``force_mode`` other than ``"direct"`` raises (the large-N slice).
+* ``force_mode`` other than ``"direct"`` (the large-N slice's routes)
+  runs; d = 3 and P3M at d = 3 raise.
 
 The fused kernel's plain version is held to the JAX Pallas kernel in
 ``tests/test_torch_whfast_kernel.py``.
@@ -114,6 +115,27 @@ def test_integrate_batch_matches_float64(iters):
 
 
 def test_force_mode_other_than_direct_raises():
-    (_cj, _sj, _dj), (ct, st, dt) = _build(0, B=4)
-    with pytest.raises(NotImplementedError, match="large-N"):
-        nt.integrate_batch(st, dt, ct.replace(force_mode="p3m"), 0.01, 1, 1)
+    """The many-planet force routes run since the large-N slice: P3M with
+    the star split and the tiled kernel give finite states, P3M's equal
+    to the JAX package's in float64.  What stays unported still raises:
+    d = 3 through ``build_batch``, and P3M at d = 3."""
+    import jax.numpy as jnp
+
+    from nbodysimproject_tpu.parallel import integrate_batch as jint
+    from nbodysimproject_tpu_torch.integrators.largen import make_force_fn
+
+    (cj, sj, dj), (ct, st, dt) = _build(0, B=4)
+    for mode in ("p3m", "direct_pallas"):
+        out = nt.integrate_batch(st, dt, ct.replace(force_mode=mode), 0.01,
+                                 1, 1)
+        assert torch.isfinite(out.pos).all() and torch.isfinite(out.vel).all()
+        if mode == "p3m":
+            ref = jint(sj, dj, cj.replace(force_mode=mode),
+                       jnp.float64(0.01), 1, 1)
+            _close(ref.pos, out.pos, msg="p3m pos")
+            _close(ref.vel, out.vel, msg="p3m vel")
+    m, q, v, mask = (torch.as_tensor(a) for a in _planets(4, d=3))
+    with pytest.raises(NotImplementedError):
+        nt.build_batch(m, q, v, mask, ct, 1.0, 1e-3, 0.0, 0.01)
+    with pytest.raises(ValueError, match="d=2 only"):
+        make_force_fn(ct.replace(force_mode="p3m"), 3, 3)
