@@ -34,7 +34,8 @@ routes; ``csrc/pairwise_force.cu``).  Phases (each prints its seconds):
    columns' absolute one scaled by how nearly H0 or L0 cancels),
    widened on at most MAX_WIDENED rows by SENS_FACTOR times the row's
    rounding sensitivity, which the plain version gives when rerun in
-   float64 and with the body slots reordered;
+   float64 and with the body slots reordered.  Each kernel's time per
+   trip of its deepest lane;
 5. compare the batched slice's kernels with their plain versions at
    the legs' full widths and short horizons, under the same rule
    (``row_gate``): the composition kernel (verlet at B = 2^24, yoshida4
@@ -52,12 +53,15 @@ routes; ``csrc/pairwise_force.cu``).  Phases (each prints its seconds):
 7. the tail-off run of the same population (one run): non-tail rows
    bitwise equal to the main path's (gated), labels of the tail rows
    beside it and beside the dataset, labels of the other rows beside
-   the dataset and beside a tail-off run on reversed body slots;
+   the dataset (is_stable gated at LABEL_GATE) and beside a tail-off run
+   on reversed body slots;
 8. the same population with ``use_fused_metrics=False`` (tail off; the
    multi-step kernel in chunks, ``step_metrics`` between them), held
-   to its plain version and to the fused way at one step, the longer
-   horizons measured;
-9. the main path's kernel launches replayed between CUDA events;
+   to its plain version and to the fused way at one step (final states
+   bitwise equal: the analysis kernel's trip is the multi-step
+   kernel's), the longer horizons measured;
+9. the main path's kernel launches replayed between CUDA events, with
+   the time per trip of the deepest lane;
 10. ``bench.py``'s legs at full width: verlet and yoshida4 scans at
    B = 16384 and 1000 steps, the fused verlet at 2^24 and yoshida4 at
    2^22, the ham_soft scan and fused kernel at 2^20 and 100 steps
@@ -160,6 +164,10 @@ MAX_WIDENED = 10
 #: final pos, vel, eps and pi of both kernels: (rtol, atol), as the
 #: CPU tests hold the plain versions to the JAX kernels
 STATE_TOL = (1e-4, 1e-5)
+#: least share of the main path's fused rows whose is_stable agrees with
+#: the dataset's (the one-thread kernels gave 0.9671 on the card;
+#: reversed body slots alone move it by about 0.016)
+LABEL_GATE = 0.95
 #: the verdict's inputs and thresholds (analysis/fused.py)
 VERDICT = {"energy_drift": 0.01, "angular_momentum_drift": 0.01,
            "com_drift_mean": 1.0, "MEGNO": 10.0}
@@ -248,10 +256,28 @@ def print_agreement(what, agree):
         f"{agree['energy_drift_within_tol']:.4f} of the rows sane in both")
 
 
+def spill_gate(report):
+    """Registers of each kernel in a ptxas report, raising unless every
+    kernel spills 0 bytes (the analysis and MEGNO kernels at N = 8)."""
+    import re
+
+    kernels = re.findall(r"(analysis|megno)_kernel", report)
+    spills = [int(x) for x in re.findall(r"(\d+) bytes spill (?:stores|loads)",
+                                         report)]
+    regs = [int(x) for x in re.findall(r"Used (\d+) registers", report)]
+    if len(kernels) != 2 or len(spills) != 4 or any(spills):
+        raise SystemExit(f"hamsoft.cu: the analysis and MEGNO kernels must "
+                         f"spill 0 bytes; ptxas says:\n{report}")
+    return (", ".join(f"{k} {r} registers" for k, r in zip(kernels, regs))
+            + ", 0 bytes spilled")
+
+
 # ---------------------------------------------------------------- work model
 def trip_ops(n, d):
     """Arithmetic operations of one Strang trip, counted off the loops
-    of csrc/hamsoft.cu (each add, mul, div, sqrt, exp or log counts one;
+    of the one-thread physics, csrc/hamsoft_physics.cuh (each add, mul,
+    div, sqrt, exp or log counts one; the lane-split kernels repeat
+    per-system work in every lane, which the bound does not count;
     compares and selects are not counted): pair distances, 8 forward
     SPH iterations, the softmin, the 8-step reverse sweep, two S and two
     V half-flows and the drift."""
@@ -1487,7 +1513,8 @@ def cols_outside(ref, got, rows):
 def chunked_parity_horizon(states, dyns, cfg, n_sub_max, engine):
     """use_fused_metrics=False against True on every lane (core mode) at
     each horizon of CHUNK_PARITY_STEPS: rows that differ at all and rows
-    outside TOL, by n_sub.  At one step every row must lie within TOL."""
+    outside TOL, by n_sub.  At one step every row must lie within TOL and
+    the final states must be bitwise equal."""
     B = states.pos.shape[0]
     ns = np.minimum(dyns.n_sub.cpu().numpy(), n_sub_max)
     groups = ((ns <= 2), (ns > 2) & (ns < 64), (ns >= 64))
@@ -1508,8 +1535,9 @@ def chunked_parity_horizon(states, dyns, cfg, n_sub_max, engine):
             a, b = res[True][col], res[False][col]
             differ |= ~((a == b) | (np.isnan(a) & np.isnan(b)))
         outside = cols_outside(res[True], res[False], B)
+        n_differ = int((~same.all(1)).sum())
         print(f"  {steps} step(s) on {B} lanes: final pos/vel/eps/pi differ "
-              f"on {int((~same.all(1)).sum())} rows; columns differ at all on "
+              f"on {n_differ} rows; columns differ at all on "
               f"{int(differ.sum())} rows, {int(outside.sum())} outside TOL; "
               f"outside "
               f"TOL by n_sub <= 2 / 3-63 / >= 64: " + ", ".join(
@@ -1518,6 +1546,9 @@ def chunked_parity_horizon(states, dyns, cfg, n_sub_max, engine):
         if steps == 1 and outside.any():
             raise SystemExit("use_fused_metrics=False: one step disagrees "
                              "with the fused way")
+        if steps == 1 and n_differ:
+            raise SystemExit("use_fused_metrics=False: one step's final "
+                             "states differ from the fused way's")
 
 
 def chunked_full_horizon(df, df_c, df_rev, sane):
@@ -1629,6 +1660,8 @@ def main():
         for line in report.splitlines():
             print(f"    {line.strip()}")
     print(f"  build wall {time.perf_counter() - t0:.1f}s")
+    print(f"  analysis and MEGNO kernels at N={N_SLOTS}: "
+          + spill_gate(built[("hamsoft.cu", N_SLOTS, 2)][2]))
 
     phase("population")
     (mass, pos, vel, mask, G, soft, min_soft), ref = load_population(B_MAIN)
@@ -1664,6 +1697,12 @@ def main():
                                   torch.as_tensor(lanes, device=dev), steps,
                                   nsm, hk, analyze_batch_fused, tangent_of,
                                   widen))
+        for kind, c in cases[-1].items():
+            ms, _, _, _, n_steps_c, msteps, nsm_c = c
+            trips = (n_steps_c if kind == "analysis" else msteps) * nsm_c
+            print(f"  {label}, {kind} kernel: {ms:.3f} ms, "
+                  f"{1e3 * ms / trips:.3f} us per trip of its deepest lane "
+                  f"({trips} trips)")
         print(f"  {label} done in {time.perf_counter() - t0:.1f}s")
 
     phase("compare the batched slice's kernels with their plain versions")
@@ -1778,9 +1817,17 @@ def main():
         mass[:, rev], pos[:, rev], vel[:, rev], mask[:, rev], cfg_off,
         tangent=(dr0.flip(1), dv0.flip(1)), **kw)
     print(f"  reversed-slot run (tail off) {time.perf_counter() - t0:.3f}s")
+    agree_rev = label_agreement(df_off, df_rev, keep)
     print_agreement("other rows: the tail-off run (first) against the "
-                    "reversed-slot run (second)",
-                    label_agreement(df_off, df_rev, keep))
+                    "reversed-slot run (second)", agree_rev)
+    agree_ds = label_agreement(df, ref, keep)["is_stable"]["agree"]
+    print(f"  is_stable on the {int(keep.sum())} fused rows: agrees with the "
+          f"dataset on {agree_ds:.4f} (gated >= {LABEL_GATE}); the tail-off "
+          f"run with its reversed-slot run on "
+          f"{agree_rev['is_stable']['agree']:.4f} (the rounding floor)")
+    if agree_ds < LABEL_GATE:
+        raise SystemExit(f"is_stable agrees with the dataset on {agree_ds:.4f}"
+                         f" of the fused rows (< {LABEL_GATE})")
 
     phase("use_fused_metrics=False on the main path's population (tail off)")
     cfg_c = cfg_off.replace(use_fused_metrics=False)
@@ -1835,12 +1882,17 @@ def main():
                         tangent=(dr0[lanes], dv0[lanes]), analysis_fn=ta,
                         megno_fn=tm_)
     ns_lanes = dyns.n_sub[lanes].cpu().numpy()
-    for kind, t in (("analysis", ta), ("megno", tm_)):
+    main_ms = {}
+    for kind, t, steps in (("analysis", ta, N_STEPS),
+                           ("megno", tm_, megno_steps)):
         b_ms, b_by = bound(kind, ns_lanes, n_sub_max, N_STEPS,
                            megno_steps, N_SLOTS, 2)
+        per_trip = 1e3 * t.ms / (steps * n_sub_max)
+        main_ms[kind] = (t.ms, per_trip)
         print(f"  {kind}: {len(ns_lanes)} fused lanes (tail on), one launch "
-              f"{t.ms:.1f} ms, bound {b_ms:.3f} ms ({b_by}), "
-              f"{t.ms / b_ms:.0f}x the bound", flush=True)
+              f"{t.ms:.1f} ms = {per_trip:.3f} us per trip of the deepest "
+              f"lane ({steps} x {n_sub_max} trips), bound {b_ms:.3f} ms "
+              f"({b_by}), {t.ms / b_ms:.0f}x the bound", flush=True)
 
     phase("the batched slice: bench.py's legs at full width")
     legs = slice_legs(dev, hk, ek, bk, wk)
@@ -1952,7 +2004,12 @@ def main():
               f"drift(sys0) {dr:.3e}")
     print(f"  main path (tail on): warm median {t_med:.3f}s = "
           f"{B_MAIN / t_med:.1f} systems/s; tail after the fused call "
-          f"{t_serial:.3f}s; tail off {t_off:.3f}s")
+          f"{t_serial:.3f}s ({B_MAIN / t_serial:.1f} systems/s); tail off "
+          f"{t_off:.3f}s ({B_MAIN / t_off:.1f} systems/s)")
+    for kind, (ms, per_trip) in main_ms.items():
+        print(f"  {kind} kernel on the main path: {ms:.1f} ms, {per_trip:.3f}"
+              f" us per trip of the deepest lane; top-bucket case "
+              f"{cases[1][kind][0]:.3f} ms")
     phase("done")
     print(f"  total {time.perf_counter() - T0:.1f}s")
     print(card)

@@ -57,18 +57,26 @@ def lib_path(source: str, n: int, d: int) -> str:
                         f"lib{stem}_n{n}_d{d}_{h.hexdigest()[:12]}.so")
 
 
+def _read(path: str) -> str:
+    if not os.path.exists(path):
+        return ""
+    with open(path) as fh:
+        return fh.read()
+
+
 def build(jobs) -> dict:
     """Build each (source, n, d) of ``jobs``, one ``nvcc`` per job, all
     started together.  Returns {(source, n, d): (path, seconds, ptxas
     report)}; a job already built from the same sources is not rebuilt
-    (its report is empty).  Raises if any build fails."""
+    (0 seconds, the report kept from its build).  Raises if any build
+    fails."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     procs, out = {}, {}
     for job in jobs:
         source, n, d = job
         path = lib_path(source, n, d)
         if os.path.exists(path):
-            out[job] = (path, 0.0, "")
+            out[job] = (path, 0.0, _read(f"{path}.ptxas"))
             continue
         tmp = f"{path}.tmp{os.getpid()}"
         cmd = [_nvcc(), *NVCC_FLAGS, f"-DHS_N={n}", f"-DHS_D={d}",
@@ -81,10 +89,12 @@ def build(jobs) -> dict:
         if proc.returncode != 0:
             failed.append(f"nvcc for {job} failed:\n{log}")
             continue
-        os.replace(tmp, path)
         report = "\n".join(ln for ln in log.splitlines()
                            if "registers" in ln or "spill" in ln
                            or "Compiling entry" in ln)
+        with open(f"{path}.ptxas", "w") as fh:
+            fh.write(report)
+        os.replace(tmp, path)
         out[job] = (path, time.perf_counter() - t0, report)
     if failed:
         raise RuntimeError("\n".join(failed))

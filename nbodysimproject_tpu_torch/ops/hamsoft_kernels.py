@@ -14,14 +14,18 @@ Counterpart of ``nbodysimproject_tpu/ops/pallas_hamsoft.py``:
   and the ham_soft leg of ``bench.py``).
 
 On a CUDA tensor each wrapper launches the hand-written kernel
-(``csrc/hamsoft.cu`` for the first two, ``csrc/hamsoft_multistep.cu``
-for the third, on the shared physics of ``csrc/hamsoft_physics.cuh``;
+(``csrc/hamsoft.cu`` for the first two, on the lane-split physics of
+``csrc/hamsoft_physics_warp.cuh``: four lanes of a warp per body, the
+SPH kernel terms kept from the forward pass; ``csrc/hamsoft_multistep.cu``
+for the third, one thread per system on ``csrc/hamsoft_physics.cuh``;
 see the source notes for what bounds them and what their design does
 about that); on a CPU tensor it runs the plain PyTorch version beside
 it, which loops over the macro steps and ``n_sub_max`` masked trips on
 ``(B, N, d)`` tensors and takes the exact eps* gradient by autograd
 through the 8 SPH iterations.  There is no fallback from one to the
-other.
+other.  The analysis and MEGNO wrappers hand their kernel the systems
+deepest first (``deepest_first``); each output comes back at the
+system's own index.
 
 Covered configuration: ``grad_mode="exact"``; the analysis and MEGNO
 kernels take ``policy="soft"`` (the dataset pipeline's), the multi-step
@@ -50,7 +54,7 @@ from . import cuda_build
 #: sum, sumsq, max, min per metric)
 ACC_METRICS = ("com_drift", "cos_theta", "var_L", "tr_hessian")
 _ACC_ROWS = 1 + 4 * len(ACC_METRICS)
-_INV_PI = 0.31830987  # float32(1 / pi)
+_INV_PI = 0.31830987334251404  # float32(1 / pi), exactly (as the JAX kernels)
 _ITERS = 8
 
 #: body-slot counts the libraries are built for (8: the pipeline's
@@ -85,9 +89,9 @@ def _library(n: int, d: int):
     """The bound analysis/MEGNO library for (n, d), built on first use."""
     _check_slots(n, d)
     lib = cuda_build.load(SOURCES[0], n, d)
-    lib.hs_analysis.argtypes = [_P] * 20 + [_I] * 4 + [_F] * 4 + [_I, _I, _P]
+    lib.hs_analysis.argtypes = [_P] * 21 + [_I] * 4 + [_F] * 4 + [_I, _I, _P]
     lib.hs_analysis.restype = _I
-    lib.hs_megno.argtypes = [_P] * 22 + [_I] * 3 + [_F] * 4 + [_I, _I, _P]
+    lib.hs_megno.argtypes = [_P] * 23 + [_I] * 3 + [_F] * 4 + [_I, _I, _P]
     lib.hs_megno.restype = _I
     return lib
 
@@ -514,6 +518,17 @@ def hamsoft_analysis_multistep_plain(pos, vel, mass, eps, pi, L0, *, k_soft,
                           h=h, **kw)
 
 
+def deepest_first(n_sub, n_sub_max: int):
+    """The kernels' launch order: system indices by descending trip count
+    min(max(n_sub, 1), n_sub_max), stable (ties keep their batch order),
+    as an int32 tensor on n_sub's device.  Warp slot w runs system
+    ``order[w]`` and writes its outputs at that index, so the deepest
+    systems start in the first wave and the outputs stay in the caller's
+    order."""
+    trips = torch.clamp(n_sub, 1, max(1, int(n_sub_max)))
+    return torch.argsort(trips, descending=True, stable=True).to(torch.int32)
+
+
 def hamsoft_analysis_multistep(pos, vel, mass, eps, pi, L0, *, k_soft, mu,
                                alpha, eps_min, eps_max, h, n_sub,
                                n_steps: int, n_sub_max: int, interval: int,
@@ -551,6 +566,7 @@ def hamsoft_analysis_multistep(pos, vel, mass, eps, pi, L0, *, k_soft, mu,
     _check_cuda_inputs(pos, mass, dict(vel=vel), dict(
         eps=eps, pi=pi, L0=L0, k_soft=k_soft, mu=mu, alpha=alpha,
         eps_min=eps_min, eps_max=eps_max, h=h, n_sub=ns))
+    order = deepest_first(ns, kw["n_sub_max"])
     pos_c, vel_c = _coord_major(pos), _coord_major(vel)
     mass_c = mass.t().contiguous()
     n_samples = -(-kw["n_steps"] // kw["interval"])
@@ -563,8 +579,8 @@ def hamsoft_analysis_multistep(pos, vel, mass, eps, pi, L0, *, k_soft, mu,
     code = lib.hs_analysis(
         *cuda_build.pointers(
             pos_c, vel_c, mass_c, eps, pi, k_soft, mu, alpha, eps_min,
-            eps_max, h, ns, L0, out_pos, out_vel, out_eps, out_pi, out_acc,
-            out_es, out_ps),
+            eps_max, h, ns, order, L0, out_pos, out_vel, out_eps, out_pi,
+            out_acc, out_es, out_ps),
         B, kw["n_steps"], kw["n_sub_max"], kw["interval"], kw["G"],
         kw["k_wall"], kw["eta"], kw["jcap"], kw["bexp"],
         int(_barrier_on(kw["k_wall"], kw["bexp"])),
@@ -657,6 +673,7 @@ def hamsoft_megno_multistep(pos, vel, mass, eps, pi, dr, dv, *, k_soft, mu,
     _check_cuda_inputs(pos, mass, dict(vel=vel, dr=dr, dv=dv), dict(
         eps=eps, pi=pi, k_soft=k_soft, mu=mu, alpha=alpha, eps_min=eps_min,
         eps_max=eps_max, h=h, n_sub=ns, dt=dt_b))
+    order = deepest_first(ns, kw["n_sub_max"])
     pos_c, vel_c = _coord_major(pos), _coord_major(vel)
     dr_c, dv_c = _coord_major(dr), _coord_major(dv)
     mass_c = mass.t().contiguous()
@@ -668,8 +685,8 @@ def hamsoft_megno_multistep(pos, vel, mass, eps, pi, dr, dv, *, k_soft, mu,
     code = lib.hs_megno(
         *cuda_build.pointers(
             pos_c, vel_c, mass_c, eps, pi, k_soft, mu, alpha, eps_min,
-            eps_max, h, ns, dt_b, dr_c, dv_c, out_pos, out_vel, out_eps,
-            out_pi, out_accum, out_t, out_ys),
+            eps_max, h, ns, order, dt_b, dr_c, dv_c, out_pos, out_vel,
+            out_eps, out_pi, out_accum, out_t, out_ys),
         B, kw["n_steps"], kw["n_sub_max"], kw["G"], kw["k_wall"], kw["eta"],
         kw["jcap"], kw["bexp"], int(_barrier_on(kw["k_wall"], kw["bexp"])),
         cuda_build.stream_of(pos))

@@ -15,9 +15,12 @@ Inputs: numpy-seeded populations (N = 3, N = 4 with a masked slot, and
 N = 8 slots holding 3-7 bodies; d = 2; B = 64) built by the port in
 float32.  The raw kernel state agrees with the plain version to rtol
 1e-4 / atol 1e-5 (float32 rounding of two reduction orders and of
-autograd versus the hand-written reverse sweep over ~50 trips), the
-analysis columns within the fused-vs-scan tolerances of
-``tests/test_pallas_batch.py``.  The composition kernel runs bench.py's
+autograd versus the hand-written reverse sweep over ~50 trips; also at
+N = 8 with masked slots at n_sub 256, 512 trips), the analysis columns
+within the fused-vs-scan tolerances of ``tests/test_pallas_batch.py``;
+a random permutation of the input systems gives bitwise the same
+per-system outputs of both kernels, and their final states equal the
+multi-step kernel's bit for bit.  The composition kernel runs bench.py's
 3-body system (B = 4096, 20 steps; rtol 1e-5 / atol 1e-6: the same
 operation sequence, a few ulps of rsqrt apart over 20 steps); the eps
 kernel holds eps* to rtol 1e-6 and the gradient to rtol 1e-5 / atol
@@ -156,6 +159,108 @@ def test_megno_kernel_matches_plain(case, cuda_device):
     for name, a, b in zip(("MEGNO", "lyapunov_time", "megno_slope_med"),
                           ref[4:], got[4:]):
         _close(a, b, name, *TOL[name])
+
+
+def _call(kernel, fn, st, tan, kw, n_steps):
+    if kernel == "analysis":
+        return fn(st.pos, st.vel, st.mass, st.eps, st.pi,
+                  angular_momentum_z(st), n_steps=n_steps, interval=1, **kw)
+    return fn(st.pos, st.vel, st.mass, st.eps, st.pi, *tan, dt=0.01,
+              n_steps=n_steps, **kw)
+
+
+def _flat(out):
+    """The outputs of either wrapper as a list of tensors."""
+    flat = []
+    for x in out:
+        if isinstance(x, dict):
+            flat += [t for k in sorted(x) for t in x[k]]
+        else:
+            flat.append(x)
+    return flat
+
+
+@pytest.mark.parametrize("kernel", ["analysis", "megno"])
+def test_kernel_matches_plain_n8_masked_deep(kernel, cuda_device):
+    """N = 8 slots with masked bodies at the cap's n_sub = 256: the
+    deepest lanes' 512 trips against the plain version."""
+    cfg, st, dy, tan = _built("n8_mixed", cuda_device)
+    assert not bool(st.mask.all())
+    kw = _kw(cfg, dy, 256)
+    kw["n_sub"] = torch.full_like(dy.n_sub, 256)
+    kw["h"] = torch.full_like(st.eps, 0.01 / 256)
+    fn = {"analysis": (hk.hamsoft_analysis_multistep_plain,
+                       hk.hamsoft_analysis_multistep),
+          "megno": (hk.hamsoft_megno_multistep_plain,
+                    hk.hamsoft_megno_multistep)}[kernel]
+    ref = _call(kernel, fn[0], st, tan, kw, 2)
+    got = _call(kernel, fn[1], st, tan, kw, 2)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("pos", "vel", "eps", "pi"), ref[:4], got[:4]):
+        _close(a, b, name)
+    if kernel == "analysis":
+        for metric in hk.ACC_METRICS:
+            for stat, a, b in zip(("count", "sum", "sumsq", "max", "min"),
+                                  ref[4][metric], got[4][metric]):
+                _close(a, b, f"{metric}.{stat}", rtol=1e-3)
+        _close(ref[5], got[5], "eps_samples")
+        _close(ref[6], got[6], "pi_samples")
+    else:
+        for name, a, b in zip(("MEGNO", "lyapunov_time", "megno_slope_med"),
+                              ref[4:], got[4:]):
+            _close(a, b, name, *TOL[name])
+
+
+@pytest.mark.parametrize("depth", ["built", "cap"])
+@pytest.mark.parametrize("kernel", ["analysis", "megno"])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_kernel_trajectory_is_the_multistep_kernels(case, kernel, depth,
+                                                     cuda_device):
+    """Every sum of a trip is added in the one-thread physics' order, so
+    the final pos, vel, eps and pi equal the multi-step kernel's
+    (``csrc/hamsoft_multistep.cu``, soft policy) bit for bit, at the
+    built n_sub and at the cap's 256 trips a step."""
+    cfg, st, dy, tan = _built(case, cuda_device)
+    if depth == "cap":
+        dy = dy.replace(n_sub=torch.full_like(dy.n_sub, 256))
+    kw = _kw(cfg, dy, int(dy.n_sub.max()))
+    fn = {"analysis": hk.hamsoft_analysis_multistep,
+          "megno": hk.hamsoft_megno_multistep}[kernel]
+    got = _call(kernel, fn, st, tan, kw, 3)
+    ref = hk.hamsoft_multistep(st.pos, st.vel, st.mass, st.eps, st.pi,
+                               n_steps=3, policy="soft", **kw)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("pos", "vel", "eps", "pi"), ref, got[:4]):
+        assert torch.equal(torch.isnan(a), torch.isnan(b)), name
+        assert torch.equal(torch.nan_to_num(a), torch.nan_to_num(b)), name
+
+
+@pytest.mark.parametrize("kernel", ["analysis", "megno"])
+def test_kernel_outputs_do_not_depend_on_lane_order(kernel, cuda_device):
+    """A random permutation of the input lanes gives bitwise the same
+    per-system outputs: the kernel runs the systems deepest first and
+    writes each at its own index."""
+    cfg, st, dy, tan = _built("n8_mixed", cuda_device)
+    rng = np.random.default_rng(3)
+    B = st.pos.shape[0]
+    # trip counts 1-12, several systems sharing each (ties keep order)
+    n_sub = torch.as_tensor(rng.integers(1, 13, B), dtype=torch.int32,
+                            device=cuda_device)
+    dy = dy.replace(n_sub=n_sub)
+    fn = {"analysis": hk.hamsoft_analysis_multistep,
+          "megno": hk.hamsoft_megno_multistep}[kernel]
+    ref = _flat(_call(kernel, fn, st, tan, _kw(cfg, dy, 12), 4))
+    perm = torch.as_tensor(rng.permutation(B), device=cuda_device)
+    st_p, dy_p = st.take(perm), dy.take(perm)
+    got = _flat(_call(kernel, fn, st_p, (tan[0][perm], tan[1][perm]),
+                      _kw(cfg, dy_p, 12), 4))
+    torch.cuda.synchronize()
+    assert len(got) == len(ref)
+    for k, (a, b) in enumerate(zip(ref, got)):
+        # (B, ...) outputs and the (rows, B) sample rows
+        a_p = a[perm] if a.shape[0] == perm.shape[0] else a[:, perm]
+        assert torch.equal(torch.isnan(a_p), torch.isnan(b)), k
+        assert torch.equal(torch.nan_to_num(a_p), torch.nan_to_num(b)), k
 
 
 def test_engine_columns_match_plain(cuda_device):
