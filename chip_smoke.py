@@ -21,7 +21,9 @@ routes; ``csrc/pairwise_force.cu``).  Phases (each prints its seconds):
 2. build: one ``nvcc`` per kernel source and body-slot count (the
    tiled force kernel: per dimension, 2 and 3), all started together, into the git-ignored
    ``nbodysimproject_tpu_torch/_build/``; prints each build's seconds
-   and ptxas' register and spill lines;
+   and ptxas' register and spill lines, and fails unless the analysis
+   and MEGNO kernels at N = 8, the multi-step kernel at every N and the
+   tiled force kernel spill 0 bytes;
 3. population: the first 16384 rows of the dataset (empty slots: mass
    0, mask False; these rows are the dataset's "random" cohort);
 4. compare the analysis and MEGNO kernels with their plain PyTorch
@@ -56,10 +58,12 @@ routes; ``csrc/pairwise_force.cu``).  Phases (each prints its seconds):
    the dataset (is_stable gated at LABEL_GATE) and beside a tail-off run
    on reversed body slots;
 8. the same population with ``use_fused_metrics=False`` (tail off; the
-   multi-step kernel in chunks, ``step_metrics`` between them), held
-   to its plain version and to the fused way at one step (final states
-   bitwise equal: the analysis kernel's trip is the multi-step
-   kernel's), the longer horizons measured;
+   multi-step kernel in chunks, ``step_metrics`` between them): the
+   run's time, its multi-step launches replayed between CUDA events
+   (each launch's time and bound), held to its plain version and to
+   the fused way at one step (final states bitwise equal: the analysis
+   kernel's trip is the multi-step kernel's), the longer horizons
+   measured;
 9. the main path's kernel launches replayed between CUDA events, with
    the time per trip of the deepest lane;
 10. ``bench.py``'s legs at full width: verlet and yoshida4 scans at
@@ -93,7 +97,10 @@ routes; ``csrc/pairwise_force.cu``).  Phases (each prints its seconds):
 15. bench_whfast_largen: 4096, 16384 and 65536 planets, LC-8, the kick
    on direct_pallas and on P3M with the star split: 20 timed substeps,
    the drift over 200 (float64 energy on the card, gated), P3M's kick
-   error against direct_pallas (p99 gated).
+   error against direct_pallas (p99 gated);
+16. the tiled force kernel alone at its paths' widths (the classical
+   route's N = 4096, the 65536-planet kick, 10^5 and 10^6): many
+   launches back to back between CUDA events, with its bound.
 
 It prints a ``{"kernels": [...]}`` line (seven kernels) and, last, the
 device line.  Any
@@ -256,20 +263,19 @@ def print_agreement(what, agree):
         f"{agree['energy_drift_within_tol']:.4f} of the rows sane in both")
 
 
-def spill_gate(report):
-    """Registers of each kernel in a ptxas report, raising unless every
-    kernel spills 0 bytes (the analysis and MEGNO kernels at N = 8)."""
+def spill_gate(what, report, n_kernels):
+    """Registers of each kernel in a ptxas report, raising unless the
+    report names ``n_kernels`` kernels and every one spills 0 bytes."""
     import re
 
-    kernels = re.findall(r"(analysis|megno)_kernel", report)
     spills = [int(x) for x in re.findall(r"(\d+) bytes spill (?:stores|loads)",
                                          report)]
     regs = [int(x) for x in re.findall(r"Used (\d+) registers", report)]
-    if len(kernels) != 2 or len(spills) != 4 or any(spills):
-        raise SystemExit(f"hamsoft.cu: the analysis and MEGNO kernels must "
-                         f"spill 0 bytes; ptxas says:\n{report}")
-    return (", ".join(f"{k} {r} registers" for k, r in zip(kernels, regs))
-            + ", 0 bytes spilled")
+    if len(regs) != n_kernels or len(spills) != 2 * n_kernels or any(spills):
+        raise SystemExit(f"{what}: every kernel must spill 0 bytes; ptxas "
+                         f"says:\n{report}")
+    return (f"{what}: registers {', '.join(map(str, regs))}, 0 bytes "
+            f"spilled")
 
 
 # ---------------------------------------------------------------- work model
@@ -363,6 +369,28 @@ class Timed:
         stop.synchronize()
         self.ms = start.elapsed_time(stop)
         return self.out
+
+
+class TimedEach:
+    """Calls ``fn`` between two CUDA events on every call and keeps, per
+    call, the events and the call's ``n_steps``; ``times()`` gives
+    [(n_steps, ms)] once the device is done."""
+
+    def __init__(self, fn):
+        self.fn, self.calls = fn, []
+
+    def __call__(self, *args, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = self.fn(*args, **kw)
+        stop.record()
+        self.calls.append((kw.get("n_steps"), start, stop))
+        return out
+
+    def times(self):
+        torch.cuda.synchronize()
+        return [(n, a.elapsed_time(b)) for n, a, b in self.calls]
 
 
 def _double(x):
@@ -1114,10 +1142,10 @@ WL_DRIFT_MAX, WL_KICK_P99_MAX = 1e-5, 0.06
 
 
 def pairwise_ops(d):
-    """Operations of one valid pair in csrc/pairwise_force.cu's inner loop:
-    d subtractions, d multiplies and d - 1 adds for r^2, the eps^2 add,
-    rsqrtf, three multiplies for m_j / r^3, d multiplies and d adds into
-    the partial sums."""
+    """Operations of one valid pair in csrc/pairwise_force.cu's inner loop,
+    an FMA counted as two: d subtractions, d FMAs for r^2 from eps^2,
+    rsqrtf, three multiplies for m_j / r^3, d FMAs into the partial
+    sums."""
     return 5 * d + 4
 
 
@@ -1209,6 +1237,61 @@ def compare_pairwise(fk, dev, evals):
         fk, f"N={N} d=2 (bench_largen's cloud)", t(q)[None], t(m)[None],
         t([span_eps(q, LN_NG[N])]), t([1.0]), rows=rows)
     return cases
+
+
+#: back-to-back launches per kernel-alone timing of the tiled kernel
+FORCE_ALONE_REPS = {4096: 500, 65537: 20, 100_000: 10, 1_000_000: 2}
+
+
+def force_alone(fk, dev, evals):
+    """The tiled kernel alone at the widths of its paths: the classical
+    route's cloud (N = 4096, B = 1, eps 0.05), the 65536-planet system
+    of the many-planet WHFast kick (N = 65537, eps 0) and bench_largen's
+    10^5 and 10^6 clouds.  FORCE_ALONE_REPS launches of the library entry
+    back to back between CUDA events, on buffers made beforehand and
+    with the slices the wrapper takes, so the time is the device's and
+    not the wrapper's host overhead (these launches do not count).
+    Returns {N: (ms, slices, bound)}."""
+    from nbodysimproject_tpu_torch.ops import cuda_build
+
+    rng = np.random.default_rng(3)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    N = CLASSICAL_N
+    cases = {N: (t(rng.normal(0, 1.0, (1, N, 2))),
+                 t(np.abs(rng.normal(1, 0.3, (1, N))) / N), 0.05)}
+    m, q, _v = planetary_system(WL_NS[-1], 1)
+    cases[len(m)] = (t(q)[None], t(m)[None], 0.0)
+    for N in (100_000, 1_000_000):
+        q, m = evals[N]
+        cases[N] = (t(q)[None], t(m)[None], span_eps(q, LN_NG[N]))
+    out = {}
+    for N, (q, m, e) in cases.items():
+        B, n, d = q.shape
+        eb, Gb = torch.full((B,), e, device=dev), torch.ones(B, device=dev)
+        S = fk.source_slices(n, B, *fk._card_slots(q.device.index, d))
+        F = torch.empty_like(q)
+        part = F if S == 1 else torch.empty((S, B, n, d), device=dev)
+        lib = fk._library(d)
+        ptrs = cuda_build.pointers(q, m, eb, Gb, F, part)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        launch = lambda: lib.hs_pairwise_force(*ptrs, B, n, S, stream)
+        if launch() != 0:
+            raise SystemExit(f"pairwise_force N={n}: launch failed")
+        reps = FORCE_ALONE_REPS[n]
+        tm = Timed(lambda: [launch() for _ in range(reps)])
+        tm()
+        ms = tm.ms / reps
+        if not torch.equal(F, fk.pairwise_force(q, m, eb, Gb)):
+            raise SystemExit(f"pairwise_force N={n}: the entry and the "
+                             f"wrapper disagree")
+        b = bound_pairwise(B, n, d)
+        out[n] = (ms, S, b)
+        print(f"  N={n}: {ms:.4f} ms a launch ({reps} launches, {S} source "
+              f"slice(s)), bound {b[0]:.4f} ms ({b[1]}), {ms / b[0]:.2f}x",
+              flush=True)
+        del q, m, F, part
+        torch.cuda.empty_cache()
+    return out
 
 
 def rel_err(F, ref):
@@ -1660,8 +1743,14 @@ def main():
         for line in report.splitlines():
             print(f"    {line.strip()}")
     print(f"  build wall {time.perf_counter() - t0:.1f}s")
-    print(f"  analysis and MEGNO kernels at N={N_SLOTS}: "
-          + spill_gate(built[("hamsoft.cu", N_SLOTS, 2)][2]))
+    # the analysis and MEGNO kernels at N = 8, the multi-step kernel's two
+    # policies' instances at every N, the force kernel and its slice sum
+    for job, n_kernels in ([(("hamsoft.cu", N_SLOTS, 2), 2)]
+                           + [(j, 2) for j in hk.build_jobs()
+                              if j[0] == "hamsoft_multistep.cu"]
+                           + [(j, 2) for j in fk.build_jobs()]):
+        print("  " + spill_gate(f"{job[0]} N={job[1]} d={job[2]}",
+                                built[job][2], n_kernels))
 
     phase("population")
     (mass, pos, vel, mask, G, soft, min_soft), ref = load_population(B_MAIN)
@@ -1854,6 +1943,32 @@ def main():
     del df_c, df_rev
     rows_c, nsm_c, _ = dispatch_plan(n_sub_raw, cfg_off)
     lanes_c = torch.as_tensor(rows_c, device=dev)
+    # the run's multi-step launches replayed on the same lanes (dispatch
+    # order, seed-0 tangents) with CUDA events around each launch
+    tms = TimedEach(hk.hamsoft_multistep)
+    analyze_batch_fused(states.take(lanes_c), dyns.take(lanes_c), cfg_c,
+                        N_STEPS, DT, "full", nsm_c, min(50, N_STEPS // 2),
+                        tangent=(dr0[lanes_c], dv0[lanes_c]),
+                        multistep_fn=tms)
+    calls = tms.times()
+    ns_c = dyns.n_sub[lanes_c].cpu().numpy()
+    chunk_b = [bound_multistep(ns_c, nsm_c, n, N_SLOTS, 2) for n, _ in calls]
+    full = [ms for n, ms in calls if n == calls[-2][0]]
+    full_b = bound_multistep(ns_c, nsm_c, calls[-2][0], N_SLOTS, 2)
+    trips = calls[-2][0] * nsm_c
+    chunked = dict(run_s=t_c, launches=len(calls),
+                   kernel_ms=sum(ms for _, ms in calls),
+                   bound_ms=sum(b for b, _ in chunk_b),
+                   launch_ms=float(np.median(full)), launch_steps=calls[-2][0],
+                   launch_bound=full_b)
+    print(f"  the multi-step kernel on this run (replayed): "
+          f"{chunked['launches']} launches, {chunked['kernel_ms']:.1f} ms in "
+          f"all (bound {chunked['bound_ms']:.3f} ms, {full_b[1]}); a "
+          f"{chunked['launch_steps']}-step launch {chunked['launch_ms']:.3f} "
+          f"ms (median of {len(full)}; bound {full_b[0]:.4f} ms, "
+          f"{chunked['launch_ms'] / full_b[0]:.1f}x), "
+          f"{1e3 * chunked['launch_ms'] / trips:.3f} us per trip of the "
+          f"deepest lane; the run {t_c:.3f}s", flush=True)
     chunked_parity_horizon(states.take(lanes_c), dyns.take(lanes_c), cfg_off,
                            nsm_c, analyze_batch_fused)
     for label, lanes, steps, nsm, widen in (
@@ -1912,6 +2027,9 @@ def main():
     classical = classical_route(fk, dev)
     phase("the large-N slice: bench_whfast_largen's many-planet WHFast")
     wl = whfast_many_planets(fk, dev)
+    phase("the large-N slice: the tiled force kernel alone at its paths' "
+          "widths")
+    alone = force_alone(fk, dev, evals)
 
     phase("report")
     entries = []
@@ -1978,6 +2096,27 @@ def main():
           f"{c['plain_ms']:.3f} ms, bound {c['bound'][0]:.4f} ms "
           f"({c['bound'][1]}); launches in the direct_pallas rollout at "
           f"N=1e5 {main_roll['launches']}")
+    launches_at = {CLASSICAL_N: classical["launches"],
+                   WL_NS[-1] + 1: wl[WL_NS[-1]]["direct_pallas"]["launches"],
+                   100_000: main_roll["launches"], 1_000_000: 1}
+    for n, (ms, S, (b_ms, b_by)) in alone.items():
+        print(f"  pairwise_force alone N={n}: {ms:.4f} ms ({S} slice(s)), "
+              f"bound {b_ms:.4f} ms ({b_by}), {ms / b_ms:.2f}x; launches on "
+              f"its path {launches_at[n]}")
+    c8 = chunked_cases[1]["multistep"]
+    print(f"  hamsoft_multistep N=8 (the use_fused_metrics=False analysis): "
+          f"run {chunked['run_s']:.3f}s, {chunked['launches']} launches, "
+          f"{chunked['kernel_ms']:.1f} ms in all (bound "
+          f"{chunked['bound_ms']:.3f} ms), {chunked['launch_ms']:.3f} ms a "
+          f"{chunked['launch_steps']}-step launch (bound "
+          f"{chunked['launch_bound'][0]:.4f} ms); top-bucket case kernel "
+          f"{c8[0]:.3f} ms, plain {c8[1]:.3f} ms")
+    for policy in ("soft", "reflection"):
+        med = legs[f"ham_soft fused {policy}"][1]
+        c3 = new_cmp[f"multistep {policy}"]
+        print(f"  hamsoft_multistep N=3 {policy}: bench leg {med:.3f} ms; "
+              f"compare case kernel {c3['ms']:.3f} ms, plain "
+              f"{c3['plain_ms']:.3f} ms, bound {c3['bound'][0]:.4f} ms")
     for N, row in ln_evals.items():
         print(f"  bench_largen N={N}: P3M {row['p3m_ms']:.3f} ms (short "
               f"range {row['short_ms']:.3f} ms; error "

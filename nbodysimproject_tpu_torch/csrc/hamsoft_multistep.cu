@@ -2,29 +2,43 @@
 //
 // Replaces the TPU kernel of nbodysimproject_tpu/ops/pallas_hamsoft.py:
 //   hamsoft_multistep (_hamsoft_multistep_kernel, :508) -> hs_multistep
-// on the shared physics of hamsoft_physics.cuh: n_steps macro steps, each
-// system running its own n_sub Strang trips of size h, no sampling.  Both
-// barrier policies: "soft" (wall kicks on pi) and "reflection" (closed-form
-// folds of (eps, pi) around each flow); the exact eps* gradient.
+// n_steps macro steps, each system running its own n_sub Strang trips of
+// size h, no sampling.  All three barrier policies: "soft" (wall kicks on
+// pi), "reflection" (closed-form folds of (eps, pi) around each flow) and
+// "none"; the exact eps* gradient.
 //
-// What bounds it: operations, as for the analysis kernel.  A trip spends
-// about 10^3 FP32 operations at N = 3 and 10^4 at N = 8 (the 8 SPH
-// iterations and the recomputing reverse sweep), against a few dozen
-// floats in and out per system for the whole horizon.  Design:
-//   * one thread owns one system for the whole call: bodies, (eps*, grad)
-//     cache and scalars in registers; device memory is touched at entry
-//     and exit only;
-//   * inputs are coordinate-major ((N*D, B) and (B,) rows), so
-//     neighbouring threads read neighbouring addresses;
-//   * each thread runs its own n_sub trips per macro step (the Pallas
-//     kernel masks up to n_sub_max; a masked trip is an exact identity);
-//   * the SPH solve is seeded from the kernel-entry eps, as in the Pallas
-//     kernel, so a horizon cut into several calls seeds each call anew;
-//   * one-warp blocks with the analysis kernel's launch bounds (up to 255
-//     registers a thread: the N = 8 trip spills even so); at the bench
-//     widths (2^20 systems) the grid fills every SM many times over.
+// What bounds it: operations.  A trip spends about 10^3 FP32 operations
+// at N = 3 and 10^4 at N = 8 (the 8 SPH iterations and the reverse
+// sweep), against a few dozen floats in and out per system for the whole
+// horizon.  Its two paths want different layouts, so the layout is fixed
+// per body-slot count N, from measurement (PERF.md section 6, row 3):
+//   * N = 8 (the use_fused_metrics=False analysis: 16384 systems, n_sub
+//     up to 256, chunks of at most 10 steps) is set by the serial chain
+//     of the deepest systems.  It runs the analysis kernel's lane-split
+//     physics (hamsoft_physics_warp.cuh): a warp per system, four lanes
+//     per body, the SPH kernel terms kept from the forward pass,
+//     independent divisions split across a body's lanes.  One thread per
+//     system took about 9x as long there;
+//   * N = 3 (the bench's 2^20 three-body systems) is throughput bound on
+//     instructions, where the warp's 16 lanes a system, repeating its
+//     scalar work, took about 5x as long.  One thread owns one system
+//     (hamsoft_physics.cuh); its forward SPH pass keeps the kernel terms
+//     in registers for the reverse sweep (no expf, square root or
+//     division there), in blocks of kThreadBlock threads;
+//   * N = 4 runs the warp layout: one thread per system was faster there
+//     but spills at every launch bound (192 kept terms).
+// Both layouts add every sum in the one-thread order, so a trip moves
+// (pos, vel, eps, pi) bit for bit the same in either, and as the analysis
+// and MEGNO kernels do.  The wrapper hands in the systems deepest first
+// (order[w] is the system of slot w), so the deepest start in the first
+// wave and a warp of one-thread systems runs systems of equal depth;
+// every output is written at the system's own index.  Inputs are
+// coordinate-major ((N*D, B) and (B,) rows), read at entry and written at
+// exit only.  The SPH solve is seeded from the kernel-entry eps, as in
+// the Pallas kernel, so a horizon cut into several calls seeds each call
+// anew.
 
-#include "hamsoft_physics.cuh"
+#include "hamsoft_physics_warp.cuh"
 
 #ifndef HS_N
 #define HS_N 8
@@ -35,20 +49,28 @@
 
 namespace {
 
+// the layout of each N: a warp per system from N = 4 up
+constexpr bool kWarpLayout = HS_N >= 4;
+constexpr int kThreadBlock = 128;
+constexpr int kWarpBlock = 64;
+
+// ptxas keeps the N = 3 trip, kept terms included, in ~220 registers
+// without spilling (two blocks an SM)
 template <int N, int D, bool REFL>
-__global__ void __launch_bounds__(32, 1) multistep_kernel(
+__global__ void __launch_bounds__(kThreadBlock, 2) multistep_thread(
     const float* __restrict__ pos, const float* __restrict__ vel,
     const float* __restrict__ mass, const float* __restrict__ eps_in,
     const float* __restrict__ pi_in, const float* __restrict__ k_s,
     const float* __restrict__ mu, const float* __restrict__ alpha,
     const float* __restrict__ flo, const float* __restrict__ cap,
     const float* __restrict__ h_in, const int* __restrict__ nsub_in,
-    float* __restrict__ out_pos, float* __restrict__ out_vel,
-    float* __restrict__ out_eps, float* __restrict__ out_pi, int B,
-    int n_steps, int n_sub_max, float G, float k_wall, float eta, float jcap,
-    int bexp, int barrier_on) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
+    const int* __restrict__ order, float* __restrict__ out_pos,
+    float* __restrict__ out_vel, float* __restrict__ out_eps,
+    float* __restrict__ out_pi, int B, int n_steps, int n_sub_max, float G,
+    float k_wall, float eta, float jcap, int bexp, int barrier_on) {
+  const int w = blockIdx.x * blockDim.x + threadIdx.x;
+  if (w >= B) return;
+  const int b = order[w];
   Sys<N> s;
   float q[N * D], v[N * D], grad[N * D];
   load_system<N, D>(b, B, pos, vel, mass, k_s, mu, alpha, flo, cap, eps_in, G,
@@ -72,7 +94,81 @@ __global__ void __launch_bounds__(32, 1) multistep_kernel(
   out_pi[b] = pi;
 }
 
-constexpr int kBlock = 32;
+template <int N, int D, bool REFL>
+__global__ void __launch_bounds__(kWarpBlock) multistep_warp(
+    const float* __restrict__ pos, const float* __restrict__ vel,
+    const float* __restrict__ mass, const float* __restrict__ eps_in,
+    const float* __restrict__ pi_in, const float* __restrict__ k_s,
+    const float* __restrict__ mu, const float* __restrict__ alpha,
+    const float* __restrict__ flo, const float* __restrict__ cap,
+    const float* __restrict__ h_in, const int* __restrict__ nsub_in,
+    const int* __restrict__ order, float* __restrict__ out_pos,
+    float* __restrict__ out_vel, float* __restrict__ out_eps,
+    float* __restrict__ out_pi, int B, int n_steps, int n_sub_max, float G,
+    float k_wall, float eta, float jcap, int bexp, int barrier_on) {
+  constexpr int SYS = Lay<N>::SYS;
+  __shared__ __align__(16) float rows[kWarpBlock / SYS]
+                                     [GradRows<N, D>::SIZE];
+  const int w = (blockIdx.x * blockDim.x + threadIdx.x) / SYS;
+  if (w >= B) return;
+  const int b = order[w];
+  const int lane = threadIdx.x & 31;
+  float* rw = rows[threadIdx.x / SYS];
+
+  Lane<N, D> s;
+  float qi[D], vi[D], gi[D], qj[Lay<N>::SPL * D];
+  const float h = h_in[b];
+  load_lane<N, D>(b, B, lane, pos, vel, mass, k_s, mu, alpha, flo, cap,
+                  eps_in, h, G, k_wall, eta, jcap, bexp, barrier_on, s, qi,
+                  vi);
+  gather_slots(s, qi, qj);
+  float eps = eps_in[b], pi = pi_in[b];
+  const int ns = min(max(nsub_in[b], 1), n_sub_max);
+
+  float es;
+  eps_star_and_grad_w(s, qi, qj, es, gi, rw);
+  for (int step = 0; step < n_steps; ++step)
+    for (int sub = 0; sub < ns; ++sub)
+      strang_trip_w<N, D, REFL>(s, qi, qj, vi, eps, pi, es, gi, h, rw);
+
+  if (s.body && s.sub == 0) {
+#pragma unroll
+    for (int a = 0; a < D; ++a) {
+      out_pos[(s.i * D + a) * B + b] = qi[a];
+      out_vel[(s.i * D + a) * B + b] = vi[a];
+    }
+  }
+  if (lane % SYS == 0) {
+    out_eps[b] = eps;
+    out_pi[b] = pi;
+  }
+}
+
+template <bool REFL>
+int launch(const float* pos, const float* vel, const float* mass,
+           const float* eps, const float* pi, const float* k_s,
+           const float* mu, const float* alpha, const float* flo,
+           const float* cap, const float* h, const int* nsub,
+           const int* order, float* out_pos, float* out_vel, float* out_eps,
+           float* out_pi, int B, int n_steps, int n_sub_max, float G,
+           float k_wall, float eta, float jcap, int bexp, int barrier_on,
+           cudaStream_t st) {
+  if constexpr (kWarpLayout) {
+    constexpr int per = kWarpBlock / Lay<HS_N>::SYS;  // systems per block
+    multistep_warp<HS_N, HS_D, REFL>
+        <<<(B + per - 1) / per, kWarpBlock, 0, st>>>(
+            pos, vel, mass, eps, pi, k_s, mu, alpha, flo, cap, h, nsub,
+            order, out_pos, out_vel, out_eps, out_pi, B, n_steps, n_sub_max,
+            G, k_wall, eta, jcap, bexp, barrier_on);
+  } else {
+    multistep_thread<HS_N, HS_D, REFL>
+        <<<(B + kThreadBlock - 1) / kThreadBlock, kThreadBlock, 0, st>>>(
+            pos, vel, mass, eps, pi, k_s, mu, alpha, flo, cap, h, nsub,
+            order, out_pos, out_vel, out_eps, out_pi, B, n_steps, n_sub_max,
+            G, k_wall, eta, jcap, bexp, barrier_on);
+  }
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
@@ -82,24 +178,21 @@ int hs_multistep(const float* pos, const float* vel, const float* mass,
                  const float* eps, const float* pi, const float* k_s,
                  const float* mu, const float* alpha, const float* flo,
                  const float* cap, const float* h, const int* nsub,
-                 float* out_pos, float* out_vel, float* out_eps,
-                 float* out_pi, int B, int n_steps, int n_sub_max, float G,
-                 float k_wall, float eta, float jcap, int bexp, int barrier_on,
-                 int reflection, void* stream) {
+                 const int* order, float* out_pos, float* out_vel,
+                 float* out_eps, float* out_pi, int B, int n_steps,
+                 int n_sub_max, float G, float k_wall, float eta, float jcap,
+                 int bexp, int barrier_on, int reflection, void* stream) {
   if (B <= 0) return 0;
-  dim3 grid((B + kBlock - 1) / kBlock);
   cudaStream_t st = (cudaStream_t)stream;
-  if (reflection)
-    multistep_kernel<HS_N, HS_D, true><<<grid, kBlock, 0, st>>>(
-        pos, vel, mass, eps, pi, k_s, mu, alpha, flo, cap, h, nsub, out_pos,
-        out_vel, out_eps, out_pi, B, n_steps, n_sub_max, G, k_wall, eta, jcap,
-        bexp, barrier_on);
-  else
-    multistep_kernel<HS_N, HS_D, false><<<grid, kBlock, 0, st>>>(
-        pos, vel, mass, eps, pi, k_s, mu, alpha, flo, cap, h, nsub, out_pos,
-        out_vel, out_eps, out_pi, B, n_steps, n_sub_max, G, k_wall, eta, jcap,
-        bexp, barrier_on);
-  return (int)cudaGetLastError();
+  return reflection
+             ? launch<true>(pos, vel, mass, eps, pi, k_s, mu, alpha, flo, cap,
+                            h, nsub, order, out_pos, out_vel, out_eps,
+                            out_pi, B, n_steps, n_sub_max, G, k_wall, eta,
+                            jcap, bexp, barrier_on, st)
+             : launch<false>(pos, vel, mass, eps, pi, k_s, mu, alpha, flo,
+                             cap, h, nsub, order, out_pos, out_vel, out_eps,
+                             out_pi, B, n_steps, n_sub_max, G, k_wall, eta,
+                             jcap, bexp, barrier_on, st);
 }
 
 const char* hs_error_string(int code) {

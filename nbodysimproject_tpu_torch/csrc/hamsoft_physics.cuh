@@ -4,10 +4,12 @@
 // (:44-489): pair distances, the 8 clipped SPH iterations with the softmin
 // eps* and the hand-written reverse sweep for its exact gradient, the
 // soft-wall force, the reflection fold, the spring half-flow S(h/2), the
-// gravity half-kick V(h/2) and the Strang trip.  Included by hamsoft.cu
-// (analysis and MEGNO kernels), hamsoft_multistep.cu and eps_grad.cu, so
-// the kernels share one copy of the physics and each kernel family still
-// builds in its own nvcc process.
+// gravity half-kick V(h/2) and the Strang trip, one thread per system.
+// Included by hamsoft_multistep.cu (its one-thread layout, N = 3) and
+// eps_grad.cu, and through hamsoft_physics_warp.cuh by hamsoft.cu and
+// hamsoft_multistep.cu's warp layout (N = 4 and 8), so the kernels share
+// one copy of the physics and each kernel family still builds in its own
+// nvcc process.
 //
 // Built without --use_fast_math: the softmin's expf/logf and the small-
 // theta series need IEEE float32.  maxf/minf below propagate NaN like
@@ -67,64 +69,57 @@ __device__ __forceinline__ void pair_r2(const float* pos, float* r2) {
     }
 }
 
-// Sigma_i at smoothing length hi (the forward iteration needs no more).
-template <int N>
-__device__ __forceinline__ float sigma_at(const Sys<N>& s, const float* r2,
-                                          float hi, int i) {
-  float ih2 = 1.f / maxf(hi * hi, 1e-24f);
-  float S = 0.f;
-#pragma unroll
-  for (int j = 0; j < N; ++j) {
-    if (j == i) continue;
-    float r = r2[i < j ? pidx<N>(i, j) : pidx<N>(j, i)];
-    float w = kInvPi * ih2 * expf(-r * ih2);
-    S = S + s.mval[j] * w;
-  }
-  return S;
-}
-
-// (S_i, dS_i/dh, W_ij) at hi — _sigma_terms_at.
-template <int N>
-__device__ __forceinline__ void sigma_terms_at(const Sys<N>& s, const float* r2,
-                                               float hi, int i, float& S,
-                                               float& Sd, float* W) {
-  float ih2 = 1.f / maxf(hi * hi, 1e-24f);
-  float inv_hs = 1.f / maxf(hi, 1e-12f);
-  S = 0.f;
-  Sd = 0.f;
-#pragma unroll
-  for (int j = 0; j < N; ++j) {
-    if (j == i) { W[j] = 0.f; continue; }
-    float r = r2[i < j ? pidx<N>(i, j) : pidx<N>(j, i)];
-    float w = kInvPi * ih2 * expf(-r * ih2);
-    W[j] = w;
-    S = S + s.mval[j] * w;
-    Sd = Sd + s.mval[j] * w * (-2.f + 2.f * r * ih2) * inv_hs;
-  }
-}
-
 // eps* and its exact gradient: the 8 clipped SPH iterations from the
 // kernel-entry eps (_solve_iterates), the softmin (eps_star_of) and the
-// hand-written reverse sweep through the truncated map (_exact_grad),
-// which recomputes the kernel sums at every stored iterate.
+// hand-written reverse sweep through the truncated map (_exact_grad).
+// The forward pass keeps, from each iterate k and body i, the kernel
+// terms W_ij, dS_i/dh, -G_raw / (2 S_i), the clip gate and -2 / h^2: the
+// reverse sweep then runs no expf, no square root and no division, and
+// since each kept term is the expression a recomputing sweep would
+// evaluate on the same operands, the gradient has the same bits.
 template <int N, int D>
-__device__ __forceinline__ void eps_star_and_grad(const Sys<N>& s, const float* pos,
-                                  float& es, float* g) {
+__device__ __forceinline__ void eps_star_and_grad(const Sys<N>& s,
+                                                  const float* pos,
+                                                  float& es, float* g) {
   constexpr int NP = N * (N - 1) / 2;
+  constexpr int NJ = N > 1 ? N - 1 : 1;  // slot of j != i: j - (j > i)
   float r2[NP > 0 ? NP : 1];
   pair_r2<N, D>(pos, r2);
 
-  float H[kIters + 1][N];
+  float W[kIters][N][NJ];
+  float Sd[kIters][N], X[kIters][N], M2[kIters][N];
+  unsigned gate[(kIters * N + 31) / 32];  // bit k N + i: flo < G_raw < cap
+#pragma unroll
+  for (int w = 0; w < (kIters * N + 31) / 32; ++w) gate[w] = 0u;
+  float h[N];
   const float h0 = clipf(s.eps_seed, s.flo, s.cap);
 #pragma unroll
-  for (int i = 0; i < N; ++i) H[0][i] = h0;
+  for (int i = 0; i < N; ++i) h[i] = h0;
 #pragma unroll
-  for (int k = 1; k <= kIters; ++k)
+  for (int k = 0; k < kIters; ++k)
 #pragma unroll
     for (int i = 0; i < N; ++i) {
-      float S = sigma_at<N>(s, r2, H[k - 1][i], i);
-      float hn = s.eta * sqrtf(s.mval[i] / maxf(S, 1e-30f));
-      H[k][i] = clipf(hn, s.flo, s.cap);
+      const float ih2 = 1.f / maxf(h[i] * h[i], 1e-24f);
+      const float inv_hs = 1.f / maxf(h[i], 1e-12f);
+      float S = 0.f, sd = 0.f;
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        if (j == i) continue;
+        float r = r2[i < j ? pidx<N>(i, j) : pidx<N>(j, i)];
+        float w = kInvPi * ih2 * expf(-r * ih2);
+        W[k][i][j - (j > i)] = w;
+        S = S + s.mval[j] * w;
+        sd = sd + s.mval[j] * w * (-2.f + 2.f * r * ih2) * inv_hs;
+      }
+      const float Ssafe = maxf(S, 1e-30f);
+      const float G_raw = s.eta * sqrtf(s.mval[i] / Ssafe);
+      const int bit = k * N + i;
+      gate[bit / 32] |= ((G_raw > s.flo) && (G_raw < s.cap))
+                            ? (1u << (bit % 32)) : 0u;
+      X[k][i] = -G_raw / (2.f * Ssafe);
+      Sd[k][i] = sd;
+      M2[k][i] = -2.f * ih2;
+      h[i] = clipf(G_raw, s.flo, s.cap);
     }
 
   // softmin over the valid bodies, with its weights d es / d h_i
@@ -132,7 +127,7 @@ __device__ __forceinline__ void eps_star_and_grad(const Sys<N>& s, const float* 
   float tmax = 0.f;
 #pragma unroll
   for (int i = 0; i < N; ++i) {
-    t[i] = s.valid[i] ? -H[kIters][i] / s.alpha : -1e30f;
+    t[i] = s.valid[i] ? -h[i] / s.alpha : -1e30f;
     tmax = (i == 0) ? t[0] : maxf(tmax, t[i]);
   }
   float ssum = 0.f;
@@ -147,25 +142,19 @@ __device__ __forceinline__ void eps_star_and_grad(const Sys<N>& s, const float* 
 #pragma unroll
   for (int a = 0; a < N * D; ++a) g[a] = 0.f;
 #pragma unroll
-  for (int k = kIters; k >= 1; --k) {
+  for (int k = kIters - 1; k >= 0; --k) {
 #pragma unroll
     for (int i = 0; i < N; ++i) {
-      float S, Sd, W[N];
-      const float hp = H[k - 1][i];
-      sigma_terms_at<N>(s, r2, hp, i, S, Sd, W);
-      float Ssafe = maxf(S, 1e-30f);
-      float G_raw = s.eta * sqrtf(s.mval[i] / Ssafe);
-      bool gate = (G_raw > s.flo) && (G_raw < s.cap);
-      float ui = gate ? u[i] : 0.f;
-      float c = ui * (-G_raw / (2.f * Ssafe));
+      const int bit = k * N + i;
+      float ui = ((gate[bit / 32] >> (bit % 32)) & 1u) ? u[i] : 0.f;
+      float c = ui * X[k][i];
       // the float32 backward overflows on saturated lanes, where the
       // true gradient is exactly zero
       c = finitef(c) ? c : 0.f;
-      float ih2 = 1.f / maxf(hp * hp, 1e-24f);
 #pragma unroll
       for (int j = 0; j < N; ++j) {
         if (j == i) continue;
-        float coeff = c * s.mval[j] * W[j] * (-2.f * ih2);
+        float coeff = c * s.mval[j] * W[k][i][j - (j > i)] * M2[k][i];
 #pragma unroll
         for (int a = 0; a < D; ++a) {
           float d = pos[i * D + a] - pos[j * D + a];
@@ -173,7 +162,7 @@ __device__ __forceinline__ void eps_star_and_grad(const Sys<N>& s, const float* 
           g[j * D + a] = g[j * D + a] - coeff * d;
         }
       }
-      u[i] = c * Sd;
+      u[i] = c * Sd[k][i];
     }
   }
 #pragma unroll
@@ -196,20 +185,21 @@ __device__ __forceinline__ float bar_force(const Sys<N>& s, float e) {
 
 // Closed-form reflection fold of (eps, pi) into [flo, cap]: the
 // period-2(cap - flo) triangle map, pi flipped on odd reflections
-// (ops/reflection.py:19-35, the Pallas kernel's fold).
-template <int N>
-__device__ __forceinline__ void fold(const Sys<N>& s, float& e, float& p) {
-  float R = s.cap - s.flo;
+// (ops/reflection.py:19-35, the Pallas kernel's fold).  (eps, pi) are
+// per system, so the lane-split physics folds them as they are.
+__device__ __forceinline__ void fold_eps(float flo, float cap, float& e,
+                                         float& p) {
+  float R = cap - flo;
   float Pw = 2.f * R;
   float Psafe = Pw > 0.f ? Pw : 1.f;
-  float x = e - s.flo;
+  float x = e - flo;
   float y = x - Psafe * floorf(x / Psafe);
   y = Pw > 0.f ? y : 0.f;
   bool on_up = y <= R;
-  float e_out = on_up ? s.flo + y : s.cap - (y - R);
+  float e_out = on_up ? flo + y : cap - (y - R);
   float p_out = on_up ? p : -p;
   bool ok = finitef(R) && R > 0.f;
-  e = ok ? e_out : s.flo;
+  e = ok ? e_out : flo;
   p = ok ? p_out : -p;
 }
 
@@ -220,7 +210,7 @@ template <int N, int D, bool REFL = false>
 __device__ __forceinline__ void s_half(const Sys<N>& s, float* vel, float& eps,
                                        float& pi, float es, const float* grad,
                                        float hh) {
-  if (REFL) fold<N>(s, eps, pi);
+  if (REFL) fold_eps(s.flo, s.cap, eps, pi);
   float dt_f = 0.5f * hh;
   float omega = sqrtf(s.k_s / s.mu);
   float theta = omega * dt_f;
@@ -265,7 +255,7 @@ __device__ __forceinline__ void s_half(const Sys<N>& s, float* vel, float& eps,
   float Ja = J * scale;
 #pragma unroll
   for (int k = 0; k < N * D; ++k) vel[k] = vel[k] + Ja * grad[k] * s.inv_m[k / D];
-  if (REFL) fold<N>(s, eps_new, pi_new);
+  if (REFL) fold_eps(s.flo, s.cap, eps_new, pi_new);
   eps = eps_new;
   pi = pi_new;
 }
@@ -317,7 +307,7 @@ template <int N, int D, bool REFL = false>
 __device__ __forceinline__ void strang_trip(const Sys<N>& s, float* pos,
                                             float* vel, float& eps, float& pi,
                                             float& es, float* grad, float h) {
-  if (REFL) fold<N>(s, eps, pi);
+  if (REFL) fold_eps(s.flo, s.cap, eps, pi);
   s_half<N, D, REFL>(s, vel, eps, pi, es, grad, h);
   v_half_kick<N, D>(s, pos, vel, eps, pi, h);
 #pragma unroll
@@ -325,7 +315,7 @@ __device__ __forceinline__ void strang_trip(const Sys<N>& s, float* pos,
   v_half_kick<N, D>(s, pos, vel, eps, pi, h);
   eps_star_and_grad<N, D>(s, pos, es, grad);
   s_half<N, D, REFL>(s, vel, eps, pi, es, grad, h);
-  if (REFL) fold<N>(s, eps, pi);
+  if (REFL) fold_eps(s.flo, s.cap, eps, pi);
 }
 
 template <int N, int D>

@@ -5,8 +5,10 @@
 // lanes of one system instead of one thread, and bit for bit the same:
 // every sum that enters the trajectory is taken in the one-thread
 // physics' order, so a trip here moves (pos, vel, eps, pi) exactly as
-// hamsoft_multistep.cu's trip does.  Included by hamsoft.cu only;
-// hamsoft_multistep.cu and eps_grad.cu keep the one-thread physics.
+// the one-thread trip does.  Included by hamsoft.cu (the analysis and
+// MEGNO kernels) and by hamsoft_multistep.cu (its warp layout, N = 4
+// and 8); eps_grad.cu and the multi-step kernel's one-thread layout
+// (N = 3) keep the one-thread physics.
 //
 // Layout (Lay<N>): a system owns SYS = NP * kLPB consecutive lanes of
 // a warp, NP the power of two >= N.  Lane l of a system works for body
@@ -340,10 +342,13 @@ __device__ __forceinline__ void eps_star_and_grad_w(
 
 // S(h/2): exact spring rotation of (eps - eps*, pi) with the J-capped
 // momentum impulse; vi/gi are the lane's body's velocity and gradient.
-template <int N, int D>
+// REFL folds (eps, pi) before and after it (the reflection policy), as
+// the one-thread s_half does.
+template <int N, int D, bool REFL = false>
 __device__ __forceinline__ void s_half_w(const Lane<N, D>& s, float* vi,
                                          float& eps, float& pi, float es,
                                          const float* gi) {
+  if (REFL) fold_eps(s.flo, s.cap, eps, pi);
   float pi_in =
       s.barrier_on ? pi + 0.5f * s.dt_f * bar_force_w(s, eps) : pi;
   float Delta0 = eps - es;
@@ -382,6 +387,7 @@ __device__ __forceinline__ void s_half_w(const Lane<N, D>& s, float* vi,
   float Ja = J * scale;
 #pragma unroll
   for (int a = 0; a < D; ++a) vi[a] = vi[a] + Ja * gi[a] * s.inv_m_i;
+  if (REFL) fold_eps(s.flo, s.cap, eps_new, pi_new);
   eps = eps_new;
   pi = pi_new;
 }
@@ -427,22 +433,26 @@ __device__ __forceinline__ void v_half_kick_w(const Lane<N, D>& s,
 }
 
 // One Strang substep S V T V S of the lane's body; qj are refreshed
-// after the drift.  The (eps*, grad) cache carries across trips.
-template <int N, int D>
+// after the drift.  The (eps*, grad) cache carries across trips.  REFL
+// (the reflection policy) folds (eps, pi) around the substep as well as
+// around each S.
+template <int N, int D, bool REFL = false>
 __device__ __forceinline__ void strang_trip_w(const Lane<N, D>& s,
                                               float* qi, float* qj,
                                               float* vi, float& eps,
                                               float& pi, float& es,
                                               float* gi, float h,
                                               float* rows) {
-  s_half_w(s, vi, eps, pi, es, gi);
+  if (REFL) fold_eps(s.flo, s.cap, eps, pi);
+  s_half_w<N, D, REFL>(s, vi, eps, pi, es, gi);
   v_half_kick_w(s, qi, qj, vi, eps, pi, h);
 #pragma unroll
   for (int a = 0; a < D; ++a) qi[a] = qi[a] + h * vi[a];
   gather_slots(s, qi, qj);
   v_half_kick_w(s, qi, qj, vi, eps, pi, h);
   eps_star_and_grad_w(s, qi, qj, es, gi, rows);
-  s_half_w(s, vi, eps, pi, es, gi);
+  s_half_w<N, D, REFL>(s, vi, eps, pi, es, gi);
+  if (REFL) fold_eps(s.flo, s.cap, eps, pi);
 }
 
 // The lane's view of system b: its body's mass and state, its slots'

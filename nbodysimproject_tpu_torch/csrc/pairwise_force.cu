@@ -15,25 +15,37 @@
 // other bodies' forces and receive F = 0.  eps and G are per system.
 //
 // Layout: one thread per target body i; a block owns kTI consecutive i of
-// one system; the grid is (ceil(n / kTI), B).  Each j tile of kTJ sources
-// is staged through shared memory by the whole block, one float4 per
-// source (its coordinates, then its mass), and every thread of the block
-// reads the same source at the same time (one 16-byte broadcast load per
-// pair, no bank conflicts).
+// one system and one slice of the sources; the grid is
+// (ceil(n / kTI), B, slices).  Each j tile of kTJ sources is staged
+// through shared memory by the whole block, one float4 per source (its
+// coordinates, then its mass), and every thread of the block reads the
+// same source at the same time (one 16-byte broadcast load per pair, no
+// bank conflicts).
 //
 // What bounds it: operations.  A valid pair costs 5 D + 4 operations
-// (D subtractions and multiplies, D - 1 adds for r^2, the eps^2 add, one
-// rsqrtf, three multiplies for m_j / r^3, D multiplies and D adds into the
-// partial sums); the bytes are (B, N, D) positions and (B, N) masses read
-// once and (B, N, D) forces written once.  chip_smoke.py::pairwise_ops
-// counts the operations off this loop.  Design for the bound: the inner
-// loop reads only shared memory and registers; the validity test (an
-// integer and a float compare and two selects) runs only on the one tile
-// that holds the block's own targets, or on every tile when eps = 0 (under
-// eps > 0, r^2 >= eps^2 > 0 elsewhere); a tile's sum runs in kU
-// interleaved accumulators, so kU pairs are in flight per thread.
-// Built with -fmad=false (the build's flag), so each pair rounds as the
-// plain PyTorch version's does; the sums run in another order than there.
+// counted as the bound counts them (an FMA as two); the bytes are
+// (B, N, D) positions and (B, N) masses read once and (B, N, D) forces
+// written once.  chip_smoke.py::pairwise_ops counts the operations off
+// this loop.  Design for the bound:
+//   * the pair is written with explicit FMAs (r^2 and the accumulation),
+//     so it issues D subtractions, 2 D FMAs and three multiplies on the
+//     FP32 pipe beside one rsqrtf (the build's -fmad=false, which the
+//     other kernels' bitwise gates rely on, contracts nothing by itself);
+//     each pair therefore rounds apart from the plain version's, within
+//     the tolerance chip_smoke.py holds it to;
+//   * the inner loop reads only shared memory and registers; the
+//     validity test (an integer and a float compare and two selects) runs
+//     only on the one tile that holds the block's own targets, or on
+//     every tile when eps = 0 (under eps > 0, r^2 >= eps^2 > 0 elsewhere);
+//     a tile's sum runs in kU interleaved accumulators, so kU pairs are in
+//     flight per thread;
+//   * where ceil(n / kTI) B blocks would leave SMs idle (N = 4096 and
+//     B = 1: 16 blocks on 132 SMs), the wrapper splits the sources into
+//     slices of whole kSG granules (ops/force_kernels.py::source_slices,
+//     from n, B, the SM count and the blocks an SM holds: as many as one
+//     wave of blocks holds); each slice writes its running accumulator
+//     to scratch and a second pass adds the slices in slice order, then
+//     applies G and m_i.  No atomics: a run is deterministic.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -47,7 +59,7 @@ namespace {
 constexpr int kTI = 256;  // target bodies per block, one per thread
 constexpr int kTJ = 512;  // source bodies per shared-memory tile
 constexpr int kU = 8;     // interleaved accumulators of a tile's sum
-static_assert(kTJ % kTI == 0, "a block's targets lie in one source tile");
+constexpr int kSG = 64;   // source slices start on multiples of kSG
 
 // One staged source: its coordinates and, after them, its mass.
 template <int D>
@@ -69,10 +81,9 @@ __device__ __forceinline__ void add_pair(float (&part)[D],
   float dx[D];
 #pragma unroll
   for (int a = 0; a < D; ++a) dx[a] = xi[a] - sq[a];
-  float d2 = dx[0] * dx[0];
+  float r2 = __fmaf_rn(dx[0], dx[0], eps2);
 #pragma unroll
-  for (int a = 1; a < D; ++a) d2 = d2 + dx[a] * dx[a];
-  const float r2 = d2 + eps2;
+  for (int a = 1; a < D; ++a) r2 = __fmaf_rn(dx[a], dx[a], r2);
   float w;
   if (kChecked) {
     const bool valid = (k != k_self) && (r2 > 0.f);
@@ -83,7 +94,7 @@ __device__ __forceinline__ void add_pair(float (&part)[D],
     w = src_mass<D>(s) * inv_r * inv_r * inv_r;
   }
 #pragma unroll
-  for (int a = 0; a < D; ++a) part[a] = part[a] + w * dx[a];
+  for (int a = 0; a < D; ++a) part[a] = __fmaf_rn(w, dx[a], part[a]);
 }
 
 // The partial sum of sources [0, k_end) of the staged tile, in kU
@@ -124,7 +135,8 @@ __global__ void __launch_bounds__(kTI)
                           const float* __restrict__ mass,
                           const float* __restrict__ eps,
                           const float* __restrict__ G,
-                          float* __restrict__ out, int n) {
+                          float* __restrict__ out,
+                          float* __restrict__ part_out, int n) {
   static_assert(D == 2 || D == 3, "a staged source is one float4");
   __shared__ float4 s_src[kTJ];
   const int b = blockIdx.y;
@@ -135,6 +147,12 @@ __global__ void __launch_bounds__(kTI)
   const float* m = mass + (size_t)b * n;
   const float e = eps[b];
   const float eps2 = e * e;
+  // this block's slice of the sources: [j_lo, j_hi), whole granules of
+  // kSG, staged kTJ at a time from j_lo
+  const int granules = (n + kSG - 1) / kSG;
+  const int S = gridDim.z, sl = blockIdx.z;
+  const int j_lo = (int)((long long)sl * granules / S) * kSG;
+  const int j_hi = min(n, (int)((long long)(sl + 1) * granules / S) * kSG);
 
   float xi[D];
   float acc[D];
@@ -144,23 +162,22 @@ __global__ void __launch_bounds__(kTI)
     acc[a] = 0.f;
   }
 
-  for (int j0 = 0; j0 < n; j0 += kTJ) {
+  for (int j0 = j_lo; j0 < j_hi; j0 += kTJ) {
+    const int k_end = min(kTJ, j_hi - j0);
     __syncthreads();
-    for (int k = threadIdx.x; k < kTJ; k += kTI) {
+    for (int k = threadIdx.x; k < k_end; k += kTI) {
       const int j = j0 + k;
       float v[4] = {0.f, 0.f, 0.f, 0.f};
-      if (j < n) {
 #pragma unroll
-        for (int a = 0; a < D; ++a) v[a] = p[(size_t)j * D + a];
-        v[D] = m[j];
-      }
+      for (int a = 0; a < D; ++a) v[a] = p[(size_t)j * D + a];
+      v[D] = m[j];
       s_src[k] = make_float4(v[0], v[1], v[2], v[3]);
     }
     __syncthreads();
-    const int k_end = min(kTJ, n - j0);  // j < n
-    const int k_self = i - j0;           // i != j
-    // the block's targets lie in this tile, or eps = 0: the checked form
-    const bool checked = (i0 >= j0 && i0 < j0 + kTJ) || !(eps2 > 0.f);
+    const int k_self = i - j0;  // i != j
+    // the block's targets overlap this tile, or eps = 0: the checked form
+    const bool checked =
+        (i0 < j0 + k_end && j0 < i0 + kTI) || !(eps2 > 0.f);
     float part[D];
     if (checked)
       tile_sum<D, true>(part, xi, s_src, k_end, k_self, eps2);
@@ -170,13 +187,43 @@ __global__ void __launch_bounds__(kTI)
     for (int a = 0; a < D; ++a) acc[a] = acc[a] - part[a];
   }
 
-  if (live) {
+  if (!live) return;
+  if (S == 1) {
     const float g = G[b];
     const float mi = m[i];
     float* o = out + ((size_t)b * n + i) * D;
 #pragma unroll
     for (int a = 0; a < D; ++a) o[a] = (g * acc[a]) * mi;
+  } else {
+    float* o = part_out + (((size_t)sl * gridDim.y + b) * n + i) * D;
+#pragma unroll
+    for (int a = 0; a < D; ++a) o[a] = acc[a];
   }
+}
+
+// The second pass of a sliced launch: each (b, i) adds its S slice
+// accumulators in slice order, then applies G and m_i.
+template <int D>
+__global__ void __launch_bounds__(kTI)
+    combine_slices_kernel(const float* __restrict__ part,
+                          const float* __restrict__ mass,
+                          const float* __restrict__ G,
+                          float* __restrict__ out, int B, int n, int S) {
+  const size_t t = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= (size_t)B * n) return;
+  const int b = (int)(t / n);
+  float acc[D];
+#pragma unroll
+  for (int a = 0; a < D; ++a) acc[a] = 0.f;
+  for (int sl = 0; sl < S; ++sl) {
+    const float* p = part + ((size_t)sl * B * n + t) * D;
+#pragma unroll
+    for (int a = 0; a < D; ++a) acc[a] = acc[a] + p[a];
+  }
+  const float g = G[b];
+  const float mi = mass[t];
+#pragma unroll
+  for (int a = 0; a < D; ++a) out[t * D + a] = (g * acc[a]) * mi;
 }
 
 }  // namespace
@@ -184,19 +231,43 @@ __global__ void __launch_bounds__(kTI)
 extern "C" {
 
 // pos (B, n, HS_D), mass (B, n), eps (B,), G (B,), out (B, n, HS_D): float32,
-// contiguous, on the device of ``stream``.
+// contiguous, on the device of ``stream``.  ``slices`` source slices (at
+// most the number of kSG granules); above 1, ``part`` is
+// (slices, B, n, HS_D) float32 scratch.
 int hs_pairwise_force(const float* pos, const float* mass, const float* eps,
-                      const float* G, float* out, int B, int n,
-                      void* stream) {
+                      const float* G, float* out, float* part, int B, int n,
+                      int slices, void* stream) {
   if (B <= 0 || n <= 0) return 0;
-  if (B > 65535) return (int)cudaErrorInvalidValue;
-  dim3 grid((n + kTI - 1) / kTI, B);
-  pairwise_force_kernel<HS_D><<<grid, kTI, 0, (cudaStream_t)stream>>>(
-      pos, mass, eps, G, out, n);
+  const int granules = (n + kSG - 1) / kSG;
+  if (B > 65535 || slices < 1 || slices > granules)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  dim3 grid((n + kTI - 1) / kTI, B, slices);
+  pairwise_force_kernel<HS_D><<<grid, kTI, 0, st>>>(pos, mass, eps, G, out,
+                                                    part, n);
+  if (slices > 1) {
+    const int err = (int)cudaGetLastError();
+    if (err != 0) return err;
+    const size_t rows = (size_t)B * n;
+    combine_slices_kernel<HS_D><<<(unsigned)((rows + kTI - 1) / kTI), kTI,
+                                  0, st>>>(part, mass, G, out, B, n, slices);
+  }
   return (int)cudaGetLastError();
 }
 
 int hs_pairwise_tile_j(void) { return kTJ; }
+
+int hs_pairwise_block_i(void) { return kTI; }
+
+int hs_pairwise_slice_granule(void) { return kSG; }
+
+// Blocks of the force kernel that one SM holds at once.
+int hs_pairwise_blocks_per_sm(void) {
+  int blocks = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, pairwise_force_kernel<HS_D>, kTI, 0);
+  return blocks;
+}
 
 const char* hs_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

@@ -18,8 +18,10 @@ WHFast kick.
 
 On a CUDA tensor the wrapper launches the hand-written kernel in
 ``csrc/pairwise_force.cu`` (d = 2 or 3; see its source note for what
-bounds it).  The kernel computes in float32, as the compiled JAX path
-does: a float64 CUDA tensor is cast to float32 and the result cast back.
+bounds it), splitting the sources into ``source_slices`` slices where
+the grid would leave SMs idle.  The kernel computes in float32, as the
+compiled JAX path does: a float64 CUDA tensor is cast to float32 and the
+result cast back.
 On a CPU tensor the wrapper runs the plain PyTorch version beside it,
 in the input's dtype.  There is no fallback from one to the other.
 """
@@ -37,6 +39,10 @@ SOURCE = "pairwise_force.cu"
 #: sources per tile of the two-level sum (the kernel's kTJ and the TPU
 #: kernel's default tj)
 TJ = 512
+#: target bodies per block (the kernel's kTI)
+TI = 256
+#: source slices start on multiples of SG sources (the kernel's kSG)
+SG = 64
 #: dimensions the kernel is built for
 DIMS = (2, 3)
 #: elements of the plain version's largest (rows, TJ, d) block
@@ -54,14 +60,36 @@ def build_jobs():
 @functools.lru_cache(maxsize=None)
 def _library(d: int):
     lib = cuda_build.load(SOURCE, 0, d)
-    lib.hs_pairwise_force.argtypes = [_P] * 5 + [_I, _I, _P]
+    lib.hs_pairwise_force.argtypes = [_P] * 6 + [_I, _I, _I, _P]
     lib.hs_pairwise_force.restype = _I
-    lib.hs_pairwise_tile_j.argtypes = []
-    lib.hs_pairwise_tile_j.restype = _I
-    if lib.hs_pairwise_tile_j() != TJ:
-        raise RuntimeError("pairwise_force: the kernel's tile differs from "
-                           f"TJ = {TJ}")
+    for name in ("hs_pairwise_tile_j", "hs_pairwise_block_i",
+                 "hs_pairwise_slice_granule", "hs_pairwise_blocks_per_sm"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = _I
+    if (lib.hs_pairwise_tile_j(), lib.hs_pairwise_block_i(),
+            lib.hs_pairwise_slice_granule()) != (TJ, TI, SG):
+        raise RuntimeError("pairwise_force: the kernel's tiles differ from "
+                           f"TJ = {TJ}, TI = {TI}, SG = {SG}")
     return lib
+
+
+def source_slices(n: int, B: int, n_sm: int, per_sm: int) -> int:
+    """Slices of the sources for B systems of n bodies on a card of
+    ``n_sm`` SMs that each hold ``per_sm`` blocks of the kernel: the most
+    slices whose ceil(n / TI) B S blocks still fit in one wave, at least
+    1 and at most the number of SG-source granules (each slice holds
+    whole granules).  A function of its arguments alone, so a run is
+    deterministic on a given card."""
+    blocks = -(-n // TI) * B
+    granules = -(-n // SG)
+    return max(1, min(granules, (n_sm * per_sm) // max(blocks, 1)))
+
+
+@functools.lru_cache(maxsize=None)
+def _card_slots(index: int, d: int):
+    """(SMs, blocks of the d kernel per SM) of card ``index``."""
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return sms, _library(d).hs_pairwise_blocks_per_sm()
 
 
 def _per_system(x, B, like):
@@ -169,8 +197,11 @@ def pairwise_force(pos, mass, eps, G):
     eps_b, G_b = (_per_system(x, B, p3) for x in (eps, G))
     lib = _library(d)
     out = torch.empty_like(p3)
+    S = source_slices(n, B, *_card_slots(p3.device.index, d))
+    part = out if S == 1 else torch.empty((S, B, n, d), dtype=torch.float32,
+                                          device=p3.device)
     code = lib.hs_pairwise_force(
-        *cuda_build.pointers(p3, m2, eps_b, G_b, out), B, n,
+        *cuda_build.pointers(p3, m2, eps_b, G_b, out, part), B, n, S,
         cuda_build.stream_of(p3))
     cuda_build.check_launch(lib, code, "pairwise_force")
     pairwise_force.launches += 1

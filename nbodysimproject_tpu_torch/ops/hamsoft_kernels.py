@@ -17,15 +17,15 @@ On a CUDA tensor each wrapper launches the hand-written kernel
 (``csrc/hamsoft.cu`` for the first two, on the lane-split physics of
 ``csrc/hamsoft_physics_warp.cuh``: four lanes of a warp per body, the
 SPH kernel terms kept from the forward pass; ``csrc/hamsoft_multistep.cu``
-for the third, one thread per system on ``csrc/hamsoft_physics.cuh``;
-see the source notes for what bounds them and what their design does
-about that); on a CPU tensor it runs the plain PyTorch version beside
-it, which loops over the macro steps and ``n_sub_max`` masked trips on
-``(B, N, d)`` tensors and takes the exact eps* gradient by autograd
-through the 8 SPH iterations.  There is no fallback from one to the
-other.  The analysis and MEGNO wrappers hand their kernel the systems
-deepest first (``deepest_first``); each output comes back at the
-system's own index.
+for the third, on the same lane-split physics at N = 4 and 8 and one
+thread per system on ``csrc/hamsoft_physics.cuh`` at N = 3, the kernel
+terms kept there too; see the source notes for what bounds them and
+what their design does about that); on a CPU tensor it runs the plain
+PyTorch version beside it, which loops over the macro steps and
+``n_sub_max`` masked trips on ``(B, N, d)`` tensors and takes the exact
+eps* gradient by autograd through the 8 SPH iterations.  There is no fallback from one to the
+other.  The wrappers hand their kernel the systems deepest first
+(``deepest_first``); each output comes back at the system's own index.
 
 Covered configuration: ``grad_mode="exact"``; the analysis and MEGNO
 kernels take ``policy="soft"`` (the dataset pipeline's), the multi-step
@@ -101,7 +101,7 @@ def _multistep_library(n: int, d: int):
     """The bound multi-step library for (n, d), built on first use."""
     _check_slots(n, d)
     lib = cuda_build.load(SOURCES[1], n, d)
-    lib.hs_multistep.argtypes = [_P] * 16 + [_I] * 3 + [_F] * 4 \
+    lib.hs_multistep.argtypes = [_P] * 17 + [_I] * 3 + [_F] * 4 \
         + [_I, _I, _I, _P]
     lib.hs_multistep.restype = _I
     return lib
@@ -775,6 +775,7 @@ def hamsoft_multistep(pos, vel, mass, eps, pi, *, k_soft, mu, alpha, eps_min,
         eps=eps, pi=pi, k_soft=k_soft, mu=mu, alpha=alpha, eps_min=eps_min,
         eps_max=eps_max, h=h, n_sub=ns))
     lib = _multistep_library(n, d)
+    order = deepest_first(ns, kw["n_sub_max"])
     pos_c, vel_c = _coord_major(pos), _coord_major(vel)
     mass_c = mass.t().contiguous()
     new = lambda *shape: torch.empty(shape, dtype=pos.dtype, device=pos.device)
@@ -784,7 +785,7 @@ def hamsoft_multistep(pos, vel, mass, eps, pi, *, k_soft, mu, alpha, eps_min,
     code = lib.hs_multistep(
         *cuda_build.pointers(
             pos_c, vel_c, mass_c, eps, pi, k_soft, mu, alpha, eps_min,
-            eps_max, h, ns, out_pos, out_vel, out_eps, out_pi),
+            eps_max, h, ns, order, out_pos, out_vel, out_eps, out_pi),
         B, kw["n_steps"], kw["n_sub_max"], kw["G"], kw["k_wall"], kw["eta"],
         kw["jcap"], kw["bexp"], int(barrier), int(policy == "reflection"),
         cuda_build.stream_of(pos))

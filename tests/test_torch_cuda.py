@@ -31,8 +31,13 @@ its own stream and the serial run, and the non-tail rows to the
 tail-off run.  The tiled force kernel (N = 4097 and d = 2, N = 1000 and
 d = 3, B = 4 with per-system eps and G) is held, row by row, to the
 float64 plain version relative to the row's magnitude sum: at most 4x the
-float32 plain version's worst error and 1e-4; a float64 input gives the
-float32 result cast back, and d = 4 raises.  ``largen_rollout`` on the
+float32 plain version's worst error and 1e-4, also at N = 4096 with B = 1
+(where it splits the source tiles across blocks) and B = 96 (where it
+does not); a float64 input gives the float32 result cast back, and
+d = 4 raises.  The multi-step kernel's two layouts (one thread per
+system at N = 3, a warp per system at N = 8) give bitwise equal final
+states on 3-body systems in 3 and in 8 slots, under all three barrier
+policies.  ``largen_rollout`` on the
 tiled kernel matches the dense force for 5 steps (rtol 1e-5 / atol
 1e-6).
 """
@@ -365,6 +370,30 @@ def test_multistep_kernel_matches_plain(case, policy, cuda_device):
         _close(a, b, f"{policy}.{name}")
 
 
+@pytest.mark.parametrize("policy", ["soft", "reflection", "none"])
+def test_multistep_layouts_run_the_same_trip(policy, cuda_device):
+    """The multi-step kernel's two layouts, one thread per system at
+    N = 3 and a warp per system at N = 8: 3-body systems in 3 slots and
+    the same systems padded to 8 slots (mass 0) end with bitwise equal
+    pos, vel, eps and pi (the padded slots add exact zeros)."""
+    cfg, st, dy, _tan = _built("n3", cuda_device)
+    kw = _kw(cfg, dy, int(dy.n_sub.max()))
+    if policy == "reflection":
+        kw.update(eps_min=st.eps * 0.999, eps_max=st.eps * 1.001)
+    pad = lambda x: torch.cat([x, torch.zeros_like(x[:, :1]).expand(
+        (-1, 5) + tuple(x.shape[2:]))], 1)
+    three = hk.hamsoft_multistep(st.pos, st.vel, st.mass, st.eps, st.pi,
+                                 n_steps=12, policy=policy, **kw)
+    eight = hk.hamsoft_multistep(pad(st.pos), pad(st.vel), pad(st.mass),
+                                 st.eps, st.pi, n_steps=12, policy=policy,
+                                 **kw)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("pos", "vel", "eps", "pi"), three,
+                          (eight[0][:, :3], eight[1][:, :3], *eight[2:])):
+        assert torch.equal(torch.isnan(a), torch.isnan(b)), name
+        assert torch.equal(torch.nan_to_num(a), torch.nan_to_num(b)), name
+
+
 @pytest.mark.parametrize("clamp", [False, True])
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_eps_kernel_matches_plain(case, clamp, cuda_device):
@@ -562,6 +591,28 @@ def test_pairwise_force_kernel_matches_plain(B, n, d, cuda_device):
     S = fk.magnitude_sum(*a64)
     rel = lambda X: float(((X.double() - P64).abs().amax(-1) / S).max())
     assert rel(F) <= 4.0 * rel(P) and rel(F) <= 1e-4, (rel(F), rel(P))
+
+
+@pytest.mark.parametrize("B,n,sliced", [(1, 4096, True), (96, 4096, False)])
+def test_pairwise_force_source_slices(B, n, sliced, cuda_device):
+    """N = 4096 and B = 1 (the classical route: 16 blocks) splits the
+    source tiles across blocks; B = 96 fills the card without.  Either
+    way the kernel passes the gate above, and a second run gives the
+    same bits."""
+    from nbodysimproject_tpu_torch.ops import force_kernels as fk
+
+    q, m, eps, G = _force_cloud(B, n, 2, cuda_device)
+    S = fk.source_slices(n, B, *fk._card_slots(q.device.index, 2))
+    assert (S > 1) == sliced
+    F = fk.pairwise_force(q, m, eps, G)
+    assert torch.equal(F, fk.pairwise_force(q, m, eps, G))
+    rows = torch.arange(0, n, 5, device=cuda_device)
+    a64 = [x.double() for x in (q, m, eps, G)]
+    P64 = fk.pairwise_force_plain(*a64, rows=rows)
+    S_i = fk.magnitude_sum(*a64, rows=rows)
+    P = fk.pairwise_force_plain(q, m, eps, G, rows=rows)
+    rel = lambda X: float(((X.double() - P64).abs().amax(-1) / S_i).max())
+    assert rel(F[:, rows]) <= 4.0 * rel(P) and rel(F[:, rows]) <= 1e-4
 
 
 def test_pairwise_force_casts_float64_and_refuses_d4(cuda_device):
