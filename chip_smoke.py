@@ -22,8 +22,9 @@ routes; ``csrc/pairwise_force.cu``).  Phases (each prints its seconds):
    tiled force kernel: per dimension, 2 and 3), all started together, into the git-ignored
    ``nbodysimproject_tpu_torch/_build/``; prints each build's seconds
    and ptxas' register and spill lines, and fails unless the analysis
-   and MEGNO kernels at N = 8, the multi-step kernel at every N and the
-   tiled force kernel spill 0 bytes;
+   and MEGNO kernels at N = 8, the multi-step kernel at every N, the eps
+   kernel at N = 3 and 8, the WHFast kernel (and its Stumpff probe) and
+   the tiled force kernel spill 0 bytes;
 3. population: the first 16384 rows of the dataset (empty slots: mass
    0, mask False; these rows are the dataset's "random" cohort);
 4. compare the analysis and MEGNO kernels with their plain PyTorch
@@ -44,8 +45,15 @@ routes; ``csrc/pairwise_force.cu``).  Phases (each prints its seconds):
    at B = 2^22, 20 steps), the multi-step kernel under both barrier
    policies (B = 2^20, 2 steps), the eps kernel under both clamp
    settings (the bench population, and the first 1024 dataset rows with
-   their masked 8-slot systems), and the WHFast kernel (B = 2^22, 5
-   steps; and one step against the port's LC-8 WHFast scan);
+   their masked 8-slot systems), the eps kernel's two layouts against
+   each other (the dataset's 3-body rows in 3 and in 8 slots: equal
+   bits, gated), the eps kernel alone at N = 3 (2^20 bench systems) and
+   N = 8 (the 16384 dataset systems): 50 wrapper calls back to back
+   traced by ``torch.profiler`` (one device launch a call and nothing
+   else, gated; the kernel's device time) and single wrapper calls
+   between CUDA events, and the WHFast kernel (B = 2^22, 5 steps; and one
+   step against the port's LC-8 WHFast scan), with the share of its
+   Stumpff evaluations that take the closed form;
 6. main path: ``analyze_population(mode="full", n_steps=1000, dt=0.01)``
    on all 16384 systems under ``_PIPE_CFG`` (tail on), one cold and
    three warm runs with the tail on its own stream, one with the tail
@@ -823,6 +831,95 @@ def compare_eps(label, st, dy, clamp, ek):
     return dict(ms=ms, plain_ms=pms, err=err, bound=(b_ms, b_by))
 
 
+def eps_layouts_agree(states, dyns, ek):
+    """The eps kernel's two layouts on the same systems: the dataset's
+    3-body rows in 3 slots (one thread per system) and in their 8 slots
+    (one lane per body; slots 3-7 masked) give eps* and gradients equal
+    in every bit under both clamps, and a zero gradient in the masked
+    slots (gated)."""
+    three = (states.mask[:, :3].all(1)
+             & ~states.mask[:, 3:].any(1)).nonzero()[:, 0]
+    args8 = (states.pos[three], states.mass[three], states.eps[three],
+             dyns.alpha_run[three], dyns.min_softening[three],
+             dyns.max_softening[three], states.mask[three])
+    args3 = tuple(x[:, :3].contiguous() if x.dim() >= 2 else x
+                  for x in args8)
+    for clamp in (True, False):
+        e3, g3 = ek.eps_star_and_grad_fused(*args3, clamp=clamp)
+        e8, g8 = ek.eps_star_and_grad_fused(*args8, clamp=clamp)
+        bits = sum(int((a.contiguous().view(torch.int32)
+                        != b.contiguous().view(torch.int32)).sum())
+                   for a, b in ((e3, e8), (g3, g8[:, :3])))
+        pad = bool((g8[:, 3:] == 0).all())
+        print(f"  eps layouts, {len(three)} 3-body rows, clamp={clamp}: "
+              f"N = 3 against N = 8: {bits} entries differ in their bits, "
+              f"masked slots zero {pad}; nonzero gradient on "
+              f"{int((g3.abs().amax((1, 2)) > 0).sum())} rows", flush=True)
+        if bits or not pad:
+            raise SystemExit("eps kernel: the N = 3 and N = 8 layouts "
+                             "disagree on 3-body rows")
+
+
+#: wrapper calls traced back to back, and single wrapper calls whose
+#: median is taken
+EPS_ALONE_REPS, EPS_CALL_REPS = 50, 20
+
+
+def eps_alone(ek, cases):
+    """The eps kernel alone on each case ({label: wrapper args}) under
+    both clamps, on contiguous copies of the args made beforehand (the
+    wrapper copies a strided q, m or mask, as the dataset population's
+    body-major tensors are): EPS_ALONE_REPS wrapper calls back to back,
+    traced by torch.profiler, whose device work must be exactly one
+    launch of the kernel a call and nothing else (gated); the time a
+    launch is the trace's mean kernel duration, the device's own however
+    long the host takes between calls.  Then the median of EPS_CALL_REPS
+    single wrapper calls, each between CUDA events (host work included).
+    Returns {(label, clamp): (ms alone, ms a call, bound)}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for label, args in cases.items():
+        args = tuple(x.contiguous() for x in args)
+        B, n, d = args[0].shape
+        for clamp in (True, False):
+            ek.eps_star_and_grad_fused(*args, clamp=clamp)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(EPS_ALONE_REPS):
+                    ek.eps_star_and_grad_fused(*args, clamp=clamp)
+                torch.cuda.synchronize()
+            dev_events = [e for e in prof.events()
+                          if e.device_type.name == "CUDA"]
+            names = {e.name[:60] for e in dev_events}
+            print(f"  eps wrapper, {label}, clamp={clamp}: "
+                  f"{EPS_ALONE_REPS} calls, {len(dev_events)} device "
+                  f"events: {sorted(names)}", flush=True)
+            if len(dev_events) != EPS_ALONE_REPS or not all(
+                    "eps_grad" in e.name for e in dev_events):
+                raise SystemExit("eps wrapper: a call must launch its "
+                                 "kernel and nothing else on the device")
+            alone = 1e-3 * float(np.mean(
+                [e.time_range.elapsed_us() for e in dev_events]))
+            calls = []
+            for _ in range(EPS_CALL_REPS):
+                torch.cuda.synchronize()
+                t = Timed(lambda: ek.eps_star_and_grad_fused(*args,
+                                                             clamp=clamp))
+                t()
+                calls.append(t.ms)
+            call = float(np.median(calls))
+            b = bound_eps(B, n, d)
+            out[(label, clamp)] = (alone, call, b)
+            print(f"  eps alone, {label} (B={B}, N={n}), clamp={clamp}: "
+                  f"{alone:.4f} ms a launch (device time, mean of "
+                  f"{EPS_ALONE_REPS} back to back), {call:.4f} ms a wrapper "
+                  f"call (median of {EPS_CALL_REPS}), bound {b[0]:.4f} ms "
+                  f"({b[1]})", flush=True)
+    return out
+
+
 #: bench.py's WHFast legs (bench.py:342-411): a unit central mass and two
 #: 1e-3 planets (Jacobi order), 1% Gaussian perturbations; the scan at
 #: B = 16384 x 1000 steps (softening 1e-3, the adaptive Kepler solver),
@@ -851,30 +948,60 @@ def whfast_ics(B, seed, dev):
             f(WH_V)[None] + dv)
 
 
-def whfast_ops(n, d, iters):
+def whfast_ops(n, d, iters, shares=(0.0, 0.0, 0.0)):
     """(drift, kick) operations of the WHFast kernel per system, counted
     off the loops of csrc/whfast.cu: each add, multiply, divide, fabsf,
-    sqrtf, rsqrtf, expf, logf, cosf and sinf counts one (the last five
-    cost many instructions each on the card; compares and selects are not
-    counted).  A Stumpff evaluation is 33 on a bound orbit (z > 0: cosf
-    and sinf; 38 on an unbound one); a Kepler solve 40 + 72 iters + 69; a
-    drift N - 1 solves and the Jacobi, centre-of-mass and reconstruction
-    sums; a kick the pair loop, the Jacobi back-reaction and the velocity
-    update."""
+    sqrtf, rsqrtf, expf, logf, cos and sin counts one and an FMA two (the
+    transcendentals cost many instructions each on the card; compares and
+    selects are not counted).  The kernel branches, so the count follows
+    the data: ``shares`` = (the fractions of Stumpff evaluations with
+    z > 0.3 and with z < -0.3, the fraction of Kepler solves on a
+    hyperbolic orbit), as kepler_shares measures them on this run's
+    population.  A Stumpff evaluation is 21 in the series window (fabsf
+    and 10 FMAs), 9 in the closed form for z > 0.3 (a square root, cos,
+    sin, three divisions) and 13 for z < -0.3; a Kepler solve is
+    3 (2 d - 1) + 14 before the updates (17 more for the hyperbolic
+    seed), 35 per update and 16 + 8 d after, besides its iters + 1
+    Stumpff evaluations; a drift N - 1 solves and the Jacobi,
+    centre-of-mass and reconstruction sums; a kick the pair loop, the
+    Jacobi back-reaction and the velocity update."""
+    pos, neg, hyp = shares
     P = n * (n - 1) // 2
-    solve = 40 + 72 * iters + 69
-    drift = (8 * d * (n - 1) + 4 * d * n + (n - 1) * solve
-             + 2 * (n * d + (n - 1) * (1 + 2 * d)) + 2 * d * (2 * n - 1)
-             + 5 * d + 2 * n * d)
-    kick = (P * (7 * d + 7) + 4 * d * (n - 1) + (n - 1) * (3 * d + 5)
+    stumpff = (1.0 - pos - neg) * 21 + pos * 9 + neg * 13
+    solve = (3 * (2 * d - 1) + 14 + 17 * hyp + iters * (35 + stumpff)
+             + 16 + 8 * d + stumpff)
+    to_jacobi = d + 2 * d * (n - 1) + 2 * d * max(n - 2, 0)
+    drift = (2 * to_jacobi + 2 * (2 * d * (2 * n - 1)) + 8 * d
+             + 2 * (n * d + (n - 1) * (1 + 2 * d)) + 2 * n * d
+             + (n - 1) * solve)
+    kick = (P * (7 * d + 7) + to_jacobi + (n - 1) * (3 * d + 5)
             + n * (1 + 4 * d) + 2 * n * d)
     return drift, kick
 
 
-def bound_whfast(B, n, d, steps, iters):
-    drift, kick = whfast_ops(n, d, iters)
-    return ops_bound(B * ((steps + 1) * drift + steps * kick + 4 * n),
+def bound_whfast(B, n, d, steps, iters, shares):
+    drift, kick = whfast_ops(n, d, iters, shares)
+    return ops_bound(B * ((steps + 1) * drift + steps * kick + 3 * n - 1),
                      B * (4 * n * d + n + 1))
+
+
+def kepler_shares(wk, q, v, m, eps2, kw, rows=1 << 16):
+    """(z > 0.3, z < -0.3, hyperbolic) shares of the whfast_ops work model:
+    the fractions of Stumpff evaluations that take each closed form and of
+    Kepler solves that take the hyperbolic seed, tallied by the plain
+    version's run of the first ``rows`` systems of the population (the
+    kernel branches on the same quantities, rounded its own way)."""
+    t = {}
+    wk.whfast_multistep_plain(q[:rows], v[:rows], m[:rows], eps2[:rows],
+                              tally=t, **kw)
+    c = {k: float(x) for k, x in t.items()}
+    shares = (c["z_pos"] / c["z"], c["z_neg"] / c["z"],
+              c["hyp"] / c["solves"])
+    print(f"    closed-form Stumpff evaluations (first {rows} systems): "
+          f"z > 0.3 {int(c['z_pos'])}, z < -0.3 {int(c['z_neg'])} of "
+          f"{int(c['z'])} = {shares[0] + shares[1]:.3e}; hyperbolic seeds "
+          f"{int(c['hyp'])} of {int(c['solves'])} solves", flush=True)
+    return shares
 
 
 def compare_whfast(dev, wk):
@@ -901,7 +1028,8 @@ def compare_whfast(dev, wk):
     err = row_gate(f"whfast (B={B}, {steps} steps)",
                    {n: (k[i], p[i], p64[i], pr[i], STATE_TOL)
                     for i, n in enumerate(("pos", "vel"))})
-    b_ms, b_by = bound_whfast(B, 3, 2, steps, WH_ITERS)
+    shares = kepler_shares(wk, q, v, m, eps2, kw)
+    b_ms, b_by = bound_whfast(B, 3, 2, steps, WH_ITERS, shares)
     print(f"  whfast: kernel {ms:.3f} ms, plain {pms:.3f} ms, bound "
           f"{b_ms:.4f} ms ({b_by})", flush=True)
     # one step of the kernel against one D(h/2) K(h) D(h/2) substep of
@@ -1102,7 +1230,9 @@ def whfast_legs(dev, kernels, wk):
         raise SystemExit("whfast fused leg launched no kernel")
     s0 = one(st).replace(pos=qf[:1], vel=vf[:1])
     dr = drift_sys0(cfg, one(dy), s0, s0.replace(pos=po[:1], vel=vo[:1]))
-    b_ms, b_by = bound_whfast(B, 3, 2, WH_FUSED_STEPS, WH_ITERS)
+    shares = kepler_shares(wk, qf, vf, mf, eps2, dict(
+        h=DT, G=1.0, n_steps=WH_FUSED_STEPS, iters=WH_ITERS))
+    b_ms, b_by = bound_whfast(B, 3, 2, WH_FUSED_STEPS, WH_ITERS, shares)
     print(f"    drift(sys0) {dr:.3e}; non-finite systems {nonfinite(po)}; "
           f"bound {b_ms:.3f} ms ({b_by}), {med / b_ms:.2f}x the bound")
     legs["whfast fused"] = (cold, med, la, dr)
@@ -1744,10 +1874,13 @@ def main():
             print(f"    {line.strip()}")
     print(f"  build wall {time.perf_counter() - t0:.1f}s")
     # the analysis and MEGNO kernels at N = 8, the multi-step kernel's two
-    # policies' instances at every N, the force kernel and its slice sum
+    # policies' instances at every N, the eps kernel at N = 3 and 8, the
+    # WHFast kernel and its Stumpff probe, the force kernel and its slice sum
     for job, n_kernels in ([(("hamsoft.cu", N_SLOTS, 2), 2)]
                            + [(j, 2) for j in hk.build_jobs()
                               if j[0] == "hamsoft_multistep.cu"]
+                           + [(j, 1) for j in ek.build_jobs()]
+                           + [(j, 2) for j in wk.build_jobs()]
                            + [(j, 2) for j in fk.build_jobs()]):
         print("  " + spill_gate(f"{job[0]} N={job[1]} d={job[2]}",
                                 built[job][2], n_kernels))
@@ -1811,6 +1944,12 @@ def main():
             "bench", st_h, dy_h, clamp, ek)
         new_cmp[f"eps dataset clamp={clamp}"] = compare_eps(
             "dataset", states.take(first), dyns.take(first), clamp, ek)
+    eps_layouts_agree(states, dyns, ek)
+    eps_alone(ek, {
+        "bench": (st_h.pos, st_h.mass, st_h.eps, dy_h.alpha_run,
+                  dy_h.min_softening, dy_h.max_softening, st_h.mask),
+        "dataset": (states.pos, states.mass, states.eps, dyns.alpha_run,
+                    dyns.min_softening, dyns.max_softening, states.mask)})
     del st_h, dy_h
     torch.cuda.empty_cache()
     new_cmp["whfast"] = compare_whfast(dev, wk)

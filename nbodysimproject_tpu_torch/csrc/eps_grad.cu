@@ -3,23 +3,47 @@
 //
 // Replaces the TPU kernel of nbodysimproject_tpu/ops/pallas_eps.py:
 //   eps_star_and_grad_fused (_eps_grad_kernel, :50) -> hs_eps_grad
-// on the shared physics of hamsoft_physics.cuh: the 8 clipped SPH
-// iterations seeded from h0, the softmin eps* and the hand-written
-// reverse sweep for its exact gradient, then (clamp) the soft policy's
-// value clamp to [min(eps_min, eps_max), max(eps_min, eps_max)] with the
-// gradient zeroed where the clamp saturates.  The "reference" gradient
-// fallback is not ported; the wrapper refuses it.  Masked slots arrive
-// with mass 0 and drop out of every sum and of the softmin.
+// the 8 clipped SPH iterations seeded from h0, the softmin eps* and the
+// hand-written reverse sweep for its exact gradient, then (clamp) the soft
+// policy's value clamp to [min(eps_min, eps_max), max(eps_min, eps_max)]
+// with the gradient zeroed where the clamp saturates.  The "reference"
+// gradient fallback is not ported; the wrapper refuses it.  A slot whose
+// mask is off takes mass 0 and drops out of every sum and of the softmin;
+// its gradient is 0.
 //
 // What bounds it: operations.  Per system it reads N (D + 1) + 4 floats
-// and writes N D + 1, while the forward solve and the reverse sweep spend
-// about 9 N (N - 1) expf and ~10^3 (N = 3) to ~10^4 (N = 8) FP32
-// operations.  Design: one thread per system with its bodies, the 9
-// stored iterates and the gradient in registers; the row-major (B, N, D)
-// tensors of the scan path are read and written in place (a warp's loads
-// cover whole cache lines), so the wrapper needs no transposes; 128-thread
-// blocks, since the scan path calls it on every substep at widths of
-// 10^4 to 10^6 systems.
+// and N mask bytes and writes N D + 1 floats, while the forward solve and
+// the reverse sweep spend about 9 N (N - 1) expf and ~10^3 (N = 3) to
+// ~10^4 (N = 8) FP32 operations.  The scan path calls it on every substep
+// at widths of 10^4 to 10^6 systems.  The layout is fixed per body-slot
+// count N, from measurement (PERF.md section 6, row 4):
+//   * N <= 3 (the bench's 3-body systems): one thread per system on the
+//     one-thread physics of hamsoft_physics.cuh, the kept SPH terms in
+//     registers (~156 of them, three blocks of 128 an SM).  Bench.py's
+//     systems saturate the clip gate at every iterate (S ~ 0), where
+//     -G_raw / (2 S) overflows into IEEE division's slow path; the
+//     physics skips that division where the gate is shut, where its value
+//     is never used.  One lane per body, as below, was no faster here:
+//     its shuffles and selects cost what its occupancy gains;
+//   * N >= 4 (the dataset's 8-slot systems): one lane per body,
+//     floor(32 / N) systems a warp.  One thread per system held the kept
+//     terms of all N bodies (640 floats at N = 8, 2,632 bytes spilled).
+//     Body i's 8-iterate SPH chain needs only h_i and the pair distances,
+//     so each lane runs its own body's chain and keeps only its terms.
+//     The softmin reads the other bodies' values by shuffle; in the
+//     reverse sweep each lane publishes its coeff_ijk by shuffle (one
+//     rotation per neighbour), and every lane adds the terms of its own
+//     body's gradient.  A warp per system, four lanes per body, on the
+//     analysis kernels' lane-split physics was slower at N = 8.
+// Every kept term is the expression the one-thread loops evaluate on the
+// same operands, and every sum is added in their order (for g_i: k
+// descending, then the one-thread loop's i ascending, j ascending), so
+// both layouts give the parent one-thread kernel's bits (built with
+// -fmad=false: nothing is contracted).  The wrapper hands the per-system
+// rows h0, alpha, eps_min and eps_max as a pointer and an element stride
+// (0 for a broadcast row) or as a scalar, and the mask as bytes: the
+// kernel forms m_eff itself, so a call launches this kernel and nothing
+// else.
 
 #include "hamsoft_physics.cuh"
 
@@ -32,11 +56,220 @@
 
 namespace {
 
+// the per-system rows h0, alpha, eps_min, eps_max: row r of system b is
+// p[r][b * stride[r]], or value[r] where p[r] is null
+struct Rows {
+  const float* p[4];
+  long long stride[4];
+  float value[4];
+};
+
+__device__ __forceinline__ float row_at(const Rows& r, int k, int b) {
+  return r.p[k] ? r.p[k][(long long)b * r.stride[k]] : r.value[k];
+}
+
+// the layout of each N: one lane per body from N = 4 up
+constexpr bool kLaneLayout = HS_N >= 4;
+constexpr int kBlock = 128;
+
+// the clamp of the soft policy on (es, g), and eps*'s bounds
+struct Bounds {
+  float lo, hi;
+};
+
+__device__ __forceinline__ Bounds bounds_of(const Rows& rows, int b) {
+  const float emin = row_at(rows, 2, b), emax = row_at(rows, 3, b);
+  return {minf(emin, emax), maxf(emin, emax)};
+}
+
+// One lane per body: lane l of a warp works for body i = l % N of system
+// warp * SPW + l / N; the last 32 - SPW N lanes idle (they run along, so
+// every shuffle has all 32 lanes, and store nothing).
 template <int N, int D>
-__global__ void __launch_bounds__(128) eps_grad_kernel(
+__global__ void __launch_bounds__(kBlock) eps_grad_lane(
     const float* __restrict__ pos, const float* __restrict__ mass,
-    const float* __restrict__ h0, const float* __restrict__ alpha,
-    const float* __restrict__ emin, const float* __restrict__ emax,
+    const unsigned char* __restrict__ mask, Rows rows,
+    float* __restrict__ out_es, float* __restrict__ out_grad, int B,
+    float eta, int clamp) {
+  static_assert(N >= 2 && N <= 32, "a system's lanes fit in one warp");
+  constexpr int SPW = 32 / N;  // systems per warp
+  constexpr int NS = N - 1;    // neighbour slots
+  constexpr unsigned kAll = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int sw = lane / N;  // system within the warp (SPW: an idle lane)
+  const int i = lane - sw * N;
+  const int base = sw * N;
+  const int b_raw = warp * SPW + sw;
+  const bool live = sw < SPW && b_raw < B;
+  const int b = live ? b_raw : 0;
+
+  // the system's positions, each body's m_eff, and the slots j != i
+  // (j ascending) of this lane's body
+  float qa[N * D];
+#pragma unroll
+  for (int k = 0; k < N * D; ++k) qa[k] = pos[(size_t)b * (N * D) + k];
+  float mv[N];
+  bool valid[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const float m = mask[(size_t)b * N + j] ? mass[(size_t)b * N + j] : 0.f;
+    valid[j] = m > 0.f;
+    mv[j] = valid[j] ? m : 0.f;
+  }
+  float qi[D], qs[NS][D], ms[NS];
+  bool valid_i = valid[0];
+  float mval_i = mv[0];
+#pragma unroll
+  for (int a = 0; a < D; ++a) qi[a] = qa[a];
+#pragma unroll
+  for (int j = 1; j < N; ++j) {
+    valid_i = (i == j) ? valid[j] : valid_i;
+    mval_i = (i == j) ? mv[j] : mval_i;
+#pragma unroll
+    for (int a = 0; a < D; ++a) qi[a] = (i == j) ? qa[j * D + a] : qi[a];
+  }
+#pragma unroll
+  for (int t = 0; t < NS; ++t) {
+    // slot t is body t (t < i) or t + 1 (t >= i)
+    const bool up = t >= i;
+    ms[t] = up ? mv[t + 1] : mv[t];
+#pragma unroll
+    for (int a = 0; a < D; ++a)
+      qs[t][a] = up ? qa[(t + 1) * D + a] : qa[t * D + a];
+  }
+
+  const Bounds bd = bounds_of(rows, b);
+  const float flo = maxf(bd.lo, 1e-12f);
+  const float cap = maxf(flo, bd.hi);
+  const float alpha = row_at(rows, 1, b);
+
+  // pair distances of the lane's slots, as pair_r2 (dx^2 is even in dx)
+  float r2[NS];
+#pragma unroll
+  for (int t = 0; t < NS; ++t) {
+    float acc = 0.f;
+#pragma unroll
+    for (int a = 0; a < D; ++a) {
+      const float dx = qi[a] - qs[t][a];
+      acc = acc + dx * dx;
+    }
+    r2[t] = acc;
+  }
+
+  // body i's 8 SPH iterates, keeping the kernel terms
+  float W[kIters][NS], Sd[kIters], X[kIters], M2[kIters];
+  unsigned gate = 0u;
+  float h = clipf(row_at(rows, 0, b), flo, cap);
+#pragma unroll
+  for (int k = 0; k < kIters; ++k) {
+    const float ih2 = 1.f / maxf(h * h, 1e-24f);
+    const float inv_hs = 1.f / maxf(h, 1e-12f);
+    float S = 0.f, sd = 0.f;
+#pragma unroll
+    for (int t = 0; t < NS; ++t) {
+      const float r = r2[t];
+      const float w = kInvPi * ih2 * expf(-r * ih2);
+      W[k][t] = w;
+      S = S + ms[t] * w;
+      sd = sd + ms[t] * w * (-2.f + 2.f * r * ih2) * inv_hs;
+    }
+    const float Ssafe = maxf(S, 1e-30f);
+    const float G_raw = eta * sqrtf(mval_i / Ssafe);
+    const bool open = (G_raw > flo) && (G_raw < cap);
+    gate |= open ? (1u << k) : 0u;
+    // X feeds only c = u X where the gate is open: where it is shut the
+    // one-thread sweep's c is 0 X, a zero or (X infinite) a NaN that the
+    // finite guard zeroes, and a zero of either sign adds nothing to g.
+    // So the division is skipped there: on saturated systems (S ~ 0) it
+    // overflows into IEEE division's slow path.
+    if (open)
+      X[k] = -G_raw / (2.f * Ssafe);
+    else
+      X[k] = 0.f;
+    Sd[k] = sd;
+    M2[k] = -2.f * ih2;
+    h = clipf(G_raw, flo, cap);
+  }
+
+  // softmin over the valid bodies, the one-thread order
+  const float ti = valid_i ? -h / alpha : -1e30f;
+  float tmax = __shfl_sync(kAll, ti, base);
+#pragma unroll
+  for (int j = 1; j < N; ++j) tmax = maxf(tmax, __shfl_sync(kAll, ti, base + j));
+  const float e = expf(ti - tmax);
+  float ssum = 0.f;
+#pragma unroll
+  for (int j = 0; j < N; ++j) ssum = ssum + __shfl_sync(kAll, e, base + j);
+  float es = -alpha * (tmax + logf(ssum));
+  float u = e / ssum;
+
+  // reverse sweep: the cotangent on h stays per body
+  float g[D];
+#pragma unroll
+  for (int a = 0; a < D; ++a) g[a] = 0.f;
+#pragma unroll
+  for (int k = kIters - 1; k >= 0; --k) {
+    float c = ((gate >> k) & 1u) ? u * X[k] : 0.f;
+    // the float32 backward overflows on saturated lanes, where the true
+    // gradient is exactly zero
+    c = finitef(c) ? c : 0.f;
+    float coeff[NS];
+#pragma unroll
+    for (int t = 0; t < NS; ++t) coeff[t] = c * ms[t] * W[k][t] * M2[k];
+    u = c * Sd[k];
+    // rotation r: every lane sends its coeff for body (i + r) % N and
+    // receives coeff_{src, i} from src = (i - r) % N
+    float recv[NS];
+#pragma unroll
+    for (int r = 1; r < N; ++r) {
+      const int slot = (i + r < N) ? i + r - 1 : i + r - N;
+      float send = coeff[0];
+#pragma unroll
+      for (int t = 1; t < NS; ++t) send = (t == slot) ? coeff[t] : send;
+      const int src = (i - r + N) % N;
+      recv[r - 1] = __shfl_sync(kAll, send, base + src);
+    }
+    // g_i's terms of iterate k in the one-thread order: -term(src, i) for
+    // src < i, +term(i, j) for j ascending, -term(src, i) for src > i
+#pragma unroll
+    for (int src = 0; src < N; ++src) {
+      if (src == i) {
+#pragma unroll
+        for (int t = 0; t < NS; ++t)
+#pragma unroll
+          for (int a = 0; a < D; ++a)
+            g[a] = g[a] + coeff[t] * (qi[a] - qs[t][a]);
+      } else {
+        const int r = (i - src + N) % N;
+        float cf = recv[0];
+#pragma unroll
+        for (int q = 2; q < N; ++q) cf = (q == r) ? recv[q - 1] : cf;
+#pragma unroll
+        for (int a = 0; a < D; ++a)
+          g[a] = g[a] - cf * (qa[src * D + a] - qi[a]);
+      }
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < D; ++a) g[a] = (valid_i && finitef(g[a])) ? g[a] : 0.f;
+  if (clamp) {
+    const bool open = (es >= bd.lo) && (es <= bd.hi);
+#pragma unroll
+    for (int a = 0; a < D; ++a) g[a] = open ? g[a] : 0.f;
+    es = clipf(es, bd.lo, bd.hi);
+  }
+  if (!live) return;
+  if (i == 0) out_es[b] = es;
+#pragma unroll
+  for (int a = 0; a < D; ++a) out_grad[((size_t)b * N + i) * D + a] = g[a];
+}
+
+// One thread per system (hamsoft_physics.cuh's eps_star_and_grad).
+template <int N, int D>
+__global__ void __launch_bounds__(kBlock) eps_grad_thread(
+    const float* __restrict__ pos, const float* __restrict__ mass,
+    const unsigned char* __restrict__ mask, Rows rows,
     float* __restrict__ out_es, float* __restrict__ out_grad, int B,
     float eta, int clamp) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
@@ -47,56 +280,63 @@ __global__ void __launch_bounds__(128) eps_grad_kernel(
   for (int k = 0; k < N * D; ++k) q[k] = pos[(size_t)b * (N * D) + k];
 #pragma unroll
   for (int i = 0; i < N; ++i) {
-    float m = mass[(size_t)b * N + i];
-    s.mass[i] = m;
+    const float m = mask[(size_t)b * N + i] ? mass[(size_t)b * N + i] : 0.f;
     s.valid[i] = m > 0.f;
     s.mval[i] = s.valid[i] ? m : 0.f;
-    s.inv_m[i] = s.valid[i] ? 1.f / maxf(m, 1e-30f) : 0.f;
   }
-  // bound resolution exactly as eps_target_production
-  const float lo = minf(emin[b], emax[b]);
-  const float hi = maxf(emin[b], emax[b]);
-  s.flo = maxf(lo, 1e-12f);
-  s.cap = maxf(s.flo, hi);
-  s.alpha = alpha[b];
-  s.eps_seed = h0[b];
+  const Bounds bd = bounds_of(rows, b);
+  s.flo = maxf(bd.lo, 1e-12f);
+  s.cap = maxf(s.flo, bd.hi);
+  s.alpha = row_at(rows, 1, b);
+  s.eps_seed = row_at(rows, 0, b);
   s.eta = eta;
-  s.k_s = 1.f;
-  s.mu = 1.f;
-  s.G = 1.f;
-  s.k_wall = 0.f;
-  s.jcap = 0.02f;
-  s.bexp = 5;
-  s.barrier_on = false;
 
   float es;
   eps_star_and_grad<N, D>(s, q, es, g);
   if (clamp) {
-    const bool gate = (es >= lo) && (es <= hi);
+    const bool open = (es >= bd.lo) && (es <= bd.hi);
 #pragma unroll
-    for (int k = 0; k < N * D; ++k) g[k] = gate ? g[k] : 0.f;
-    es = clipf(es, lo, hi);
+    for (int k = 0; k < N * D; ++k) g[k] = open ? g[k] : 0.f;
+    es = clipf(es, bd.lo, bd.hi);
   }
   out_es[b] = es;
 #pragma unroll
   for (int k = 0; k < N * D; ++k) out_grad[(size_t)b * (N * D) + k] = g[k];
 }
 
-constexpr int kBlock = 128;
+template <int N, int D>
+int launch(const float* pos, const float* mass, const unsigned char* mask,
+           const Rows& rows, float* out_es, float* out_grad, int B, float eta,
+           int clamp, cudaStream_t st) {
+  if constexpr (kLaneLayout) {
+    constexpr int per = (kBlock / 32) * (32 / N);  // systems per block
+    eps_grad_lane<N, D><<<(B + per - 1) / per, kBlock, 0, st>>>(
+        pos, mass, mask, rows, out_es, out_grad, B, eta, clamp);
+  } else {
+    eps_grad_thread<N, D><<<(B + kBlock - 1) / kBlock, kBlock, 0, st>>>(
+        pos, mass, mask, rows, out_es, out_grad, B, eta, clamp);
+  }
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
 extern "C" {
 
-int hs_eps_grad(const float* pos, const float* mass, const float* h0,
-                const float* alpha, const float* emin, const float* emax,
+int hs_eps_grad(const float* pos, const float* mass,
+                const unsigned char* mask, const void* const* row_ptr,
+                const long long* row_stride, const float* row_value,
                 float* out_es, float* out_grad, int B, float eta, int clamp,
                 void* stream) {
   if (B <= 0) return 0;
-  dim3 grid((B + kBlock - 1) / kBlock);
-  eps_grad_kernel<HS_N, HS_D><<<grid, kBlock, 0, (cudaStream_t)stream>>>(
-      pos, mass, h0, alpha, emin, emax, out_es, out_grad, B, eta, clamp);
-  return (int)cudaGetLastError();
+  Rows rows;
+  for (int k = 0; k < 4; ++k) {
+    rows.p[k] = static_cast<const float*>(row_ptr[k]);
+    rows.stride[k] = row_stride[k];
+    rows.value[k] = row_value[k];
+  }
+  return launch<HS_N, HS_D>(pos, mass, mask, rows, out_es, out_grad, B, eta,
+                            clamp, (cudaStream_t)stream);
 }
 
 const char* hs_error_string(int code) {

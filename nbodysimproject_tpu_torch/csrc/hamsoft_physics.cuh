@@ -73,10 +73,11 @@ __device__ __forceinline__ void pair_r2(const float* pos, float* r2) {
 // kernel-entry eps (_solve_iterates), the softmin (eps_star_of) and the
 // hand-written reverse sweep through the truncated map (_exact_grad).
 // The forward pass keeps, from each iterate k and body i, the kernel
-// terms W_ij, dS_i/dh, -G_raw / (2 S_i), the clip gate and -2 / h^2: the
-// reverse sweep then runs no expf, no square root and no division, and
-// since each kept term is the expression a recomputing sweep would
-// evaluate on the same operands, the gradient has the same bits.
+// terms W_ij, dS_i/dh, -G_raw / (2 S_i) (where the clip gate is open),
+// the clip gate and -2 / h^2: the reverse sweep then runs no expf, no
+// square root and no division, and since each kept term is the
+// expression a recomputing sweep would evaluate on the same operands,
+// the gradient has the same bits.
 template <int N, int D>
 __device__ __forceinline__ void eps_star_and_grad(const Sys<N>& s,
                                                   const float* pos,
@@ -114,9 +115,17 @@ __device__ __forceinline__ void eps_star_and_grad(const Sys<N>& s,
       const float Ssafe = maxf(S, 1e-30f);
       const float G_raw = s.eta * sqrtf(s.mval[i] / Ssafe);
       const int bit = k * N + i;
-      gate[bit / 32] |= ((G_raw > s.flo) && (G_raw < s.cap))
-                            ? (1u << (bit % 32)) : 0u;
-      X[k][i] = -G_raw / (2.f * Ssafe);
+      const bool open = (G_raw > s.flo) && (G_raw < s.cap);
+      gate[bit / 32] |= open ? (1u << (bit % 32)) : 0u;
+      // X feeds only c = u X where the clip gate is open; where it is
+      // shut c is 0 (the recomputing sweep's 0 X is a zero of either
+      // sign, or a NaN its finite guard zeroes, and a zero term changes
+      // no bit of g), so the division is skipped there: on a saturated
+      // system (S ~ 0) it overflows into IEEE division's slow path
+      if (open)
+        X[k][i] = -G_raw / (2.f * Ssafe);
+      else
+        X[k][i] = 0.f;
       Sd[k][i] = sd;
       M2[k][i] = -2.f * ih2;
       h[i] = clipf(G_raw, s.flo, s.cap);
@@ -146,8 +155,7 @@ __device__ __forceinline__ void eps_star_and_grad(const Sys<N>& s,
 #pragma unroll
     for (int i = 0; i < N; ++i) {
       const int bit = k * N + i;
-      float ui = ((gate[bit / 32] >> (bit % 32)) & 1u) ? u[i] : 0.f;
-      float c = ui * X[k][i];
+      float c = ((gate[bit / 32] >> (bit % 32)) & 1u) ? u[i] * X[k][i] : 0.f;
       // the float32 backward overflows on saturated lanes, where the
       // true gradient is exactly zero
       c = finitef(c) ? c : 0.f;

@@ -7,8 +7,8 @@
 // physics' order, so a trip here moves (pos, vel, eps, pi) exactly as
 // the one-thread trip does.  Included by hamsoft.cu (the analysis and
 // MEGNO kernels) and by hamsoft_multistep.cu (its warp layout, N = 4
-// and 8); eps_grad.cu and the multi-step kernel's one-thread layout
-// (N = 3) keep the one-thread physics.
+// and 8); the multi-step kernel's one-thread layout (N = 3) and
+// eps_grad.cu (one thread at N <= 3, one lane per body above) do not.
 //
 // Layout (Lay<N>): a system owns SYS = NP * kLPB consecutive lanes of
 // a warp, NP the power of two >= N.  Lane l of a system works for body

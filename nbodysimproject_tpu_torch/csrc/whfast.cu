@@ -11,9 +11,9 @@
 //   * the drift: the centre of mass linearly, each body i >= 1 on a Kepler
 //     orbit of mu_i = G cum_i in Jacobi coordinates, solved by fixed-depth
 //     Laguerre–Conway (n = 5, `iters` updates, Vallado's logarithmic seed on
-//     hyperbolic orbits), the closed-form Stumpff c2/c3 with the series
-//     window |z| <= 0.3 and cosh/sinh through expf with the argument clamped
-//     at 88; slot 0 anchored at the centre of mass;
+//     hyperbolic orbits), the Stumpff c2/c3 as a series for |z| <= 0.3 and
+//     in closed form outside it, cosh/sinh through expf with the argument
+//     clamped at 88; slot 0 anchored at the centre of mass;
 //   * the kick: the softened direct acceleration (rsqrtf of r^2 + eps2
 //     floored at 1e-30) plus the Jacobi back-reaction suffix sum, zero on
 //     zero-mass (padded) slots.
@@ -21,18 +21,28 @@
 //
 // What bounds it: operations.  A system reads and writes 4 N D + N + 1
 // floats once and does, per step, N - 1 Kepler solves of about
-// 60 + 49 iters + 40 operations plus a Stumpff evaluation (one of expf,
-// or cosf and sinf, and two divisions: 20 operations) per update and one
-// at the end, and an interaction kick of about 12 operations per pair and
-// 12 per body (chip_smoke.py::whfast_ops counts them off these loops, each
-// add, multiply, divide, sqrtf, rsqrtf, expf, logf, cosf or sinf as one
-// operation, compares and selects as none).  Design: one thread per system
-// for the whole horizon, bodies in registers, the (B, N, D) tensors read at
-// entry and written at exit only, 256-thread blocks.  Built with
-// -fmad=false, so it rounds as its plain PyTorch version does.
+// 25 + 35 iters + 32 operations plus a Stumpff evaluation per update and
+// one at the end, and an interaction kick of about 12 operations per pair
+// and 12 per body (chip_smoke.py::whfast_ops counts them off these loops,
+// each add, multiply, divide, fabsf, sqrtf, rsqrtf, expf, logf, cos or sin
+// as one operation and an FMA as two, compares and selects as none).  The
+// Pallas kernel evaluates both Stumpff forms and selects, since a TPU lane
+// cannot branch; here a thread branches, so the series (10 FMAs in Horner
+// form on float32 reciprocal factorials, no division) runs inside the
+// window and the closed form (a square root, sincosf or expf, three
+// divisions) only outside it; so does the hyperbolic seed.  Bench.py's
+// orbits keep nearly every z inside the window.  One thread per system
+// for the whole horizon, bodies in registers, the (B, N, D) tensors read
+// at entry and written at exit only, 256-thread blocks.  The build has
+// -fmad=false, so the multiply-adds written here as __fmaf_rn (the
+// Laguerre–Conway update, the f/g epilogue, the Jacobi and centre-of-mass
+// sums, the pair kick) are the only contracted ones; the kernel is
+// therefore not bitwise its plain PyTorch version, which keeps the JAX
+// source's expressions (PERF.md section 6, row 6, states the difference).
 //
 // NaN handling follows the Pallas kernel's jnp.minimum / jnp.maximum, which
-// propagate NaN: the clamps are written as selects, not fminf / fmaxf.
+// propagate NaN: the clamps are written as selects, not fminf / fmaxf, and
+// a NaN z takes the closed form, as the Pallas kernel's select does.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -50,23 +60,25 @@ struct Stumpff {
   float c2, c3;
 };
 
-__device__ __forceinline__ Stumpff stumpff23(float z) {
-  const bool small = fabsf(z) <= 0.3f;
-  const float zs = small ? z : 0.f;
-  const float z2 = zs * zs;
-  const float z3 = z2 * zs;
-  const float z4 = z2 * z2;
-  const float z5 = z4 * zs;
-  const float c2_s = 0.5f - zs / 24.0f + z2 / 720.0f - z3 / 40320.0f +
-                     z4 / 3628800.0f - z5 / 479001600.0f;
-  const float c3_s = (1.0f / 6.0f) - zs / 120.0f + z2 / 5040.0f -
-                     z3 / 362880.0f + z4 / 39916800.0f - z5 / 6227020800.0f;
-  const bool pos = z > 0.f;
+// the series' coefficients 1 / k!, rounded to float32 once
+constexpr float kInv24 = 1.0f / 24.0f, kInv720 = 1.0f / 720.0f,
+                kInv40320 = 1.0f / 40320.0f,
+                kInv3628800 = 1.0f / 3628800.0f,
+                kInv479001600 = 1.0f / 479001600.0f;
+constexpr float kInv6 = 1.0f / 6.0f, kInv120 = 1.0f / 120.0f,
+                kInv5040 = 1.0f / 5040.0f, kInv362880 = 1.0f / 362880.0f,
+                kInv39916800 = 1.0f / 39916800.0f,
+                kInv6227020800 = 1.0f / 6227020800.0f;
+
+// c2(z), c3(z) in closed form: cos and sin of sqrt(z) for z > 0, cosh
+// and sinh through expf of sqrt(-z) clamped at 88 otherwise
+__device__ __forceinline__ Stumpff stumpff_closed(float z) {
   float c0, c1;
-  if (pos) {
+  if (z > 0.f) {
     const float s_e = sqrtf(z);
-    c0 = cosf(s_e);
-    c1 = sinf(s_e) / s_e;
+    float sn;
+    sincosf(s_e, &sn, &c0);
+    c1 = sn / s_e;
   } else {
     float s_h = sqrtf(-z);
     s_h = s_h > 88.0f ? 88.0f : s_h;
@@ -75,11 +87,31 @@ __device__ __forceinline__ Stumpff stumpff23(float z) {
     c0 = 0.5f * (e_h + inv_e);
     c1 = 0.5f * (e_h - inv_e) / s_h;
   }
-  const float z_safe = small ? 1.0f : z;
+  return {(1.0f - c0) / z, (1.0f - c1) / z};
+}
+
+// c2(z), c3(z) as their series to z^5, in Horner form
+__device__ __forceinline__ Stumpff stumpff_series(float z) {
   Stumpff s;
-  s.c2 = small ? c2_s : (1.0f - c0) / z_safe;
-  s.c3 = small ? c3_s : (1.0f - c1) / z_safe;
+  float p = __fmaf_rn(z, -kInv479001600, kInv3628800);
+  p = __fmaf_rn(z, p, -kInv40320);
+  p = __fmaf_rn(z, p, kInv720);
+  p = __fmaf_rn(z, p, -kInv24);
+  s.c2 = __fmaf_rn(z, p, 0.5f);
+  p = __fmaf_rn(z, -kInv6227020800, kInv39916800);
+  p = __fmaf_rn(z, p, -kInv362880);
+  p = __fmaf_rn(z, p, kInv5040);
+  p = __fmaf_rn(z, p, -kInv120);
+  s.c3 = __fmaf_rn(z, p, kInv6);
   return s;
+}
+
+// the series for |z| <= 0.3, else the closed form, which is evaluated
+// only where it is taken (a NaN z takes it, as the Pallas kernel's
+// select does)
+__device__ __forceinline__ Stumpff stumpff23(float z) {
+  if (!(fabsf(z) <= 0.3f)) return stumpff_closed(z);
+  return stumpff_series(z);
 }
 
 // Laguerre–Conway propagation of one Jacobi pair (r, v) under mu for dt
@@ -93,9 +125,9 @@ __device__ __forceinline__ void kepler_lc(float* r, float* v, float mu,
   float v2 = v[0] * v[0];
 #pragma unroll
   for (int a = 1; a < D; ++a) {
-    r0sq = r0sq + r[a] * r[a];
-    rv = rv + r[a] * v[a];
-    v2 = v2 + v[a] * v[a];
+    r0sq = __fmaf_rn(r[a], r[a], r0sq);
+    rv = __fmaf_rn(r[a], v[a], rv);
+    v2 = __fmaf_rn(v[a], v[a], v2);
   }
   const float r0 = sqrtf(r0sq);
   const bool degenerate = r0 < 1e-14f;
@@ -103,34 +135,38 @@ __device__ __forceinline__ void kepler_lc(float* r, float* v, float mu,
   const float vr0 = rv / r0s;
   const float alpha = 2.0f / r0s - v2 / mu;
   const float sqrt_mu = sqrtf(mu);
-  const float chi0 = fabsf(alpha) > 1e-12f ? sqrt_mu * fabsf(alpha) * dt
-                                           : sqrt_mu * dt / r0s;
-  // Vallado's logarithmic hyperbolic seed
-  const bool hyp = alpha < -1e-12f;
-  const float alpha_h = hyp ? alpha : -1.0f;
-  const float log_num = -2.0f * mu * alpha_h * dt;
-  const float log_den =
-      r0s * vr0 + sgn_dt * sqrtf(-mu / alpha_h) * (1.0f - r0s * alpha_h);
-  const float log_arg = log_num / (log_den == 0.f ? 1.0f : log_den);
-  const bool hyp_ok = hyp && (log_den != 0.f) && (log_arg > 0.f);
-  const float chi0_hyp =
-      sgn_dt * sqrtf(-1.0f / alpha_h) * logf(hyp_ok ? log_arg : 1.0f);
-  float chi = hyp_ok ? chi0_hyp : chi0;
+  float chi = fabsf(alpha) > 1e-12f ? sqrt_mu * fabsf(alpha) * dt
+                                    : sqrt_mu * dt / r0s;
+  // Vallado's logarithmic hyperbolic seed, only on hyperbolic orbits
+  if (alpha < -1e-12f) {
+    const float log_num = -2.0f * mu * alpha * dt;
+    const float log_den =
+        __fmaf_rn(sgn_dt * sqrtf(-mu / alpha), __fmaf_rn(-r0s, alpha, 1.0f),
+                  r0s * vr0);
+    const float log_arg = log_num / (log_den == 0.f ? 1.0f : log_den);
+    if (log_den != 0.f && log_arg > 0.f)
+      chi = sgn_dt * sqrtf(-1.0f / alpha) * logf(log_arg);
+  }
 
   const float a1 = r0s * vr0 / sqrt_mu;
-  const float a2 = 1.0f - alpha * r0s;
+  const float a2 = __fmaf_rn(-alpha, r0s, 1.0f);
   const float ln = 5.0f;
   const float smudt = sqrt_mu * dt;
   for (int it = 0; it < iters; ++it) {
-    const float z = alpha * chi * chi;
-    const Stumpff s = stumpff23(z);
     const float chi2 = chi * chi;
-    const float f = a1 * chi2 * s.c2 + a2 * chi2 * chi * s.c3 + r0s * chi -
-                    smudt;
-    const float fp = a1 * chi * (1.0f - z * s.c3) + a2 * chi2 * s.c2 + r0s;
-    const float fpp = a1 * (1.0f - z * s.c2) + a2 * chi * (1.0f - z * s.c3);
+    const float z = alpha * chi2;
+    const Stumpff s = stumpff23(z);
+    const float omz3 = __fmaf_rn(-z, s.c3, 1.0f);  // 1 - z c3
+    const float a2chi2 = a2 * chi2;
+    const float f = __fmaf_rn(
+        a1 * chi2, s.c2,
+        __fmaf_rn(a2chi2 * chi, s.c3, __fmaf_rn(r0s, chi, -smudt)));
+    const float fp =
+        __fmaf_rn(a1 * chi, omz3, __fmaf_rn(a2chi2, s.c2, r0s));
+    const float fpp =
+        __fmaf_rn(a1, __fmaf_rn(-z, s.c2, 1.0f), a2 * chi * omz3);
     const float disc =
-        sqrtf(fabsf(16.0f * fp * fp - 20.0f * f * fpp));
+        sqrtf(fabsf(__fmaf_rn(16.0f * fp, fp, -20.0f * f * fpp)));
     const float den = fp + (fp >= 0.f ? disc : -disc);
     const bool den_bad = den == 0.f;
     const float step = ln * f / (den_bad ? 1.0f : den);
@@ -138,26 +174,30 @@ __device__ __forceinline__ void kepler_lc(float* r, float* v, float mu,
   }
 
   // f/g epilogue
-  const float z = alpha * chi * chi;
-  const Stumpff s = stumpff23(z);
   const float chi2 = chi * chi;
-  const float ff = 1.0f - chi2 * s.c2 / r0s;
-  const float gg = dt - chi2 * chi * s.c3 / sqrt_mu;
+  const float z = alpha * chi2;
+  const Stumpff s = stumpff23(z);
+  const float chi2c2 = chi2 * s.c2;
+  const float chi3c3 = chi2 * chi * s.c3;
+  const float ff = 1.0f - chi2c2 / r0s;
+  const float gg = dt - chi3c3 / sqrt_mu;
   float r_new[D];
 #pragma unroll
-  for (int a = 0; a < D; ++a) r_new[a] = ff * r[a] + gg * v[a];
+  for (int a = 0; a < D; ++a) r_new[a] = __fmaf_rn(ff, r[a], gg * v[a]);
   float rn2 = r_new[0] * r_new[0];
 #pragma unroll
-  for (int a = 1; a < D; ++a) rn2 = rn2 + r_new[a] * r_new[a];
+  for (int a = 1; a < D; ++a) rn2 = __fmaf_rn(r_new[a], r_new[a], rn2);
   const float rn = sqrtf(rn2);
   const bool rn_zero = rn == 0.f;
   const float rns = rn_zero ? 1.0f : rn;
-  const float fdot = sqrt_mu / (rns * r0s) * (alpha * chi2 * chi * s.c3 - chi);
-  const float gdot = 1.0f - chi2 * s.c2 / rns;
+  const float fdot =
+      sqrt_mu / (rns * r0s) * __fmaf_rn(alpha, chi3c3, -chi);
+  const float gdot = 1.0f - chi2c2 / rns;
 #pragma unroll
   for (int a = 0; a < D; ++a) {
-    const float v_new = rn_zero ? v[a] : fdot * r[a] + gdot * v[a];
-    const float r_out = degenerate ? r[a] + v[a] * dt : r_new[a];
+    const float v_new =
+        rn_zero ? v[a] : __fmaf_rn(fdot, r[a], gdot * v[a]);
+    const float r_out = degenerate ? __fmaf_rn(v[a], dt, r[a]) : r_new[a];
     v[a] = degenerate ? v[a] : v_new;
     r[a] = r_out;
   }
@@ -180,11 +220,11 @@ struct System {
     for (int i = 1; i < N; ++i) {
 #pragma unroll
       for (int a = 0; a < D; ++a)
-        jx[i * D + a] = x[i * D + a] - Rs[a] * inv_cm[i - 1];
+        jx[i * D + a] = __fmaf_rn(-Rs[a], inv_cm[i - 1], x[i * D + a]);
       if (i < N - 1) {
 #pragma unroll
         for (int a = 0; a < D; ++a)
-          Rs[a] = Rs[a] + mass[i] * x[i * D + a];
+          Rs[a] = __fmaf_rn(mass[i], x[i * D + a], Rs[a]);
       }
     }
   }
@@ -201,7 +241,7 @@ struct System {
       if (i < N - 1) {
         const float w = mass[i] * inv_cm[i];
 #pragma unroll
-        for (int a = 0; a < D; ++a) s[a] = s[a] + w * jx[i * D + a];
+        for (int a = 0; a < D; ++a) s[a] = __fmaf_rn(w, jx[i * D + a], s[a]);
       }
     }
   }
@@ -222,8 +262,8 @@ struct System {
       float sv = mass[0] * vel[a];
 #pragma unroll
       for (int i = 1; i < N; ++i) {
-        sq = sq + mass[i] * pos[i * D + a];
-        sv = sv + mass[i] * vel[i * D + a];
+        sq = __fmaf_rn(mass[i], pos[i * D + a], sq);
+        sv = __fmaf_rn(mass[i], vel[i * D + a], sv);
       }
       comq[a] = sq * invM;
       comv[a] = sv * invM;
@@ -241,11 +281,11 @@ struct System {
       float sv = mass[0] * vel[a];
 #pragma unroll
       for (int i = 1; i < N; ++i) {
-        sq = sq + mass[i] * pos[i * D + a];
-        sv = sv + mass[i] * vel[i * D + a];
+        sq = __fmaf_rn(mass[i], pos[i * D + a], sq);
+        sv = __fmaf_rn(mass[i], vel[i * D + a], sv);
       }
-      const float dq = comq[a] + comv[a] * dt - sq * invM;
-      const float dv = comv[a] - sv * invM;
+      const float dq = __fmaf_rn(-sq, invM, __fmaf_rn(comv[a], dt, comq[a]));
+      const float dv = __fmaf_rn(-sv, invM, comv[a]);
 #pragma unroll
       for (int i = 0; i < N; ++i) {
         pos[i * D + a] = pos[i * D + a] + dq;
@@ -268,7 +308,7 @@ struct System {
 #pragma unroll
         for (int a = 0; a < D; ++a) {
           dx[a] = pos[i * D + a] - pos[j * D + a];
-          r2 = r2 + dx[a] * dx[a];
+          r2 = __fmaf_rn(dx[a], dx[a], r2);
         }
         const float inv_r = rsqrtf(r2 < 1e-30f ? 1e-30f : r2);
         const float w = inv_r * inv_r * inv_r;
@@ -276,8 +316,8 @@ struct System {
         const float wj = (G * mass[i]) * w;
 #pragma unroll
         for (int a = 0; a < D; ++a) {
-          acc[i * D + a] = acc[i * D + a] - wi * dx[a];
-          acc[j * D + a] = acc[j * D + a] + wj * dx[a];
+          acc[i * D + a] = __fmaf_rn(-wi, dx[a], acc[i * D + a]);
+          acc[j * D + a] = __fmaf_rn(wj, dx[a], acc[j * D + a]);
         }
       }
     float jp[N * D], wvec[N * D];
@@ -288,7 +328,8 @@ struct System {
     for (int i = 1; i < N; ++i) {
       float jr2 = eps2;
 #pragma unroll
-      for (int a = 0; a < D; ++a) jr2 = jr2 + jp[i * D + a] * jp[i * D + a];
+      for (int a = 0; a < D; ++a)
+        jr2 = __fmaf_rn(jp[i * D + a], jp[i * D + a], jr2);
       const float inv_jr = rsqrtf(jr2 < 1e-30f ? 1e-30f : jr2);
       const float wfac =
           live[i] ? G * mass[i] * inv_jr * inv_jr * inv_jr : 0.f;
@@ -305,8 +346,10 @@ struct System {
 #pragma unroll
       for (int a = 0; a < D; ++a) {
         acc[i * D + a] =
-            live[i] ? acc[i * D + a] + mprev_over_m * wvec[i * D + a] - S[a]
-                    : 0.f;
+            live[i]
+                ? __fmaf_rn(mprev_over_m, wvec[i * D + a], acc[i * D + a]) -
+                      S[a]
+                : 0.f;
         S[a] = S[a] + wvec[i * D + a];
       }
     }
@@ -348,12 +391,12 @@ __global__ void __launch_bounds__(256) whfast_kernel(
   for (int step = 0; step < n_steps - 1; ++step) {
     sys.accel(pos, acc);
 #pragma unroll
-    for (int k = 0; k < N * D; ++k) vel[k] = vel[k] + h * acc[k];
+    for (int k = 0; k < N * D; ++k) vel[k] = __fmaf_rn(h, acc[k], vel[k]);
     sys.drift(pos, vel, h, sgn, iters);
   }
   sys.accel(pos, acc);
 #pragma unroll
-  for (int k = 0; k < N * D; ++k) vel[k] = vel[k] + h * acc[k];
+  for (int k = 0; k < N * D; ++k) vel[k] = __fmaf_rn(h, acc[k], vel[k]);
   sys.drift(pos, vel, half_h, sgn, iters);
 #pragma unroll
   for (int k = 0; k < N * D; ++k) {
@@ -363,6 +406,22 @@ __global__ void __launch_bounds__(256) whfast_kernel(
 }
 
 constexpr int kBlock = 256;
+
+// the Stumpff functions alone, for the tests: per z, the branch
+// stumpff23 takes and both of its forms, as (c2, c3) pairs in out
+// (B, 3, 2)
+__global__ void stumpff_probe(const float* __restrict__ z,
+                              float* __restrict__ out, int B) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  const Stumpff s[3] = {stumpff23(z[b]), stumpff_series(z[b]),
+                        stumpff_closed(z[b])};
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    out[(size_t)b * 6 + 2 * k] = s[k].c2;
+    out[(size_t)b * 6 + 2 * k + 1] = s[k].c3;
+  }
+}
 
 }  // namespace
 
@@ -378,6 +437,13 @@ int hs_whfast(const float* pos, const float* vel, const float* mass,
   whfast_kernel<HS_N, HS_D><<<grid, kBlock, 0, (cudaStream_t)stream>>>(
       pos, vel, mass, eps2, out_pos, out_vel, B, n_steps, h, half_h, G,
       iters);
+  return (int)cudaGetLastError();
+}
+
+int hs_whfast_stumpff(const float* z, float* out, int B, void* stream) {
+  if (B <= 0) return 0;
+  stumpff_probe<<<(B + kBlock - 1) / kBlock, kBlock, 0,
+                  (cudaStream_t)stream>>>(z, out, B);
   return (int)cudaGetLastError();
 }
 

@@ -8,10 +8,12 @@ most ``MAX_SLOTS`` body slots it calls this kernel instead of the
 autograd evaluation of ``ops/eps_model.py``.
 
 On a CUDA tensor the wrapper launches the hand-written kernel in
-``csrc/eps_grad.cu`` (on the shared physics of
-``csrc/hamsoft_physics.cuh``; see the source note for what bounds it);
-on a CPU tensor it runs the plain PyTorch version beside it, which is
-the analysis kernels' plain physics (autograd through the 8 SPH
+``csrc/eps_grad.cu`` (one thread per system on the physics of
+``csrc/hamsoft_physics.cuh`` at N <= 3, one lane per body from N = 4;
+see the source note for what bounds it) and nothing else: the kernel
+reads the mask and the per-system rows where they lie.  On a CPU
+tensor it runs the plain PyTorch version beside it, which is the
+analysis kernels' plain physics (autograd through the 8 SPH
 iterations).  There is no fallback from one to the other.
 
 Semantics are the TPU kernel's: the 8 SPH iterations seeded from ``h0``
@@ -43,6 +45,7 @@ BUILD_SLOTS = (3, 8)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_LL = ctypes.c_longlong
 
 
 def build_jobs(slots=BUILD_SLOTS):
@@ -73,6 +76,24 @@ def _rows(x, like):
     return torch.broadcast_to(torch.as_tensor(x, dtype=like.dtype,
                                               device=like.device),
                               like.shape[:1]).contiguous()
+
+
+def _row_arg(x, B: int, device):
+    """(pointer, element stride, value) of a per-system row for the
+    kernel: a (B,), (1,) or () float32 tensor on ``device`` is read in
+    place (stride 0 where it broadcasts), a Python number is passed by
+    value.  No copy, no elementwise pass."""
+    if not torch.is_tensor(x):
+        return None, 0, float(x)
+    if x.device != device or x.dtype != torch.float32:
+        raise TypeError(f"eps kernel: per-system rows must be float32 on "
+                        f"{device}; got {x.dtype} on {x.device}")
+    if x.dim() == 0 or tuple(x.shape) == (1,):
+        return x.data_ptr(), 0, 0.0
+    if tuple(x.shape) != (B,):
+        raise ValueError(f"eps kernel: a per-system row must be (B,) = "
+                         f"({B},), (1,) or a scalar; got {tuple(x.shape)}")
+    return x.data_ptr(), x.stride(0), 0.0
 
 
 def eps_star_and_grad_fused_plain(q, m, h0, alpha, eps_min, eps_max, mask, *,
@@ -109,7 +130,9 @@ def eps_star_and_grad_fused(q, m, h0, alpha, eps_min, eps_max, mask, *,
     kernel for CUDA tensors, the plain version for CPU tensors.
 
     Per-system h0 (the SPH seed; the scan passes state.eps), alpha,
-    eps_min, eps_max: (B,) tensors or scalars; mask (B, N) bool.
+    eps_min, eps_max: (B,) tensors or scalars (on the card: float32
+    tensors of shape (B,), (1,) or (), or Python numbers); m (B, N)
+    (float32 on the card); mask (B, N) bool.
     ``lam_align`` feeds only the fallback and is accepted for the JAX
     signature.  Any B is taken (the TPU kernel's B % 8 tiling has no
     counterpart here).  Returns (es (B,), grad (B, N, 2))."""
@@ -129,19 +152,23 @@ def eps_star_and_grad_fused(q, m, h0, alpha, eps_min, eps_max, mask, *,
         raise TypeError(f"eps kernel: q must be float32, got {q.dtype}")
     if tuple(mask.shape) != (B, n) or tuple(m.shape) != (B, n):
         raise ValueError("eps kernel: m and mask must be (B, N)")
-    q = q.contiguous()
-    m_eff = (m.to(torch.float32) * mask.to(torch.float32)).contiguous()
-    h0, alpha, emin, emax = (_rows(x, q) for x in (h0, alpha, eps_min,
-                                                   eps_max))
+    if m.dtype != torch.float32 or mask.dtype != torch.bool:
+        raise TypeError("eps kernel: m must be float32 and mask bool")
+    q, m, mask = q.contiguous(), m.contiguous(), mask.contiguous()
+    rows = [_row_arg(x, B, q.device) for x in (h0, alpha, eps_min, eps_max)]
     lib = _library(n, d)
     es = torch.empty((B,), dtype=q.dtype, device=q.device)
     grad = torch.empty_like(q)
     code = lib.hs_eps_grad(
-        *cuda_build.pointers(q, m_eff, h0, alpha, emin, emax, es, grad),
+        *cuda_build.pointers(q, m, mask),
+        (_P * 4)(*(r[0] for r in rows)), (_LL * 4)(*(r[1] for r in rows)),
+        (_F * 4)(*(r[2] for r in rows)),
+        *cuda_build.pointers(es, grad),
         B, float(eta), int(bool(clamp)), cuda_build.stream_of(q))
     cuda_build.check_launch(lib, code, "eps_star_and_grad_fused")
     eps_star_and_grad_fused.launches += 1
-    return es, grad * mask.to(q.dtype)[..., None]
+    # the kernel zeroes the gradient of every slot whose mask is off
+    return es, grad
 
 
 eps_star_and_grad_fused.launches = 0

@@ -13,11 +13,14 @@ kick with its Jacobi back-reaction.  This is the fused leg of
 
 On a CUDA tensor the wrapper launches the hand-written kernel in
 ``csrc/whfast.cu`` (see its source note for what bounds it); on a CPU
-tensor it runs the plain PyTorch version beside it, which repeats the
-kernel's arithmetic in the kernel's order: every constant rounded to
-float32, reciprocal interior masses, cosh and sinh through ``exp``,
-``rsqrt`` with its 1e-30 floor, and the branch selects.  There is no
-fallback from one to the other.  Zero-mass slots are inert (padding);
+tensor it runs the plain PyTorch version beside it, which keeps the
+Pallas kernel's expressions: every constant rounded to float32,
+reciprocal interior masses, cosh and sinh through ``exp``, ``rsqrt``
+with its 1e-30 floor, both Stumpff forms evaluated and selected.  The
+kernel branches to the Stumpff form it takes, sums the series in Horner
+form and contracts its multiply-adds into FMAs, so it rounds apart from
+the plain version by a few ulps a step.  There is no fallback from one
+to the other.  Zero-mass slots are inert (padding);
 the CUDA route takes d = 2 and N <= ``MAX_SLOTS`` body slots.
 """
 
@@ -54,6 +57,8 @@ def _library(n: int, d: int):
     lib = cuda_build.load(SOURCE, n, d)
     lib.hs_whfast.argtypes = [_P] * 6 + [_I, _I, _F, _F, _F, _I, _P]
     lib.hs_whfast.restype = _I
+    lib.hs_whfast_stumpff.argtypes = [_P, _P, _I, _P]
+    lib.hs_whfast_stumpff.restype = _I
     return lib
 
 
@@ -96,9 +101,15 @@ def _stumpff23(z):
             torch.where(small, c3_s, (1.0 - c1) / z_safe))
 
 
-def _kepler_lc(r, v, mu, dt: float, iters: int):
+def _add(tally, **counts):
+    for key, x in counts.items():
+        tally[key] = tally.get(key, 0) + x
+
+
+def _kepler_lc(r, v, mu, dt: float, iters: int, tally=None):
     """Laguerre–Conway propagation of per-coordinate (B,) rows ``r``,
-    ``v`` under ``mu`` (B,) for the float32 ``dt``."""
+    ``v`` under ``mu`` (B,) for the float32 ``dt``; ``tally`` as in
+    ``whfast_multistep_plain``."""
     dim = len(r)
     r0sq, rv, v2 = r[0] * r[0], r[0] * v[0], v[0] * v[0]
     for a in range(1, dim):
@@ -125,13 +136,21 @@ def _kepler_lc(r, v, mu, dt: float, iters: int):
     chi0_hyp = sgn_dt * torch.sqrt(-1.0 / alpha_h) * \
         torch.log(torch.where(hyp_ok, log_arg, one))
     chi = torch.where(hyp_ok, chi0_hyp, chi0)
+    if tally is not None:
+        _add(tally, hyp=hyp.sum(), solves=hyp.numel())
+
+    def stumpff(z):
+        if tally is not None:
+            _add(tally, z_pos=(z > _CUT).sum(), z_neg=(z < -_CUT).sum(),
+                 z=z.numel())
+        return _stumpff23(z)
 
     a1 = r0s * vr0 / sqrt_mu
     a2 = 1.0 - alpha * r0s
     smudt = sqrt_mu * dt
     for _ in range(int(iters)):
         z = alpha * chi * chi
-        c2, c3 = _stumpff23(z)
+        c2, c3 = stumpff(z)
         chi2 = chi * chi
         f = a1 * chi2 * c2 + a2 * chi2 * chi * c3 + r0s * chi - smudt
         fp = a1 * chi * (1.0 - z * c3) + a2 * chi2 * c2 + r0s
@@ -143,7 +162,7 @@ def _kepler_lc(r, v, mu, dt: float, iters: int):
         chi = chi - torch.where(den_bad, torch.zeros_like(step), step)
 
     z = alpha * chi * chi
-    c2, c3 = _stumpff23(z)
+    c2, c3 = stumpff(z)
     chi2 = chi * chi
     ff = 1.0 - chi2 * c2 / r0s
     gg = dt - chi2 * chi * c3 / sqrt_mu
@@ -213,7 +232,7 @@ class _System:
             out.append(acc)
         return out
 
-    def drift(self, pos, vel, dt: float, iters: int):
+    def drift(self, pos, vel, dt: float, iters: int, tally=None):
         """D(dt) with slot 0 anchored at the centre of mass."""
         jp, jv = self.to_jacobi(pos), self.to_jacobi(vel)
         invM = self.inv_cm[-1]
@@ -223,7 +242,8 @@ class _System:
         jp[0] = [torch.zeros_like(c) for c in jp[0]]
         jv[0] = [torch.zeros_like(c) for c in jv[0]]
         for i in range(1, self.n):
-            jp[i], jv[i] = _kepler_lc(jp[i], jv[i], self.mu[i], dt, iters)
+            jp[i], jv[i] = _kepler_lc(jp[i], jv[i], self.mu[i], dt, iters,
+                                      tally)
         x, v = self.from_jacobi(jp), self.from_jacobi(jv)
         sq, sv = self._com(x), self._com(v)
         for a in range(d):
@@ -289,10 +309,14 @@ def _check(pos, n_steps: int) -> None:
 
 
 def whfast_multistep_plain(pos, vel, mass, eps2, *, h: float, G: float,
-                           n_steps: int, iters: int = 8):
+                           n_steps: int, iters: int = 8, tally=None):
     """The plain PyTorch version of ``whfast_multistep`` (same arguments,
     same outputs), on any device and in the inputs' dtype, with the
-    kernel's float32 constants."""
+    kernel's float32 constants.  ``tally``, a dict, if given, gains the
+    counts of the branches the kernel takes, as 0-d tensors: Stumpff
+    evaluations with z > 0.3 ("z_pos") and z < -0.3 ("z_neg") among all
+    ("z"), Kepler solves that take the hyperbolic seed ("hyp") among all
+    ("solves")."""
     _check(pos, n_steps)
     n, d = pos.shape[1], pos.shape[2]
     hf, half = _f32(h), _f32(0.5 * h)
@@ -305,12 +329,12 @@ def whfast_multistep_plain(pos, vel, mass, eps2, *, h: float, G: float,
         return [[v[i][a] + hf * acc[i][a] for a in range(d)]
                 for i in range(n)]
 
-    p, v = sysm.drift(p, v, half, iters)
+    p, v = sysm.drift(p, v, half, iters, tally)
     for _ in range(int(n_steps) - 1):
         v = kick(p, v)
-        p, v = sysm.drift(p, v, hf, iters)
+        p, v = sysm.drift(p, v, hf, iters, tally)
     v = kick(p, v)
-    p, v = sysm.drift(p, v, half, iters)
+    p, v = sysm.drift(p, v, half, iters, tally)
     stack = lambda x: torch.stack([torch.stack(b, -1) for b in x], 1)
     return stack(p), stack(v)
 
@@ -351,3 +375,21 @@ def whfast_multistep(pos, vel, mass, eps2, *, h: float, G: float,
 
 
 whfast_multistep.launches = 0
+
+
+def stumpff_probe(z):
+    """The kernel's Stumpff functions on a (B,) float32 CUDA tensor ``z``,
+    for the tests: (B, 3, 2), per z the (c2, c3) of the branch the kernel
+    takes, of its series and of its closed form.  Not a launch of the
+    kernel: ``whfast_multistep.launches`` does not count it."""
+    if z.device.type != "cuda" or z.dtype != torch.float32 or z.dim() != 1:
+        raise ValueError("stumpff_probe: z must be a (B,) float32 CUDA "
+                         "tensor")
+    lib = _library(BUILD_SLOTS[0], 2)
+    z = z.contiguous()
+    out = torch.empty((z.shape[0], 3, 2), dtype=torch.float32,
+                      device=z.device)
+    code = lib.hs_whfast_stumpff(*cuda_build.pointers(z, out), z.shape[0],
+                                 cuda_build.stream_of(z))
+    cuda_build.check_launch(lib, code, "stumpff_probe")
+    return out

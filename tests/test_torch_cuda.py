@@ -25,8 +25,11 @@ multi-step kernel's bit for bit.  The composition kernel runs bench.py's
 operation sequence, a few ulps of rsqrt apart over 20 steps); the eps
 kernel holds eps* to rtol 1e-6 and the gradient to rtol 1e-5 / atol
 1e-5.  The WHFast kernel runs planetary systems (B = 4096, 20 steps;
-rtol 1e-5 / atol 1e-6 against its plain version, 1e-5 / 1e-7 against
-one substep of the LC-8 scan); the tail's rows are bitwise equal between
+rtol 1e-5 / atol 1e-6 against its plain version, whose expressions its
+FMAs round apart from by a few ulps a step, on the live bodies; a padded
+slot's distance to the float64 plain run within twice the float32 plain
+version's; 1e-5 / 1e-7 against one substep of the LC-8 scan); the
+tail's rows are bitwise equal between
 its own stream and the serial run, and the non-tail rows to the
 tail-off run.  The tiled force kernel (N = 4097 and d = 2, N = 1000 and
 d = 3, B = 4 with per-system eps and G) is held, row by row, to the
@@ -37,7 +40,8 @@ does not); a float64 input gives the float32 result cast back, and
 d = 4 raises.  The multi-step kernel's two layouts (one thread per
 system at N = 3, a warp per system at N = 8) give bitwise equal final
 states on 3-body systems in 3 and in 8 slots, under all three barrier
-policies.  ``largen_rollout`` on the
+policies, and so do the eps kernel's (one thread per system at N = 3,
+one lane per body at N = 8) under both clamps.  ``largen_rollout`` on the
 tiled kernel matches the dense force for 5 steps (rtol 1e-5 / atol
 1e-6).
 """
@@ -411,6 +415,43 @@ def test_eps_kernel_matches_plain(case, clamp, cuda_device):
     _close(g0, g1, "grad", rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("clamp", [False, True])
+def test_eps_layouts_give_the_same_bits(clamp, cuda_device):
+    """The eps kernel's two layouts, one thread per system at N = 3 and
+    one lane per body at N = 8: 3-body systems in 3 slots and the same
+    systems padded to 8 (mass 0, mask off) give eps* and gradients equal
+    in every bit, and a zero gradient in the padded slots; one launch a
+    call."""
+    from nbodysimproject_tpu_torch.ops import eps_kernels as ek
+
+    # seeded clusters tight enough that some clip gates open (the
+    # CASES populations saturate every gate: their gradient is 0)
+    rng = np.random.default_rng(3)
+    B = 256
+    f = lambda a: torch.as_tensor(a, dtype=torch.float32, device=cuda_device)
+    st, dy = build_batch(
+        f(rng.uniform(0.2, 1.0, size=(B, 3))),
+        f(0.05 * rng.normal(size=(B, 3, 2))),
+        f(0.3 * rng.normal(size=(B, 3, 2))),
+        torch.ones((B, 3), dtype=torch.bool, device=cuda_device),
+        nt.SimConfig(fast_float32=True), 1.0, 0.05, 0.0, 0.01)
+    pad = lambda x: torch.cat([x, torch.zeros_like(x[:, :1]).expand(
+        (-1, 5) + tuple(x.shape[2:]))], 1)
+    rows = (st.eps, dy.alpha_run, dy.min_softening, dy.max_softening)
+    before = ek.eps_star_and_grad_fused.launches
+    es3, g3 = ek.eps_star_and_grad_fused(st.pos, st.mass, *rows, st.mask,
+                                         clamp=clamp)
+    es8, g8 = ek.eps_star_and_grad_fused(pad(st.pos), pad(st.mass), *rows,
+                                         pad(st.mask), clamp=clamp)
+    torch.cuda.synchronize()
+    assert ek.eps_star_and_grad_fused.launches == before + 2
+    bits = lambda x: x.contiguous().view(torch.int32)
+    assert torch.equal(bits(es3), bits(es8))
+    assert torch.equal(bits(g3), bits(g8[:, :3]))
+    assert not g8[:, 3:].any()
+    assert g3.abs().max() > 0  # the gradient is exercised
+
+
 @pytest.mark.parametrize("policy", ["soft", "reflection"])
 def test_hamsoft_scan_goes_through_the_eps_kernel(policy, cuda_device):
     """integrate_batch on the card: every substep's (eps*, grad) comes
@@ -476,12 +517,43 @@ def _planets(B, n, device, seed=17):
     return f(q), f(v), f(m), torch.full((B,), 1e-6, device=device)
 
 
+#: the WHFast padded slot: the kernel's distance to the float64 plain
+#: run, at the median system and at the worst, at most this many times
+#: the float32 plain version's (chip_smoke.py holds the tiled force
+#: kernel to its float64 plain version the same way, FORCE_ERR_FACTOR)
+WH_PAD_FACTOR = 2.0
+
+
+def _as_accurate_as_plain(p, k, p64, name):
+    """``k`` finite exactly where the float32 plain version ``p`` is, and
+    per system its largest distance to the float64 plain run ``p64``,
+    at the median and at the worst system, within WH_PAD_FACTOR times
+    that of ``p``."""
+    assert torch.equal(torch.isfinite(k), torch.isfinite(p)), name
+    dist = lambda x: torch.nan_to_num(
+        (x.double() - p64.double()).abs(), nan=0.0).reshape(
+            x.shape[0], -1).amax(1)
+    dk, dp = dist(k), dist(p)
+    for q in (0.5, 1.0):
+        a, b = float(dk.quantile(q)), float(dp.quantile(q))
+        assert a <= WH_PAD_FACTOR * b, (
+            f"{name}: quantile {q} of the distance to float64: kernel "
+            f"{a:.3e}, float32 plain {b:.3e}")
+
+
 @pytest.mark.parametrize("n", [3, 4])
 def test_whfast_kernel_matches_plain(n, cuda_device):
     """The WHFast kernel against its plain version (B = 4096, 20 steps;
-    rtol 1e-5 / atol 1e-6: the same operation sequence, so only a few
-    ulps of the card's math functions apart); the padded slot stays
-    inert."""
+    rtol 1e-5 / atol 1e-6: the kernel's FMAs and Horner-form Stumpff
+    series round a few ulps a step apart from the plain version's
+    expressions) on the three live bodies.  The N = 4 case's padded
+    slot, a zero-mass body at the origin, falls almost radially past the
+    central mass (Jacobi distance ~1e-2, period ~2e-3 < h): there the
+    float32 plain version itself lies up to ~1e2 from its float64 run
+    (on ~90% of the systems beyond rtol/atol), so no float32 run is a
+    reference for it.  It is held to that float64 run instead, as
+    accurately as the float32 plain version (``_as_accurate_as_plain``),
+    and stays inert (the live bodies bitwise as in 3 slots)."""
     from nbodysimproject_tpu_torch.ops import whfast_kernels as wk
 
     q, v, m, e2 = _planets(4096, n, cuda_device)
@@ -489,10 +561,15 @@ def test_whfast_kernel_matches_plain(n, cuda_device):
     kw = dict(h=0.01, G=1.0, n_steps=20, iters=8)
     k = wk.whfast_multistep(q, v, m, e2, **kw)
     p = wk.whfast_multistep_plain(q, v, m, e2, **kw)
+    p64 = wk.whfast_multistep_plain(*(x.double() for x in (q, v, m, e2)),
+                                    **kw)
     torch.cuda.synchronize()
     assert wk.whfast_multistep.launches == before + 1
-    for name, a, b in zip(("pos", "vel"), p, k):
-        _close(a, b, name, 1e-5, 1e-6)
+    for name, a, b, c in zip(("pos", "vel"), p, k, p64):
+        _close(a[:, :3], b[:, :3], name, 1e-5, 1e-6)
+        if n == 4:
+            _as_accurate_as_plain(a[:, 3:], b[:, 3:], c[:, 3:],
+                                  f"{name} padded slot")
     if n == 4:
         k3 = wk.whfast_multistep(q[:, :3].contiguous(), v[:, :3].contiguous(),
                                  m[:, :3].contiguous(), e2, **kw)

@@ -3,7 +3,7 @@
 ``csrc/hamsoft_multistep.cu`` runs one thread per system at N = 3
 (``csrc/hamsoft_physics.cuh``, whose forward SPH pass now keeps the kernel
 terms W_ij, dS_i/dh, -G_raw / (2 S_i), the clip gate and -2 / h^2 for the
-reverse sweep; ``csrc/eps_grad.cu`` shares it at every N) and a warp per
+reverse sweep; ``csrc/eps_grad.cu`` shares it at N <= 3) and a warp per
 system at N = 4 and 8 (``csrc/hamsoft_physics_warp.cuh``, which now folds
 (eps, pi) under the reflection policy).  No CUDA runs here, so this file
 re-implements the Strang trip in numpy float32, loop by loop as the
@@ -58,8 +58,9 @@ def _minf(a, b):
 
 def kept_eps_star_and_grad(q, m, eps_seed, alpha, flo, cap, *, eta=ETA):
     """``eps_star_and_grad`` of ``csrc/hamsoft_physics.cuh``: the forward
-    pass keeps each iterate's kernel terms, the reverse sweep reads them
-    (float32, vectorised over the batch only)."""
+    pass keeps each iterate's kernel terms (-G_raw / (2 S) only where the
+    clip gate is open: elsewhere the sweep's c is 0 without it), the
+    reverse sweep reads them (float32, vectorised over the batch only)."""
     q, m = f32(q), f32(m)
     B, N, D = q.shape
     flo, cap, alpha = f32(flo), f32(cap), f32(alpha)
@@ -94,7 +95,9 @@ def kept_eps_star_and_grad(q, m, eps_seed, alpha, flo, cap, *, eta=ETA):
                 Ssafe = _maxf(S, f32(1e-30))
                 G_raw = f32(eta) * np.sqrt(mval[:, i] / Ssafe)
                 gate[k, i] = (G_raw > flo) & (G_raw < cap)
-                X[k, i] = -G_raw / (f32(2) * Ssafe)
+                # divided only where the gate is open
+                X[k, i] = np.where(gate[k, i], -G_raw / (f32(2) * Ssafe),
+                                   f32(0))
                 Sd[k, i] = sd
                 M2[k, i] = f32(-2) * ih2
                 hn.append(_minf(_maxf(G_raw, flo), cap))
@@ -112,7 +115,7 @@ def kept_eps_star_and_grad(q, m, eps_seed, alpha, flo, cap, *, eta=ETA):
         g = np.zeros((B, N, D), f32)
         for k in range(7, -1, -1):
             for i in range(N):
-                c = np.where(gate[k, i], u[i], f32(0)) * X[k, i]
+                c = np.where(gate[k, i], u[i] * X[k, i], f32(0))
                 c = np.where(np.isfinite(c), c, f32(0))
                 for j in range(N):
                     if j == i:
