@@ -19,12 +19,18 @@ routes; ``csrc/pairwise_force.cu``).  Phases (each prints its seconds):
 
 1. card: ``nvidia-smi`` name and power limit;
 2. build: one ``nvcc`` per kernel source and body-slot count (the
-   tiled force kernel: per dimension, 2 and 3), all started together, into the git-ignored
-   ``nbodysimproject_tpu_torch/_build/``; prints each build's seconds
-   and ptxas' register and spill lines, and fails unless the analysis
-   and MEGNO kernels at N = 8, the multi-step kernel at every N, the eps
-   kernel at N = 3 and 8, the WHFast kernel (and its Stumpff probe) and
-   the tiled force kernel spill 0 bytes;
+   tiled force kernel: per dimension, 2 and 3; the composition kernel:
+   every N from 2 to 16 at d = 2 and 3), all started together, into the
+   git-ignored ``nbodysimproject_tpu_torch/_build/``; prints each
+   build's seconds and ptxas' register, stack frame and spill lines,
+   and fails unless the analysis and MEGNO kernels at N = 8, the
+   multi-step kernel at every N, the eps kernel at N = 3 and 8, the
+   WHFast kernel (and its Stumpff probe), the tiled force kernel and the
+   composition kernel at N in {3, 4, 8} and d in {2, 3} spill 0 bytes
+   (the composition kernel also with 0 bytes of stack frame; its other
+   builds reported); counts the composition kernel's SASS instructions
+   a step at N = 3, d = 2 (``cuobjdump -sass``, the step loop of each
+   scheme; "not measured" where it cannot, never a gate);
 3. population: the first 16384 rows of the dataset (empty slots: mass
    0, mask False; these rows are the dataset's "random" cohort);
 4. compare the analysis and MEGNO kernels with their plain PyTorch
@@ -42,7 +48,9 @@ routes; ``csrc/pairwise_force.cu``).  Phases (each prints its seconds):
 5. compare the batched slice's kernels with their plain versions at
    the legs' full widths and short horizons, under the same rule
    (``row_gate``): the composition kernel (verlet at B = 2^24, yoshida4
-   at B = 2^22, 20 steps), the multi-step kernel under both barrier
+   at B = 2^22, both at N = 8, d = 3 on a ring population at B = 2^18,
+   20 steps; and every N from 2 to 16 at d = 2 and 3, both schemes,
+   B = 4096, 20 steps, within STATE_TOL), the multi-step kernel under both barrier
    policies (B = 2^20, 2 steps), the eps kernel under both clamp
    settings (the bench population, and the first 1024 dataset rows with
    their masked 8-slot systems), the eps kernel's two layouts against
@@ -76,7 +84,8 @@ routes; ``csrc/pairwise_force.cu``).  Phases (each prints its seconds):
    the time per trip of the deepest lane;
 10. ``bench.py``'s legs at full width: verlet and yoshida4 scans at
    B = 16384 and 1000 steps, the fused verlet at 2^24 and yoshida4 at
-   2^22, the ham_soft scan and fused kernel at 2^20 and 100 steps
+   2^22 (with the SASS instructions a step and the issue floor they
+   give at the card's maximum SM clock), the ham_soft scan and fused kernel at 2^20 and 100 steps
    under both barrier policies, the WHFast scan (adaptive Kepler
    solver) at B = 16384 and 1000 steps and the fused WHFast kernel at
    2^22 and 100 steps (8 Laguerre-Conway updates), each with launch
@@ -271,19 +280,76 @@ def print_agreement(what, agree):
         f"{agree['energy_drift_within_tol']:.4f} of the rows sane in both")
 
 
-def spill_gate(what, report, n_kernels):
-    """Registers of each kernel in a ptxas report, raising unless the
-    report names ``n_kernels`` kernels and every one spills 0 bytes."""
+def ptxas_counts(report):
+    """(registers, stack frame bytes, spill bytes) of every function in a
+    ptxas report."""
     import re
 
-    spills = [int(x) for x in re.findall(r"(\d+) bytes spill (?:stores|loads)",
-                                         report)]
-    regs = [int(x) for x in re.findall(r"Used (\d+) registers", report)]
-    if len(regs) != n_kernels or len(spills) != 2 * n_kernels or any(spills):
-        raise SystemExit(f"{what}: every kernel must spill 0 bytes; ptxas "
-                         f"says:\n{report}")
+    ints = lambda pat: [int(x) for x in re.findall(pat, report)]
+    return (ints(r"Used (\d+) registers"), ints(r"(\d+) bytes stack frame"),
+            ints(r"(\d+) bytes spill (?:stores|loads)"))
+
+
+def spill_gate(what, report, n_kernels, stack=False):
+    """Registers of each kernel in a ptxas report, raising unless the
+    report names ``n_kernels`` kernels and every one spills 0 bytes (and,
+    with ``stack``, has 0 bytes of stack frame)."""
+    regs, frames, spills = ptxas_counts(report)
+    if len(regs) != n_kernels or len(spills) != 2 * n_kernels or any(spills) \
+            or (stack and (len(frames) != n_kernels or any(frames))):
+        raise SystemExit(f"{what}: every kernel must spill 0 bytes"
+                         f"{' and keep no stack frame' if stack else ''}; "
+                         f"ptxas says:\n{report}")
     return (f"{what}: registers {', '.join(map(str, regs))}, 0 bytes "
-            f"spilled")
+            f"spilled{', 0 bytes of stack frame' if stack else ''}")
+
+
+def sass_step_counts(lib_path):
+    """The SASS instructions of one step of each composition kernel
+    instance in ``lib_path``: {stages: (instructions, MUFU instructions)}
+    of its step loop (the one backward branch of its ``cuobjdump -sass``),
+    or {stages: None} where the SASS does not show exactly one such loop;
+    None where the toolkit has no cuobjdump or it fails.  A measurement,
+    never a gate."""
+    import re
+
+    from nbodysimproject_tpu_torch.ops import cuda_build
+
+    tool = os.path.join(os.path.dirname(cuda_build._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    run = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                         text=True, timeout=120)
+    if run.returncode != 0:
+        return None
+    out = {}
+    for block in re.split(r"\n\s*Function : ", run.stdout)[1:]:
+        name = re.search(r"composition_kernelILi\d+ELi\d+ELi(\d+)E", block)
+        if name is None:
+            continue
+        ins = [(int(a, 16), t.strip()) for a, t in re.findall(
+            r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", block)]
+        loops = []
+        for addr, text in ins:
+            target = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)", text)
+            if target and int(target.group(1), 16) < addr:
+                body = [t for a, t in ins
+                        if int(target.group(1), 16) <= a <= addr]
+                loops.append((len(body), sum("MUFU" in t for t in body)))
+        out[int(name.group(1))] = loops[0] if len(loops) == 1 else None
+    return out
+
+
+def issue_floor_ms(instructions):
+    """Milliseconds to issue ``instructions`` thread instructions at one
+    warp instruction per clock on each of the card's SM sub-partitions
+    (4 per SM) at its maximum SM clock."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return 1e3 * instructions / (sms * 4 * 32 * mhz * 1e6)
 
 
 # ---------------------------------------------------------------- work model
@@ -598,6 +664,13 @@ HS_STEPS, HS_NSUB_CAP = 100, 50
 FUSED_EPS2 = 1e-6
 #: short horizons of the kernel-vs-plain comparisons at full width
 CMP_COMPOSITION_STEPS, CMP_MULTISTEP_STEPS = 20, 2
+#: the composition kernel's 3-D compare case (N = 8, d = 3) and its
+#: sweep over every (N, d) it takes (B_SHAPES systems, SHAPES_STEPS
+#: steps: the plain version's launches on small tensors set its time)
+B_RING, B_SHAPES, SHAPES_STEPS = 1 << 18, 4096, 20
+COMPOSITION_SHAPES = tuple((n, d) for d in (2, 3) for n in range(2, 17))
+#: composition builds gated at 0 bytes spilled and 0 of stack frame
+COMPOSITION_GATED = tuple((n, d) for n in (3, 4, 8) for d in (2, 3))
 #: kernel-vs-plain tolerances (rtol, atol): final pos/vel of the
 #: composition kernel and of the multi-step kernel as STATE_TOL; the eps
 #: kernel's eps* and gradient as the CPU tests hold its plain version to
@@ -629,10 +702,11 @@ def bench_ics(B, seed, dev):
 
 def composition_ops(n, d, stages):
     """Operations of one composition step, counted off the loops of
-    csrc/composition.cu: per stage a drift and a kick (2 N d each) and a
-    pair loop of 7 d + 5 per pair."""
+    csrc/composition.cu, an FMA as two: per stage a drift and a kick
+    (N d FMAs each) and 7 d + 5 per pair, less one for each body
+    coordinate, whose sum starts from its first pair term (a multiply)."""
     P = n * (n - 1) // 2
-    return stages * (4 * n * d + P * (7 * d + 5))
+    return stages * (4 * n * d + P * (7 * d + 5) - n * d)
 
 
 def ops_bound(ops, words):
@@ -644,8 +718,10 @@ def ops_bound(ops, words):
 
 
 def bound_composition(B, n, d, steps, stages):
+    """The steps, the opening acceleration and the two half-kicks (one
+    Verlet stage's operations), and G times the masses."""
     return ops_bound(B * (steps * composition_ops(n, d, stages)
-                          + 2 * composition_ops(n, d, 1) + n),
+                          + composition_ops(n, d, 1) + n),
                      B * (4 * n * d + n + 1))
 
 
@@ -729,14 +805,33 @@ def _runs(kernel, plain, make_args, reorder, unorder):
     return k_out, p_out, p64, pr, tk.ms, tp.ms
 
 
-def compare_composition(scheme, B, dev):
+def ring_ics(B, n, d, seed, dev):
+    """(mass, pos, vel) of B systems of n bodies on a ring of radius 1.5
+    in the x-y plane plus 0.01 noise, masses linspace(1, 0.1), velocities
+    0.3 normal (the CPU tests' ring population), drawn on the card from
+    ``seed``."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    ang = 2.0 * np.pi * torch.arange(n, device=dev) / n
+    base = torch.zeros((n, d), device=dev)
+    base[:, 0], base[:, 1] = 1.5 * torch.cos(ang), 1.5 * torch.sin(ang)
+    q = base[None] + 0.01 * torch.randn((B, n, d), generator=gen, device=dev)
+    v = 0.3 * torch.randn((B, n, d), generator=gen, device=dev)
+    m = torch.linspace(1.0, 0.1, n, device=dev).expand(B, n).contiguous()
+    return m, q, v
+
+
+def compare_composition(scheme, B, dev, n=3, d=2):
+    """The composition kernel against its plain version: bench.py's
+    3-body systems at (n, d) = (3, 2), the ring population otherwise."""
     from nbodysimproject_tpu_torch.ops import batch_kernels as bk
 
-    m, q, v = bench_ics(B, 7, dev)
+    m, q, v = bench_ics(B, 7, dev) if (n, d) == (3, 2) \
+        else ring_ics(B, n, d, 7, dev)
     eps2 = torch.full((B,), FUSED_EPS2, device=dev)
     steps = CMP_COMPOSITION_STEPS
     kw = dict(h=DT, G=1.0, n_steps=steps, scheme=scheme)
-    rev = torch.arange(2, -1, -1, device=dev)
+    rev = torch.arange(n - 1, -1, -1, device=dev)
 
     def make(dt_):
         return tuple(x.to(dt_) for x in (q, v, m, eps2))
@@ -746,14 +841,50 @@ def compare_composition(scheme, B, dev):
         lambda *a: bk.composition_multistep_plain(*a, **kw), make,
         lambda a: (a[0][:, rev], a[1][:, rev], a[2][:, rev], a[3]),
         lambda o: (o[0][:, rev], o[1][:, rev]))
-    err = row_gate(f"composition {scheme} (B={B}, {steps} steps)",
-                   {n: (k[i], p[i], p64[i], pr[i], STATE_TOL)
-                    for i, n in enumerate(("pos", "vel"))})
+    label = f"composition {scheme} N={n} d={d} (B={B}, {steps} steps)"
+    err = row_gate(label, {x: (k[i], p[i], p64[i], pr[i], STATE_TOL)
+                           for i, x in enumerate(("pos", "vel"))})
     stages = len(bk.SCHEME_STAGES[scheme])
-    b_ms, b_by = bound_composition(B, 3, 2, steps, stages)
-    print(f"  composition {scheme}: kernel {ms:.3f} ms, plain {pms:.3f} ms, "
-          f"bound {b_ms:.3f} ms ({b_by})", flush=True)
+    b_ms, b_by = bound_composition(B, n, d, steps, stages)
+    print(f"  {label}: kernel {ms:.3f} ms, plain {pms:.3f} ms, bound "
+          f"{b_ms:.3f} ms ({b_by}), largest |kernel - plain| {err:.3e}",
+          flush=True)
     return dict(ms=ms, plain_ms=pms, err=err, bound=(b_ms, b_by))
+
+
+def composition_shapes(dev):
+    """The composition kernel at every (N, d) it takes, both schemes,
+    against its plain version on the ring population (B_SHAPES systems,
+    SHAPES_STEPS steps): every value within STATE_TOL, nothing widened,
+    the same non-finite entries.  Returns the largest |kernel - plain|."""
+    from nbodysimproject_tpu_torch.ops import batch_kernels as bk
+
+    t0 = time.perf_counter()
+    worst, rtol, atol = 0.0, *STATE_TOL
+    for n, d in COMPOSITION_SHAPES:
+        m, q, v = ring_ics(B_SHAPES, n, d, 11, dev)
+        eps2 = torch.full((B_SHAPES,), FUSED_EPS2, device=dev)
+        errs = []
+        for scheme in bk.SCHEME_STAGES:
+            kw = dict(h=DT, G=1.0, n_steps=SHAPES_STEPS, scheme=scheme)
+            got = bk.composition_multistep(q, v, m, eps2, **kw)
+            ref = bk.composition_multistep_plain(q, v, m, eps2, **kw)
+            for a, b in zip(got, ref):
+                if not torch.equal(torch.isfinite(a), torch.isfinite(b)):
+                    raise SystemExit(f"composition N={n} d={d} {scheme}: "
+                                     f"non-finite entries differ")
+                e = torch.nan_to_num((a - b).abs())
+                if bool((e > atol + rtol * torch.nan_to_num(b.abs())).any()):
+                    raise SystemExit(f"composition N={n} d={d} {scheme}: "
+                                     f"kernel outside STATE_TOL of its "
+                                     f"plain version ({float(e.max()):.3e})")
+                errs.append(float(e.max()))
+        worst = max(worst, *errs)
+        print(f"    N={n} d={d}: largest |kernel - plain| {max(errs):.3e}")
+    torch.cuda.synchronize()
+    print(f"    {len(COMPOSITION_SHAPES)} shapes in "
+          f"{time.perf_counter() - t0:.1f}s")
+    return worst
 
 
 def hamsoft_bench_batch(cfg, dev):
@@ -1100,8 +1231,9 @@ def run_leg(name, fn, B, steps, counted):
     return out, cold.ms, med, launches
 
 
-def slice_legs(dev, hk, ek, bk, wk):
-    """bench.py's legs at full width through the port's entry points.
+def slice_legs(dev, hk, ek, bk, wk, sass):
+    """bench.py's legs at full width through the port's entry points;
+    ``sass`` is ``sass_step_counts`` of the composition kernel at N = 3.
     Returns {leg: (cold ms, warm ms, launches, drift)}."""
     from nbodysimproject_tpu_torch import SimConfig
     from nbodysimproject_tpu_torch.parallel.batch_engine import (
@@ -1148,6 +1280,17 @@ def slice_legs(dev, hk, ek, bk, wk):
         b_ms, b_by = bound_composition(B, 3, 2, SCAN_STEPS, stages)
         print(f"    drift(sys0) {dr:.3e}; non-finite systems {nonfinite(po)}; "
               f"bound {b_ms:.3f} ms ({b_by}), {med / b_ms:.2f}x the bound")
+        counts = None if sass is None else sass.get(stages)
+        if counts is None:
+            print("    SASS instructions a step: not measured ("
+                  + ("cuobjdump missing or failed)" if sass is None
+                     else "no single step loop in the SASS)"))
+        else:
+            ins, mufu = counts
+            floor = issue_floor_ms(B * SCAN_STEPS * ins)
+            print(f"    SASS {ins} instructions a step ({mufu} MUFU): issue "
+                  f"floor {floor:.3f} ms at the card's maximum SM clock, "
+                  f"{med / floor:.2f}x the floor")
         legs[f"{scheme} fused"] = (cold, med, la, dr)
         del mf, qf, vf, eps2, po, vo
         torch.cuda.empty_cache()
@@ -1864,9 +2007,11 @@ def main():
 
     phase("build")
     t0 = time.perf_counter()
+    # the composition kernel at every (N, d) it takes, bk.build_jobs()'s
+    # shapes among them
     built = cuda_build.build(hk.build_jobs() + ek.build_jobs()
-                             + bk.build_jobs() + wk.build_jobs()
-                             + fk.build_jobs())
+                             + bk.build_jobs(COMPOSITION_SHAPES)
+                             + wk.build_jobs() + fk.build_jobs())
     for (src, n, d), (path, secs, report) in sorted(built.items()):
         print(f"  {src} N={n} d={d}: {os.path.basename(path)} in "
               f"{secs:.1f}s")
@@ -1884,6 +2029,20 @@ def main():
                            + [(j, 2) for j in fk.build_jobs()]):
         print("  " + spill_gate(f"{job[0]} N={job[1]} d={job[2]}",
                                 built[job][2], n_kernels))
+    # the composition kernel's Verlet and Yoshida4 instances: 0 spilled
+    # and 0 bytes of stack frame where gated, the rest reported
+    for job in bk.build_jobs(COMPOSITION_SHAPES):
+        if job[1:] in COMPOSITION_GATED:
+            print("  " + spill_gate(f"{job[0]} N={job[1]} d={job[2]}",
+                                    built[job][2], 2, stack=True))
+        else:
+            regs, frames, spills = ptxas_counts(built[job][2])
+            print(f"  {job[0]} N={job[1]} d={job[2]} (not gated): "
+                  f"registers {regs}, stack frame {frames} bytes, spilled "
+                  f"{spills} bytes")
+    sass = sass_step_counts(built[(bk.SOURCE, 3, 2)][0])
+    print(f"  composition.cu N=3 d=2 SASS, (instructions, MUFU) a step by "
+          f"stage count: {sass}")
 
     phase("population")
     (mass, pos, vel, mask, G, soft, min_soft), ref = load_population(B_MAIN)
@@ -1932,6 +2091,12 @@ def main():
     for scheme, B in (("verlet", B_VERLET_FUSED), ("yoshida4", B_Y4_FUSED)):
         new_cmp[f"composition {scheme}"] = compare_composition(scheme, B, dev)
         torch.cuda.empty_cache()
+    for scheme in bk.SCHEME_STAGES:
+        new_cmp[f"composition {scheme} N=8 d=3"] = compare_composition(
+            scheme, B_RING, dev, 8, 3)
+    print("  composition kernel at every (N, d), both schemes:")
+    new_cmp["composition shapes"] = dict(err=composition_shapes(dev))
+    torch.cuda.empty_cache()
     cfg_hs = SimConfig(integrator_mode="ham_soft", fast_float32=True)
     st_h, dy_h = hamsoft_bench_batch(cfg_hs, dev)
     for policy in ("soft", "reflection"):
@@ -2149,7 +2314,7 @@ def main():
               f"({b_by}), {t.ms / b_ms:.0f}x the bound", flush=True)
 
     phase("the batched slice: bench.py's legs at full width")
-    legs = slice_legs(dev, hk, ek, bk, wk)
+    legs = slice_legs(dev, hk, ek, bk, wk, sass)
 
     torch.cuda.empty_cache()
     evals, rolls = largen_ics()

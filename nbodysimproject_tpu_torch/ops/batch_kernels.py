@@ -13,10 +13,14 @@ into one kick.  This is the ``bench.py`` headline kernel.
 On a CUDA tensor the wrapper launches the hand-written kernel in
 ``csrc/composition.cu`` (see its source note for what bounds it); on a
 CPU tensor it runs the plain PyTorch version beside it, which repeats
-the kernel's arithmetic in the kernel's order, pair by pair.  There is
-no fallback from one to the other.  The kernel has no mask: every slot
-is a body, and the wrapper refuses a mask; the CUDA route takes the
-body-slot counts of ``BUILD_SLOTS`` only.
+the kernel's operations in the kernel's order, pair by pair, but rounds
+each product on its own where the kernel contracts it into an FMA (a
+few ulps a step apart).  There is no fallback from one to the other.  The kernel has no mask: every slot
+is a body, and the wrapper refuses a mask.  Both routes take any N from
+2 to ``MAX_SLOTS`` bodies in d = 2 or 3 (``DIMS``); the CUDA route
+builds the library of each (N, d) on first use, and ``build_jobs``
+builds ahead the shapes of ``BUILD_AHEAD``.  The TPU kernel also takes
+N > 16 (still to port) and N = 1.
 """
 
 from __future__ import annotations
@@ -29,8 +33,12 @@ import torch
 from . import cuda_build
 
 SOURCE = "composition.cu"
-#: body-slot counts the kernel is built for (the bench's 3-body system)
-BUILD_SLOTS = (3,)
+#: the body counts and dimensions taken: 2 <= N <= MAX_SLOTS, d in DIMS
+MAX_SLOTS = 16
+DIMS = (2, 3)
+#: (N, d) built ahead by ``build_jobs``: the bench's 3-body system and
+#: chip_smoke.py's 8-body compare case in 3-D
+BUILD_AHEAD = ((3, 2), (8, 3))
 
 #: symplectic composition stages as (drift_coef, kick_coef) pairs in
 #: units of h (pallas_batch.py:37-46): Yoshida's triple jump
@@ -49,16 +57,20 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 
 
-def build_jobs(slots=BUILD_SLOTS):
-    return [(SOURCE, n, 2) for n in slots]
+def build_jobs(shapes=BUILD_AHEAD):
+    return [(SOURCE, n, d) for n, d in shapes]
+
+
+def _check_shape(n: int, d: int) -> None:
+    if not 2 <= n <= MAX_SLOTS or d not in DIMS:
+        raise NotImplementedError(
+            f"composition kernel: ported for 2 <= N <= {MAX_SLOTS} bodies "
+            f"and d in {DIMS}; got N = {n}, d = {d}")
 
 
 @functools.lru_cache(maxsize=None)
 def _library(n: int, d: int):
-    if d != 2 or n not in BUILD_SLOTS:
-        raise NotImplementedError(
-            f"composition kernel is built for d = 2 and N in {BUILD_SLOTS}; "
-            f"got N = {n}, d = {d}")
+    _check_shape(n, d)
     lib = cuda_build.load(SOURCE, n, d)
     lib.hs_composition.argtypes = [_P] * 6 + [_I, _I, _F, _P, _P, _I, _F, _P]
     lib.hs_composition.restype = _I
@@ -88,8 +100,7 @@ def _check(pos, mask) -> None:
     if pos.dim() != 3:
         raise ValueError(f"composition kernel: pos must be (B, N, d), got "
                          f"{tuple(pos.shape)}")
-    if pos.shape[-1] != 2:
-        raise NotImplementedError("composition kernel: ported for d = 2")
+    _check_shape(pos.shape[1], pos.shape[2])
 
 
 def _accel(pos, gmass, eps2):

@@ -21,8 +21,13 @@ within the fused-vs-scan tolerances of ``tests/test_pallas_batch.py``;
 a random permutation of the input systems gives bitwise the same
 per-system outputs of both kernels, and their final states equal the
 multi-step kernel's bit for bit.  The composition kernel runs bench.py's
-3-body system (B = 4096, 20 steps; rtol 1e-5 / atol 1e-6: the same
-operation sequence, a few ulps of rsqrt apart over 20 steps); the eps
+3-body system and, at N = 4, d = 2 and N = 8, d = 3, a ring population
+(B = 4096, 20 steps; rtol 1e-5 / atol 1e-6: the same operations, which
+its FMAs round apart from the plain version's by a few ulps a step),
+its Verlet and Yoshida4 instances of one N = 3 library each within that
+tolerance of the plain version's run of its scheme (at a step of 0.05,
+where the two schemes' results lie far outside it), and so do systems
+with eps2 0 or subnormal (the kernel's rsqrt flushes subnormals); the eps
 kernel holds eps* to rtol 1e-6 and the gradient to rtol 1e-5 / atol
 1e-5.  The WHFast kernel runs planetary systems (B = 4096, 20 steps;
 rtol 1e-5 / atol 1e-6 against its plain version, whose expressions its
@@ -337,11 +342,28 @@ def _bench_population(B, device, seed=13):
     return f(m), f(q), f(v)
 
 
+def _ring_population(B, n, d, device, seed=5):
+    """n bodies on a ring of radius 1.5 plus 0.01 noise, masses
+    linspace(1, 0.1), velocities 0.3 normal (numpy seed)."""
+    rng = np.random.default_rng(seed)
+    ang = 2.0 * np.pi * np.arange(n) / n
+    base = np.zeros((n, d))
+    base[:, 0], base[:, 1] = 1.5 * np.cos(ang), 1.5 * np.sin(ang)
+    q = base[None] + 0.01 * rng.normal(size=(B, n, d))
+    v = 0.3 * rng.normal(size=(B, n, d))
+    m = np.broadcast_to(np.linspace(1.0, 0.1, n), (B, n)).copy()
+    f = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
+    return f(m), f(q), f(v)
+
+
+@pytest.mark.parametrize("shape", [(3, 2), (4, 2), (8, 3)],
+                         ids=lambda s: f"N{s[0]}d{s[1]}")
 @pytest.mark.parametrize("scheme", ["verlet", "yoshida4"])
-def test_composition_kernel_matches_plain(scheme, cuda_device):
+def test_composition_kernel_matches_plain(scheme, shape, cuda_device):
     from nbodysimproject_tpu_torch.ops import batch_kernels as bk
 
-    m, q, v = _bench_population(4096, cuda_device)
+    m, q, v = _bench_population(4096, cuda_device) if shape == (3, 2) \
+        else _ring_population(4096, *shape, cuda_device)
     eps2 = torch.full((q.shape[0],), 1e-6, device=cuda_device)
     before = bk.composition_multistep.launches
     ref = bk.composition_multistep_plain(q, v, m, eps2, h=0.01, G=1.0,
@@ -355,6 +377,49 @@ def test_composition_kernel_matches_plain(scheme, cuda_device):
     with pytest.raises(ValueError):
         bk.composition_multistep(q, v, m, eps2, h=0.01, G=1.0, n_steps=1,
                                  mask=torch.ones_like(m, dtype=torch.bool))
+
+
+@pytest.mark.parametrize("eps2_value", [0.0, 1e-39])
+def test_composition_tiny_softening_matches_plain(eps2_value, cuda_device):
+    """Systems whose eps2 is not a normal float (0, or subnormal), where
+    the kernel's rsqrt.approx.ftz would flush a subnormal r^2: both
+    schemes agree with the plain version (torch.rsqrt) within rtol 1e-5 /
+    atol 1e-6."""
+    from nbodysimproject_tpu_torch.ops import batch_kernels as bk
+
+    m, q, v = _ring_population(4096, 4, 2, cuda_device)
+    eps2 = torch.full((q.shape[0],), eps2_value, device=cuda_device)
+    for scheme in ("verlet", "yoshida4"):
+        kw = dict(h=0.01, G=1.0, n_steps=20, scheme=scheme)
+        ref = bk.composition_multistep_plain(q, v, m, eps2, **kw)
+        got = bk.composition_multistep(q, v, m, eps2, **kw)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("pos", "vel"), ref, got):
+            _close(a, b, f"{scheme}.{name}", rtol=1e-5, atol=1e-6)
+
+
+def test_composition_schemes_share_one_library(cuda_device):
+    """One N = 3 library holds both schemes (the stage count is a
+    template argument): its Verlet and Yoshida4 instances each give what
+    the plain version gives for that scheme, within rtol 1e-5 / atol
+    1e-6, and not each other's result.  The step is 0.05, where the two
+    schemes' results lie ~9e-4 apart after 20 steps (float32 rounding
+    ~1.4e-6, on the CPU); at 0.01 they lie within the tolerance."""
+    from nbodysimproject_tpu_torch.ops import batch_kernels as bk
+
+    m, q, v = _bench_population(4096, cuda_device)
+    eps2 = torch.full((q.shape[0],), 1e-6, device=cuda_device)
+    kw = dict(h=0.05, G=1.0, n_steps=20)
+    got = {}
+    for scheme in ("verlet", "yoshida4"):
+        ref = bk.composition_multistep_plain(q, v, m, eps2, scheme=scheme,
+                                             **kw)
+        got[scheme] = bk.composition_multistep(q, v, m, eps2, scheme=scheme,
+                                               **kw)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("pos", "vel"), ref, got[scheme]):
+            _close(a, b, f"{scheme}.{name}", rtol=1e-5, atol=1e-6)
+    assert float((got["verlet"][0] - got["yoshida4"][0]).abs().max()) > 1e-4
 
 
 @pytest.mark.parametrize("policy", ["soft", "reflection"])
