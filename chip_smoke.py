@@ -4,7 +4,9 @@
     python3 chip_smoke.py
 
 Drives the port's paths through their hand-written CUDA kernels:
-full-mode ``analyze_population`` under the dataset pipeline's
+the product end to end (a diverse population drawn on the card, analysed
+by ``analyze_population``, scored by the headline classifiers without
+integration), full-mode ``analyze_population`` under the dataset pipeline's
 configuration unmodified (``generators/pipeline.py::_PIPE_CFG`` of the
 JAX package, Kepler tail policy on) on real systems from
 ``data/stability_131k.csv.gz`` (``csrc/hamsoft.cu`` for the fused lanes,
@@ -58,7 +60,8 @@ routes; ``csrc/pairwise_force.cu``).  Phases (each prints its seconds):
    bits, gated), the eps kernel alone at N = 3 (2^20 bench systems) and
    N = 8 (the 16384 dataset systems): 50 wrapper calls back to back
    traced by ``torch.profiler`` (one device launch a call and nothing
-   else, gated; the kernel's device time) and single wrapper calls
+   else, gated; a trace that lost a record is taken again, at most
+   EPS_TRACES times; the kernel's device time) and single wrapper calls
    between CUDA events, and the WHFast kernel (B = 2^22, 5 steps; and one
    step against the port's LC-8 WHFast scan), with the share of its
    Stumpff evaluations that take the closed form;
@@ -82,40 +85,73 @@ routes; ``csrc/pairwise_force.cu``).  Phases (each prints its seconds):
    measured;
 9. the main path's kernel launches replayed between CUDA events, with
    the time per trip of the deepest lane;
-10. ``bench.py``'s legs at full width: verlet and yoshida4 scans at
+10. generators: ``diverse_population`` (a ``torch.Generator`` on the card
+   seeded 0, 16384 systems, 8 slots) between CUDA events, twice (the
+   same bits, gated); gated on the cohort sizes and order, each cohort's
+   body counts, finite float32 values on the card and each system's
+   |sum m q| (and, but for the hierarchical cohort, whose generator adds
+   its velocity noise after the projection as the JAX package's does,
+   |sum m v|) at most COM_GATE of its scale; the per-cohort medians of
+   total mass, virial ratio and mean separation beside those of the
+   committed bench population;
+11. bench population: ``data/bench_population_16384.npz`` (bench.py's
+   own population, ``diverse_population(PRNGKey(0), 16384, n_slots=8)``
+   drawn by the JAX package on the CPU, read with numpy) through
+   ``analyze_population`` under ``_PIPE_CFG`` as bench.py's leg runs it
+   but at BENCH_STEPS = 250 steps (bench.py's 1000 cut for the time
+   limit: its eager Kepler tail runs up to 7 trips a step),
+   one cold and WARM_REPS warm runs (systems/s, ``timing_out``'s phases,
+   fused_ms, tail_ms, n_tail, the launches of the analysis and MEGNO
+   kernels, gated > 0), the stable and tail shares per cohort; then the
+   entry point ``MLTrainingPipeline(n_systems=16384, n_steps=500,
+   seed=0).generate_diverse_dataset_batched()`` once (500 steps: the
+   least its clamp takes), its frame gated (16384
+   rows, ``system_type`` in cohort order, both kernels launched);
+12. serving: ``ic_feature_frame`` and ``StabilityPredictor.predict_frame``
+   for the headline MLP and GBDT (``data/headline_pre_torch.npz``) on
+   the bench population on the card, cold and the warm median of
+   SERVE_REPS, in systems/s and as a multiple of phase 11's analysis
+   rate; the card's scores gated against the same port on the CPU on
+   the same frame (MLP within SERVE_MLP_TOL with equal verdicts outside
+   that band; GBDT raw scores bit for bit, probabilities within
+   SERVE_GBDT_TOL); the verdicts' agreement with phase 11's is_stable
+   per cohort (not gated);
+13. ``bench.py``'s legs at full width: verlet and yoshida4 scans at
    B = 16384 and 1000 steps, the fused verlet at 2^24 and yoshida4 at
    2^22 (with the SASS instructions a step and the issue floor they
    give at the card's maximum SM clock), the ham_soft scan and fused kernel at 2^20 and 100 steps
    under both barrier policies, the WHFast scan (adaptive Kepler
-   solver) at B = 16384 and 1000 steps and the fused WHFast kernel at
+   solver) at B = 16384 and 200 steps (bench.py's 1000 cut for the time
+   limit) and the fused WHFast kernel at
    2^22 and 100 steps (8 Laguerre-Conway updates), each with launch
    counts around its cold run, the warm median of three runs between
    CUDA events, the count of non-finite systems and system 0's
    relative drift of the extended Hamiltonian;
-11. the tiled force kernel against its plain version: N = 4097 (not a
+14. the tiled force kernel against its plain version: N = 4097 (not a
    tile multiple) at d = 2 and N = 1000 at d = 3 on all rows, B = 4
    systems with their own eps and G, and bench_largen's N = 10^5 cloud
    on 4096 sampled rows; each row's error from the float64 plain version
    over its magnitude sum, gated (FORCE_ERR_*), and the momentum;
-12. bench_largen's single evaluations at N = 10^4, 32768, 10^5, 10^6
+15. bench_largen's single evaluations at N = 10^4, 32768, 10^5, 10^6
    (its ICs drawn again with numpy in its order, its mesh sizes): P3M
    (and its short-range pass alone), the tiled kernel and, up to 32768,
    the dense eager force; P3M's
    error median and p99 against the dense force (else the kernel),
    gated (P3M_ERR_GATE, n_dropped = 0);
-13. bench_largen's rollouts, ``largen_rollout`` (dt 1e-4, eps 6 / Ng):
+16. bench_largen's rollouts, ``largen_rollout`` (dt 1e-4, eps 6 / Ng):
    p3m and direct_pallas at 10^4 and 10^5, p3m at 10^6, 50 steps
-   each, cold and the warm median of three in steps/s;
+   each (10 at 10^6, cut for the time limit), cold and the warm median
+   of three in steps/s;
    n_dropped_max = 0, finite states, the kernel's launches > 0 on the
    direct route;
-14. verlet through ``build_batch`` -> ``integrate_batch`` with
+17. verlet through ``build_batch`` -> ``integrate_batch`` with
    ``use_pallas_forces`` on one 4096-body cloud for 100 steps, against
    the same run on the dense force, both timed;
-15. bench_whfast_largen: 4096, 16384 and 65536 planets, LC-8, the kick
+18. bench_whfast_largen: 4096, 16384 and 65536 planets, LC-8, the kick
    on direct_pallas and on P3M with the star split: 20 timed substeps,
    the drift over 200 (float64 energy on the card, gated), P3M's kick
    error against direct_pallas (p99 gated);
-16. the tiled force kernel alone at its paths' widths (the classical
+19. the tiled force kernel alone at its paths' widths (the classical
    route's N = 4096, the 65536-planet kick, 10^5 and 10^6): many
    launches back to back between CUDA events, with its bound.
 
@@ -659,6 +695,9 @@ BENCH_Q = ((0.0, 0.0), (1.0, 0.0), (0.0, 2.0))
 BENCH_V = ((0.0, 0.0), (0.0, 1.0), (-0.5, 0.0))
 #: the six legs' widths and horizons (bench.py:44-340)
 B_SCAN, SCAN_STEPS = 16384, 1000
+#: the eager WHFast scan leg's depth, cut from 1000 steps (PR 12) so the
+#: script keeps inside its time limit; its rate is per system-step
+WH_SCAN_STEPS = 200
 B_VERLET_FUSED, B_Y4_FUSED, B_HS = 1 << 24, 1 << 22, 1 << 20
 HS_STEPS, HS_NSUB_CAP = 100, 50
 FUSED_EPS2 = 1e-6
@@ -994,6 +1033,12 @@ def eps_layouts_agree(states, dyns, ek):
 #: wrapper calls traced back to back, and single wrapper calls whose
 #: median is taken
 EPS_ALONE_REPS, EPS_CALL_REPS = 50, 20
+#: traces of the EPS_ALONE_REPS calls allowed when one comes back with
+#: fewer device events than calls and nothing else (the profiler lost a
+#: record: 49 of 50 in one of PR 12's runs); a trace with more events or
+#: another kernel fails at once, and so does a call that launches nothing
+#: (every trace short)
+EPS_TRACES = 3
 
 
 def eps_alone(ek, cases):
@@ -1016,21 +1061,27 @@ def eps_alone(ek, cases):
         for clamp in (True, False):
             ek.eps_star_and_grad_fused(*args, clamp=clamp)
             torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                for _ in range(EPS_ALONE_REPS):
-                    ek.eps_star_and_grad_fused(*args, clamp=clamp)
-                torch.cuda.synchronize()
-            dev_events = [e for e in prof.events()
-                          if e.device_type.name == "CUDA"]
-            names = {e.name[:60] for e in dev_events}
-            print(f"  eps wrapper, {label}, clamp={clamp}: "
-                  f"{EPS_ALONE_REPS} calls, {len(dev_events)} device "
-                  f"events: {sorted(names)}", flush=True)
-            if len(dev_events) != EPS_ALONE_REPS or not all(
-                    "eps_grad" in e.name for e in dev_events):
-                raise SystemExit("eps wrapper: a call must launch its "
-                                 "kernel and nothing else on the device")
+            for trace in range(EPS_TRACES):
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    for _ in range(EPS_ALONE_REPS):
+                        ek.eps_star_and_grad_fused(*args, clamp=clamp)
+                    torch.cuda.synchronize()
+                dev_events = [e for e in prof.events()
+                              if e.device_type.name == "CUDA"]
+                names = {e.name[:60] for e in dev_events}
+                print(f"  eps wrapper, {label}, clamp={clamp}: "
+                      f"{EPS_ALONE_REPS} calls, {len(dev_events)} device "
+                      f"events: {sorted(names)}", flush=True)
+                if len(dev_events) > EPS_ALONE_REPS or not all(
+                        "eps_grad" in e.name for e in dev_events):
+                    raise SystemExit("eps wrapper: a call must launch its "
+                                     "kernel and nothing else on the device")
+                if len(dev_events) == EPS_ALONE_REPS:
+                    break
+            else:
+                raise SystemExit(f"eps wrapper: fewer device events than "
+                                 f"calls in {EPS_TRACES} traces")
             alone = 1e-3 * float(np.mean(
                 [e.time_range.elapsed_us() for e in dev_events]))
             calls = []
@@ -1053,7 +1104,7 @@ def eps_alone(ek, cases):
 
 #: bench.py's WHFast legs (bench.py:342-411): a unit central mass and two
 #: 1e-3 planets (Jacobi order), 1% Gaussian perturbations; the scan at
-#: B = 16384 x 1000 steps (softening 1e-3, the adaptive Kepler solver),
+#: B = 16384 x WH_SCAN_STEPS (softening 1e-3, the adaptive Kepler solver),
 #: the fused kernel at B = 2^22 x 100 steps (eps^2 = 1e-6, 8
 #: Laguerre-Conway updates)
 WH_M = (1.0, 1e-3, 1e-3)
@@ -1337,7 +1388,7 @@ def slice_legs(dev, hk, ek, bk, wk, sass):
 
 def whfast_legs(dev, kernels, wk):
     """bench.py's two WHFast legs: the scan (integrate_batch, adaptive
-    Kepler solver) at B = 16384 x 1000 steps and the fused kernel at
+    Kepler solver) at B = 16384 x WH_SCAN_STEPS and the fused kernel at
     B = 2^22 x 100 steps."""
     from nbodysimproject_tpu_torch import SimConfig
     from nbodysimproject_tpu_torch.parallel.batch_engine import (
@@ -1353,8 +1404,8 @@ def whfast_legs(dev, kernels, wk):
     out, cold, med, la = run_leg(
         f"whfast scan (integrate_batch, adaptive Kepler solver, n_sub "
         f"counts {torch.bincount(dy.n_sub).tolist()})",
-        lambda: integrate_batch(st, dy, cfg, DT, SCAN_STEPS, nsm),
-        B_SCAN, SCAN_STEPS, kernels)
+        lambda: integrate_batch(st, dy, cfg, DT, WH_SCAN_STEPS, nsm),
+        B_SCAN, WH_SCAN_STEPS, kernels)
     dr = drift_sys0(cfg, one(dy), one(st), one(out))
     print(f"    drift(sys0) {dr:.3e}; non-finite systems "
           f"{nonfinite(out.pos)}")
@@ -1394,6 +1445,8 @@ LN_R_CUT = 6.0
 LN_DENSE_MAX = 32_768
 LN_ROLL_DT = 1e-4
 LN_ROLL_NS, LN_ROLL_STEPS = (10_000, 100_000, 1_000_000), 50
+#: rollouts cut in depth (PR 12) to keep the script inside its time limit
+LN_ROLL_STEPS_AT = {1_000_000: 10}
 #: P3M's relative force error against the direct force, (median, p99)
 #: gates at about twice the JAX package's record (data/bench_largen.json:
 #: at most 1.02e-3 and 8.6e-3)
@@ -1643,8 +1696,8 @@ def largen_rollouts(fk, dev, rolls):
     from nbodysimproject_tpu_torch import SimConfig, largen_rollout
 
     out = {}
-    steps = LN_ROLL_STEPS
     for N in LN_ROLL_NS:
+        steps = LN_ROLL_STEPS_AT.get(N, LN_ROLL_STEPS)
         q, m, v = (torch.as_tensor(a, device=dev) for a in rolls[N])
         Ng = LN_NG[N]
         for mode in ("p3m", "direct_pallas"):
@@ -1977,6 +2030,307 @@ def check_output(df, what):
           f"pathological energy {int((~sane).sum())}; non-finite MEGNO on "
           f"{int((megno_nf & sane).sum())} non-pathological rows "
           f"(labelled unstable)")
+
+
+# ------------------------------------ the generators and the serving path
+BENCH_POP = os.path.join(HERE, "data", "bench_population_16384.npz")
+MODEL_PREFIX = os.path.join(HERE, "data", "headline_pre_")
+#: the bench population's horizon and the pipeline entry point's
+#: n_steps (its clamp's least value), cut from bench.py's 1000 steps for
+#: the time limit: their Kepler tail runs up to 7 trips a step, eagerly,
+#: which took 99-187 s a 1000-step run on the card (PR 12)
+BENCH_STEPS = 250
+ENTRY_STEPS = 500
+#: the card's scores against the same port on the CPU, on the same frame
+SERVE_MLP_TOL = 1e-5
+SERVE_GBDT_TOL = 1e-15
+#: |sum m q| and |sum m v| of each drawn system over sum m |q| / m |v|
+COM_GATE = 1e-5
+#: cohorts whose generator adds velocity noise after its COM projection
+#: (the JAX package's hierarchical cohort): their momentum is reported
+NOISY_COHORTS = ("hierarchical",)
+SERVE_REPS = 3
+
+
+def bench_population():
+    """bench.py's population as the JAX package draws it
+    (``diverse_population(PRNGKey(0), 16384, n_slots=8)``, float32, drawn
+    on the CPU and committed): (mass, pos, vel, mask, softening) numpy
+    arrays and the cohort tag of each row."""
+    with np.load(BENCH_POP, allow_pickle=False) as z:
+        arrays = [z[k] for k in ("mass", "pos", "vel", "mask", "softening")]
+        types = z["cohorts"][z["types"]]
+    return arrays, types
+
+
+def per_cohort(types, reduce=np.median, **cols):
+    """{cohort: {name: reduce(values)}} in cohort order of first
+    appearance."""
+    types = np.asarray(types)
+    order = list(dict.fromkeys(types.tolist()))
+    return {c: {k: float(reduce(np.asarray(v)[types == c]))
+                for k, v in cols.items()} for c in order}
+
+
+def check_drawn(pop, sizes, counts, dev):
+    """The generators phase's gates on a drawn population."""
+    mass, pos, vel, mask, soft, types = pop
+    B = mass.shape[0]
+    want = sum(([k] * v for k, v in sizes.items()), [])
+    if list(types) != want:
+        raise SystemExit("generators: the cohorts are not cohort_sizes' "
+                         "sizes in cohort order")
+    for x in (mass, pos, vel, soft):
+        if x.device.type != dev.type or x.dtype != torch.float32:
+            raise SystemExit(f"generators: a {x.dtype} tensor on {x.device}")
+        if not bool(torch.isfinite(x).all()):
+            raise SystemExit("generators: non-finite values")
+    if mass.shape != (B, N_SLOTS) or pos.shape != (B, N_SLOTS, 2):
+        raise SystemExit(f"generators: shapes {mass.shape} {pos.shape}")
+    t = np.asarray(types)
+    n = mask.sum(1).cpu().numpy()
+    m = torch.where(mask, mass, torch.zeros_like(mass)).double()
+    rel = {}
+    for name, x in (("pos", pos), ("vel", vel)):
+        x = x.double()
+        num = (m[..., None] * x).sum(1).norm(dim=-1)
+        den = (m * x.norm(dim=-1)).sum(1)
+        rel[name] = (num / torch.clamp_min(den, 1e-300)).cpu().numpy()
+    for c, (lo, hi) in counts.items():
+        sel = t == c
+        if n[sel].min() < lo or n[sel].max() > hi:
+            raise SystemExit(f"generators: {c} body counts {n[sel].min()}-"
+                             f"{n[sel].max()} outside [{lo}, {hi}]")
+        worst_q = float(rel["pos"][sel].max())
+        worst_v = float(rel["vel"][sel].max())
+        print(f"  {c}: {int(sel.sum())} systems, bodies {n[sel].min()}-"
+              f"{n[sel].max()}, max |sum m q| / sum m|q| {worst_q:.3e}, "
+              f"max |sum m v| / sum m|v| {worst_v:.3e}"
+              + (" (noise after the projection, as in the JAX package; "
+                 "not gated)" if c in NOISY_COHORTS else ""))
+        if worst_q > COM_GATE or (c not in NOISY_COHORTS
+                                  and worst_v > COM_GATE):
+            raise SystemExit(f"generators: {c} COM or momentum above "
+                             f"{COM_GATE} of its scale")
+
+
+def generators_phase(dev):
+    """diverse_population(torch.Generator seeded 0, 16384, n_slots=8)
+    drawn on the card between CUDA events, twice (the same bits), gated,
+    and its per-cohort statistics beside the committed bench
+    population's."""
+    from nbodysimproject_tpu_torch.generators import pipeline as gp
+
+    times, pops = [], []
+    for _ in range(2):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        pops.append(gp.diverse_population(gen, B_MAIN, n_slots=N_SLOTS,
+                                          device=dev))
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop))
+    same = all(torch.equal(a, b) for a, b in zip(pops[0][:5], pops[1][:5]))
+    print(f"  diverse_population({B_MAIN}, n_slots={N_SLOTS}) on the card: "
+          f"cold {times[0]:.3f} ms, again {times[1]:.3f} ms "
+          f"({B_MAIN / times[1] * 1e3:.1f} systems/s); the same seed "
+          f"redrawn gives the same bits: {same}")
+    if not same:
+        raise SystemExit("generators: one seed drew two populations")
+    pop = pops[0]
+    check_drawn(pop, gp.cohort_sizes(B_MAIN), gp.COHORT_BODY_COUNTS, dev)
+    st = gp.population_statistics(*pop[:5])
+    (bm, bq, bv, bmask, bsoft), btypes = bench_population()
+    f = lambda a: torch.as_tensor(a)
+    bst = gp.population_statistics(f(bm), f(bq), f(bv), f(bmask), f(bsoft))
+    card = per_cohort(pop[5], **{k: v.cpu().numpy() for k, v in st.items()})
+    ref = per_cohort(btypes, **{k: v.numpy() for k, v in bst.items()})
+    print("  per-cohort medians, the card's draw | the committed bench "
+          "population (JAX, CPU):")
+    for c in card:
+        print(f"    {c}: " + ", ".join(
+            f"{k} {card[c][k]:.4f} | {ref[c][k]:.4f}" for k in card[c]))
+    return dict(ms=times[1], cold_ms=times[0])
+
+
+def bench_population_phase(cfg, hk, kw, dev):
+    """bench.py's leg on its own population: analyze_population under
+    _PIPE_CFG at BENCH_STEPS steps, one cold and WARM_REPS warm runs;
+    then the entry point MLTrainingPipeline(16384, ENTRY_STEPS, seed=0)
+    .generate_diverse_dataset_batched() on a population drawn on the
+    card."""
+    from nbodysimproject_tpu_torch import MLTrainingPipeline, analyze_population
+    from nbodysimproject_tpu_torch.generators.pipeline import cohort_sizes
+
+    (mass, pos, vel, mask, soft), types = bench_population()
+    kinds = (hk.hamsoft_analysis_multistep, hk.hamsoft_megno_multistep)
+    run_kw = dict(kw, softening=soft, G=1.0, min_softening=0.0, device=dev)
+    reset_counts(*kinds)
+    tm = {}
+    t0 = time.perf_counter()
+    df = analyze_population(mass, pos, vel, mask, cfg, timing_out=tm,
+                            **run_kw)
+    cold = time.perf_counter() - t0
+    launches = {f.__name__: f.launches for f in kinds}
+    print(f"  cold {cold:.3f}s ({B_MAIN / cold:.1f} systems/s), launches "
+          f"{launches}, phases {tm}")
+    if not all(launches.values()):
+        raise SystemExit(f"bench population: a kernel was not launched: "
+                         f"{launches}")
+    warm = []
+    for _ in range(WARM_REPS):
+        tm = {}
+        t0 = time.perf_counter()
+        df = analyze_population(mass, pos, vel, mask, cfg, timing_out=tm,
+                                **run_kw)
+        warm.append(time.perf_counter() - t0)
+        print(f"  warm {warm[-1]:.3f}s: fused_ms {tm['fused_ms']:.1f}, "
+              f"tail_ms {tm['tail_ms']:.1f}, n_tail {tm['n_tail']}; "
+              f"phases {tm}")
+    t_med = float(np.median(warm))
+    print(f"  warm median {t_med:.3f}s over {WARM_REPS}: "
+          f"{B_MAIN / t_med:.1f} systems/s (bench.py's population, "
+          f"B={B_MAIN}, n_steps={kw['n_steps']}, N={N_SLOTS}, tail on)")
+    check_output(df, "bench population")
+    share = per_cohort(types, np.mean, stable=df["is_stable"].to_numpy(float),
+                       tail=df["tail_fast_path"].to_numpy(float))
+    print("  per cohort, stable share / tail share: " + "; ".join(
+        f"{c} {v['stable']:.4f} / {v['tail']:.4f}" for c, v in share.items()))
+
+    reset_counts(*kinds)
+    tm = {}
+    t0 = time.perf_counter()
+    df_e = MLTrainingPipeline(n_systems=B_MAIN, n_steps=ENTRY_STEPS, seed=0,
+                              device=dev) \
+        .generate_diverse_dataset_batched(timing_out=tm)
+    t_e = time.perf_counter() - t0
+    launches_e = {f.__name__: f.launches for f in kinds}
+    want = sum(([k] * v for k, v in cohort_sizes(B_MAIN).items()), [])
+    print(f"  MLTrainingPipeline(n_systems={B_MAIN}, n_steps={ENTRY_STEPS}, "
+          f"seed=0).generate_diverse_dataset_batched(): {t_e:.3f}s "
+          f"({B_MAIN / t_e:.1f} systems/s, drawn on the card, cold), "
+          f"launches {launches_e}, fused_ms {tm['fused_ms']:.1f}, tail_ms "
+          f"{tm['tail_ms']:.1f}, n_tail {tm['n_tail']}")
+    if len(df_e) != B_MAIN or "system_type" not in df_e \
+            or df_e["system_type"].tolist() != want:
+        raise SystemExit("the pipeline's frame: wrong rows or system_type")
+    if not all(launches_e.values()):
+        raise SystemExit(f"the pipeline did not launch both kernels: "
+                         f"{launches_e}")
+    check_output(df_e, "pipeline entry point")
+    e_share = per_cohort(df_e["system_type"], np.mean,
+                         stable=df_e["is_stable"].to_numpy(float),
+                         tail=df_e["tail_fast_path"].to_numpy(float))
+    print("  its stable share / tail share per cohort: " + "; ".join(
+        f"{c} {v['stable']:.4f} / {v['tail']:.4f}"
+        for c, v in e_share.items()))
+    return dict(df=df, types=types, pop=(mass, pos, vel, mask, soft),
+                cold=cold, med=t_med, launches=launches, entry_s=t_e,
+                launches_entry=launches_e)
+
+
+def serving_phase(cfg, bench, dev, main_rate):
+    """ic_feature_frame and both headline predictors on the bench
+    population on the card, timed (beside the bench population's
+    analysis rate and the main path's 1000-step rate ``main_rate``), the
+    card's scores gated against the same port on the CPU, the verdicts
+    beside the bench population's is_stable."""
+    from nbodysimproject_tpu_torch import StabilityPredictor, ic_feature_frame
+
+    mass, pos, vel, mask, soft = bench["pop"]
+    types = bench["types"]
+    print(f"  torch.backends.cuda.matmul.allow_tf32 = "
+          f"{torch.backends.cuda.matmul.allow_tf32}, "
+          f"torch.get_float32_matmul_precision() = "
+          f"{torch.get_float32_matmul_precision()!r} (the predictor runs "
+          f"the MLP with TF32 off and 'highest' whatever these are)")
+    kw = dict(G=1.0, softening=soft, min_softening=0.0, dt=DT)
+
+    def timed(fn, reps=SERVE_REPS):
+        """(cold s, warm median s, last output); each call ends in host
+        copies, so the host clock covers the device work."""
+        out, ts = None, []
+        for _ in range(reps + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t0)
+        return ts[0], float(np.median(ts[1:])), out
+
+    c_ic, t_ic, frame = timed(lambda: ic_feature_frame(
+        mass, pos, vel, mask, cfg, device=dev, **kw))
+    frame_cpu = ic_feature_frame(mass, pos, vel, mask, cfg, device="cpu",
+                                 **kw)
+    feats = [c for c in frame.columns if c.startswith("initial_")]
+    # each column's largest difference over its largest magnitude
+    d_feat = max(float(np.nanmax(np.abs(
+        frame[c].to_numpy(float) - frame_cpu[c].to_numpy(float)))
+        / max(float(np.nanmax(np.abs(frame_cpu[c].to_numpy(float)))), 1e-30))
+        for c in feats)
+    an_rate = B_MAIN / bench["med"]
+    print(f"  ic_feature_frame: cold {c_ic:.3f}s, warm median {t_ic:.4f}s = "
+          f"{B_MAIN / t_ic:.1f} systems/s; its initial_* columns against "
+          f"the CPU's: largest difference over the column's largest magnitude "
+          f"{d_feat:.3e} (not gated)")
+    out = {"ic_s": t_ic}
+    for kind in ("mlp", "gbdt"):
+        card = StabilityPredictor(prefix=MODEL_PREFIX, model=kind,
+                                  device=dev)
+        cpu = StabilityPredictor(prefix=MODEL_PREFIX, model=kind,
+                                 device="cpu")
+        c_p, t_p, (prob, stable, raw) = timed(
+            lambda: card.predict_frame(frame, cohorts=types,
+                                       return_raw=True))
+        prob_c, stable_c, raw_c = cpu.predict_frame(frame, cohorts=types,
+                                                    return_raw=True)
+        calib = card.calibration
+        thr = np.asarray([(calib.get("cohort_operating_points") or {}).get(
+            c, calib["global_threshold"]) for c in types])
+        d_prob = float(np.abs(prob - prob_c).max())
+        d_raw = float(np.abs(raw.astype(float) - raw_c.astype(float)).max())
+        rate = B_MAIN / t_p
+        both = B_MAIN / (t_p + t_ic)
+        print(f"  {kind}: predict_frame cold {c_p:.3f}s, warm median "
+              f"{t_p:.4f}s = {rate:.1f} systems/s; with ic_feature_frame "
+              f"{both:.1f} systems/s = {both / an_rate:.1f}x the bench "
+              f"population's analysis at {BENCH_STEPS} steps "
+              f"({an_rate:.1f} systems/s), {both / main_rate:.1f}x the main "
+              f"path's at {N_STEPS} ({main_rate:.1f}); card against CPU: "
+              f"max |dprob| {d_prob:.3e}, max |draw| {d_raw:.3e}")
+        if kind == "mlp":
+            clear = np.abs(prob_c - thr) > SERVE_MLP_TOL
+            if not (d_prob <= SERVE_MLP_TOL and d_raw <= SERVE_MLP_TOL
+                    and np.array_equal(stable[clear], stable_c[clear])):
+                raise SystemExit("serving: the card's MLP scores differ from "
+                                 "the CPU's")
+            print(f"    verdicts equal on the {int(clear.sum())} rows more "
+                  f"than {SERVE_MLP_TOL} from their operating point; "
+                  f"{int((stable != stable_c).sum())} differ in all")
+        else:
+            same_raw = np.array_equal(card.raw_score(frame),
+                                      cpu.raw_score(frame))
+            if not (same_raw and d_prob <= SERVE_GBDT_TOL
+                    and d_raw <= SERVE_GBDT_TOL
+                    and np.array_equal(stable, stable_c)):
+                raise SystemExit(f"serving: the card's GBDT differs from the "
+                                 f"CPU's (raw scores equal: {same_raw})")
+            print(f"    raw scores equal bit for bit: {same_raw}")
+        truth = bench["df"]["is_stable"].to_numpy(bool)
+        agree = per_cohort(types, np.mean,
+                           agree=(stable == truth).astype(float),
+                           predicted=stable.astype(float))
+        print(f"    verdicts against the bench population's is_stable "
+              f"(agreement / predicted stable share, not gated): " + "; ".join(
+                  f"{c} {v['agree']:.4f} / {v['predicted']:.4f}"
+                  for c, v in agree.items())
+              + f"; all {float((stable == truth).mean()):.4f}")
+        out[kind] = dict(s=t_p, rate=rate, both=both, ratio=both / an_rate,
+                         ratio_main=both / main_rate, d_prob=d_prob)
+    return out
 
 
 def main():
@@ -2313,6 +2667,18 @@ def main():
               f"lane ({steps} x {n_sub_max} trips), bound {b_ms:.3f} ms "
               f"({b_by}), {t.ms / b_ms:.0f}x the bound", flush=True)
 
+    phase("generators: diverse_population on the card")
+    gen_out = generators_phase(dev)
+    phase("bench population: analyze_population on bench.py's population, "
+          "then MLTrainingPipeline")
+    bench = bench_population_phase(cfg, hk, dict(dt=DT, n_steps=BENCH_STEPS,
+                                                 mode="full",
+                                                 show_progress=False), dev)
+    phase("serving: ic_feature_frame and StabilityPredictor")
+    serving = serving_phase(cfg, bench, dev, B_MAIN / t_med)
+    del bench["df"]
+    torch.cuda.empty_cache()
+
     phase("the batched slice: bench.py's legs at full width")
     legs = slice_legs(dev, hk, ek, bk, wk, sass)
 
@@ -2453,6 +2819,21 @@ def main():
         print(f"  {kind} kernel on the main path: {ms:.1f} ms, {per_trip:.3f}"
               f" us per trip of the deepest lane; top-bucket case "
               f"{cases[1][kind][0]:.3f} ms")
+    print(f"  generators: diverse_population({B_MAIN}) {gen_out['ms']:.3f} ms"
+          f" on the card (cold {gen_out['cold_ms']:.3f} ms)")
+    print(f"  bench population ({BENCH_STEPS} steps, tail on): warm median "
+          f"{bench['med']:.3f}s = "
+          f"{B_MAIN / bench['med']:.1f} systems/s (cold {bench['cold']:.3f}s),"
+          f" launches {bench['launches']}; the pipeline entry point "
+          f"{bench['entry_s']:.3f}s, launches {bench['launches_entry']}")
+    for kind in ("mlp", "gbdt"):
+        v = serving[kind]
+        print(f"  serving {kind}: predict_frame {v['rate']:.1f} systems/s, "
+              f"with ic_feature_frame {v['both']:.1f} systems/s = "
+              f"{v['ratio']:.1f}x the bench population's analysis at "
+              f"{BENCH_STEPS} steps, {v['ratio_main']:.1f}x the main path's "
+              f"at {N_STEPS}; card against CPU max |dprob| "
+              f"{v['d_prob']:.3e}")
     phase("done")
     print(f"  total {time.perf_counter() - T0:.1f}s")
     print(card)

@@ -2,8 +2,9 @@
 
 The JAX package ``nbodysimproject_tpu`` stays the reference; this
 package mirrors its layout (``core/``, ``ops/``, ``integrators/``,
-``diagnostics/``, ``analysis/``, ``parallel/``) and imports neither JAX
-nor the JAX package.  Ported so far (d = 2 unless stated):
+``diagnostics/``, ``analysis/``, ``parallel/``, ``generators/``,
+``ml/``, ``utils/``) and imports neither JAX nor the JAX package.
+Ported so far (d = 2 unless stated):
 
 * full- and core-mode ``analyze_population`` under the dataset
   pipeline's configuration, through hand-written CUDA kernels for the
@@ -25,17 +26,27 @@ nor the JAX package.  Ported so far (d = 2 unless stated):
   P3M (``ops/pm_force.py``, plain PyTorch), the dense force or the
   tiled exact force kernel (``ops/force_kernels.py``, d = 2 and 3),
   which also serves verlet and yoshida4 under ``use_pallas_forces`` and
-  the many-planet WHFast kick (``force_mode`` other than "direct").
+  the many-planet WHFast kick (``force_mode`` other than "direct");
+* the generators and the serving path: ``diverse_population`` /
+  ``headline_population`` (``generators/``, drawn from
+  ``torch.Generator``s, d = 2 and 3), ``MLTrainingPipeline.
+  generate_diverse_dataset_batched`` (a population drawn and analysed
+  in one pass), ``ic_feature_frame`` (the pre-integration features, no
+  integration) and ``StabilityPredictor`` (``ml/``: the headline MLP
+  and GBDT read from ``data/headline_pre_torch.npz`` with numpy alone).
 
 Entry points run on the current CUDA device unless the caller passes
-``device="cpu"``; the batched-integration functions run where their
-tensors lie.
+``device="cpu"`` (the generators draw from a ``torch.Generator`` on that
+device); the batched-integration functions run where their tensors lie.
 """
 
-from .analysis.batch import analyze_population
+from .analysis.batch import analyze_population, ic_feature_frame
 from .core.config import SimConfig
 from .core.state import DynParams, SimState, state_from_numpy
+from .generators.pipeline import (MLTrainingPipeline, diverse_population,
+                                  headline_population)
 from .integrators.largen import largen_rollout
+from .ml.predict import StabilityPredictor
 from .ops.batch_kernels import verlet_multistep, yoshida4_multistep
 from .ops.hamsoft_kernels import hamsoft_multistep
 from .ops.whfast_kernels import whfast_multistep
@@ -44,4 +55,6 @@ from .parallel.batch_engine import build_batch, integrate_batch, step_batch
 __all__ = ["SimConfig", "SimState", "DynParams", "state_from_numpy",
            "analyze_population", "build_batch", "integrate_batch",
            "step_batch", "verlet_multistep", "yoshida4_multistep",
-           "hamsoft_multistep", "whfast_multistep", "largen_rollout"]
+           "hamsoft_multistep", "whfast_multistep", "largen_rollout",
+           "diverse_population", "headline_population", "MLTrainingPipeline",
+           "ic_feature_frame", "StabilityPredictor"]

@@ -178,29 +178,76 @@ def serialize_ic_columns(mass, pos, vel, mask, *, G, softening,
 
 
 def _as_np(x):
+    """A host numpy copy (for the host-side columns and schedule)."""
     return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
         else np.asarray(x)
+
+
+def _on_device(x, dtype, device):
+    """``x`` as a ``dtype`` tensor on ``device``: a tensor is converted
+    where it lies and moved (no host round trip for a tensor already on
+    the card), an array or scalar is copied there."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().to(device=device, dtype=dtype, copy=True)
+    return torch.as_tensor(np.array(x), dtype=dtype, device=device)
 
 
 def prepare_population(mass, pos, vel, mask, cfg, *, G, softening,
                        min_softening, dt, device):
     """Construction and schedule of a population, as the analysis runs
-    it: ``build_batch``, the pi-budget mu raise for ``dt`` and the n_sub
-    cap.  Returns (states, dyns, n_sub_raw) with the uncapped frozen
-    n_sub as a host array."""
+    it: ``build_batch``, the pi-budget mu raise for ``dt`` (ham_soft
+    only, as in the JAX package) and the n_sub cap.  Inputs may be
+    arrays or tensors on any device.  Returns (states, dyns, n_sub_raw)
+    with the uncapped frozen n_sub as a host array."""
     dtype = dtype_of(cfg)
-    t = lambda x, dt_=dtype: torch.as_tensor(np.array(_as_np(x)), dtype=dt_,
-                                             device=device)
+    t = lambda x, dt_=dtype: _on_device(x, dt_, device)
     states, dyns = build_batch(t(mass), t(pos), t(vel), t(mask, torch.bool),
-                               cfg, np.array(_as_np(G)),
-                               np.array(_as_np(softening)),
-                               np.array(_as_np(min_softening)), dt)
-    mu_new = calib.calibrate_mu_from_pi_budget(
-        dyns.mu_soft, dyns.k_soft, abs(dt), cfg.theta_imp)
-    dyns = dyns.replace(mu_soft=mu_new)
+                               cfg, t(G, torch.float64),
+                               t(softening, torch.float64),
+                               t(min_softening, torch.float64), dt)
+    if cfg.integrator_mode == "ham_soft":
+        mu_new = calib.calibrate_mu_from_pi_budget(
+            dyns.mu_soft, dyns.k_soft, abs(dt), cfg.theta_imp)
+        dyns = dyns.replace(mu_soft=mu_new)
     n_sub_raw = dyns.n_sub.cpu().numpy()
     dyns = dyns.replace(n_sub=torch.clamp_max(dyns.n_sub, _n_sub_cap(cfg)))
     return states, dyns, n_sub_raw
+
+
+def ic_feature_frame(mass, pos, vel, mask, cfg, *, G=1.0, softening=0.05,
+                     min_softening=0.0, dt=0.01, include_ics=True,
+                     device=None):
+    """The pre-integration feature frame of a fresh (B, N, d) population,
+    with no integration: the per-body IC columns and sim metadata
+    (``serialize_ic_columns``), the ``initial_*`` static features and
+    the frozen-schedule columns (n_sub, n_sub_capped).  The JAX
+    package's ``ic_feature_frame``: the same construction
+    (``prepare_population``, whose mu raise is ham_soft-only there too)
+    and the same host copies as ``analyze_population``, so these columns
+    are bit for bit the ones ``analyze_population`` gives for the same
+    population.  This is the fast path the product exists for: score
+    new systems with a trained classifier (``ml/predict.py``) at
+    feature-extraction cost.  ``device=None`` runs on the card."""
+    import pandas as pd
+
+    dev = resolve_device(device)
+    g_np = np.asarray(_as_np(G), np.float64)
+    states, dyns, n_sub_raw = prepare_population(
+        mass, pos, vel, mask, cfg, G=g_np, softening=softening,
+        min_softening=min_softening, dt=dt, device=dev)
+    res_np = {}
+    if include_ics:
+        res_np.update(serialize_ic_columns(
+            _as_np(states.mass), _as_np(states.pos),
+            _as_np(_on_device(vel, dtype_of(cfg), dev)),
+            _as_np(states.mask), G=g_np, softening=_as_np(softening),
+            min_softening=_as_np(min_softening), cfg=cfg))
+    feats = F.extract_all(states, dyns, cfg)
+    res_np.update({f"initial_{k}": feats[k].cpu().numpy()
+                   for k in sorted(feats)})
+    res_np["n_sub"] = n_sub_raw.astype(np.int64)
+    res_np["n_sub_capped"] = n_sub_raw > _n_sub_cap(cfg)
+    return pd.DataFrame(res_np)
 
 
 def analyze_population(mass, pos, vel, mask, cfg, *, G=1.0, softening=0.05,
@@ -266,8 +313,7 @@ def analyze_population(mass, pos, vel, mask, cfg, *, G=1.0, softening=0.05,
     states, dyns, n_sub_raw = prepare_population(
         mass, pos, vel, mask, cfg, G=g_np, softening=softening,
         min_softening=min_softening, dt=dt, device=dev)
-    t = lambda x: torch.as_tensor(np.array(_as_np(x)), dtype=dtype,
-                                  device=dev)
+    t = lambda x: _on_device(x, dtype, dev)
 
     megno_steps = 0
     if mode == "full":

@@ -93,3 +93,14 @@ def test_walk_covers_the_large_n_slice_modules():
     for mod in ("ops/force_kernels.py", "ops/pm_force.py", "ops/forces.py",
                 "integrators/largen.py", "integrators/whfast.py"):
         assert mod in names, mod
+
+
+def test_walk_covers_the_generator_and_serving_modules():
+    """The generators' and the serving path's modules are among the
+    sources checked above (the predictor must load without flax)."""
+    names = {os.path.relpath(p, PKG) for p in _sources()}
+    for mod in ("generators/ic_generator.py", "generators/specialized.py",
+                "generators/pipeline.py", "ml/artifacts.py", "ml/gbdt.py",
+                "ml/predict.py", "ml/model_zoo.py", "ml/dataset.py",
+                "ml/data_utils.py", "ml/calibrate.py", "utils/seeding.py"):
+        assert mod in names, mod
