@@ -6,7 +6,9 @@
 Drives the port's paths through their hand-written CUDA kernels:
 the product end to end (a diverse population drawn on the card, analysed
 by ``analyze_population``, scored by the headline classifiers without
-integration), full-mode ``analyze_population`` under the dataset pipeline's
+integration), the 3-D product path (``data/stability_3d_131k.csv.gz``
+through ``analyze_population`` at d = 3 and the 3-D headline
+classifiers), full-mode ``analyze_population`` under the dataset pipeline's
 configuration unmodified (``generators/pipeline.py::_PIPE_CFG`` of the
 JAX package, Kepler tail policy on) on real systems from
 ``data/stability_131k.csv.gz`` (``csrc/hamsoft.cu`` for the fused lanes,
@@ -21,13 +23,14 @@ routes; ``csrc/pairwise_force.cu``).  Phases (each prints its seconds):
 
 1. card: ``nvidia-smi`` name and power limit;
 2. build: one ``nvcc`` per kernel source and body-slot count (the
-   tiled force kernel: per dimension, 2 and 3; the composition kernel:
-   every N from 2 to 16 at d = 2 and 3), all started together, into the
-   git-ignored ``nbodysimproject_tpu_torch/_build/``; prints each
-   build's seconds and ptxas' register, stack frame and spill lines,
-   and fails unless the analysis and MEGNO kernels at N = 8, the
-   multi-step kernel at every N, the eps kernel at N = 3 and 8, the
-   WHFast kernel (and its Stumpff probe), the tiled force kernel and the
+   tiled force kernel: per dimension, 2 and 3; the analysis/MEGNO and
+   eps kernels at d = 2 and 3; the composition kernel: every N from 2
+   to 16 at d = 2 and 3), all started together, into the git-ignored
+   ``nbodysimproject_tpu_torch/_build/``; prints each build's seconds
+   and ptxas' register, stack frame and spill lines, and fails unless
+   the analysis and MEGNO kernels at N = 8 (d = 2 and 3), the
+   multi-step kernel at every N, the eps kernel at N = 3 and 8 (d = 2
+   and 3), the WHFast kernel (and its Stumpff probe), the tiled force kernel and the
    composition kernel at N in {3, 4, 8} and d in {2, 3} spill 0 bytes
    (the composition kernel also with 0 bytes of stack frame; its other
    builds reported); counts the composition kernel's SASS instructions
@@ -85,7 +88,26 @@ routes; ``csrc/pairwise_force.cu``).  Phases (each prints its seconds):
    measured;
 9. the main path's kernel launches replayed between CUDA events, with
    the time per trip of the deepest lane;
-10. generators: ``diverse_population`` (a ``torch.Generator`` on the card
+10. the 3-D product path (``data/stability_3d_131k.csv.gz``, its first
+   16384 rows, (B, 8, 3)): the analysis and MEGNO kernels at d = 3 held
+   to their plain versions as in phase 4 (1024 rows, the lowest bucket
+   at 20 steps and the top bucket at 2 steps, ``row_gate``'s rule), the
+   eps kernel at d = 3 on the first 1024 rows under both clamps and its
+   two layouts on the 3-body rows (bitwise, gated), the ham_soft scan at
+   d = 3 (``integrate_batch`` on the n_sub = 1 rows, SCAN3_STEPS steps,
+   the eps kernel's launches gated > 0), the main path
+   ``analyze_population`` under ``_PIPE_CFG`` one cold and WARM_REPS_3D
+   warm runs (systems/s, fused_ms, tail_ms, n_tail, launches of both
+   kernels gated > 0), the tail-off run (non-tail rows bitwise, gated),
+   is_stable held to the JAX fused engine's on the first 256 rows with
+   at most 2 substeps (``data/labels_3d_jax_fused_256.npz``, gated at
+   LABEL_GATE) and beside the dataset's on the non-tail rows (printed:
+   its columns are round 3's, before the vector-L fix), the main
+   path's launches replayed between CUDA events with their bound at
+   d = 3, and the 3-D headline MLP and GBDT
+   (``data/headline3d_pre_torch.npz``) served on the card, held to the
+   CPU as phase 13 holds the 2-D ones;
+11. generators: ``diverse_population`` (a ``torch.Generator`` on the card
    seeded 0, 16384 systems, 8 slots) between CUDA events, twice (the
    same bits, gated); gated on the cohort sizes and order, each cohort's
    body counts, finite float32 values on the card and each system's
@@ -94,29 +116,29 @@ routes; ``csrc/pairwise_force.cu``).  Phases (each prints its seconds):
    |sum m v|) at most COM_GATE of its scale; the per-cohort medians of
    total mass, virial ratio and mean separation beside those of the
    committed bench population;
-11. bench population: ``data/bench_population_16384.npz`` (bench.py's
+12. bench population: ``data/bench_population_16384.npz`` (bench.py's
    own population, ``diverse_population(PRNGKey(0), 16384, n_slots=8)``
    drawn by the JAX package on the CPU, read with numpy) through
    ``analyze_population`` under ``_PIPE_CFG`` as bench.py's leg runs it
    but at BENCH_STEPS = 250 steps (bench.py's 1000 cut for the time
    limit: its eager Kepler tail runs up to 7 trips a step),
-   one cold and WARM_REPS warm runs (systems/s, ``timing_out``'s phases,
+   one cold and BENCH_WARM_REPS warm runs (systems/s, ``timing_out``'s phases,
    fused_ms, tail_ms, n_tail, the launches of the analysis and MEGNO
    kernels, gated > 0), the stable and tail shares per cohort; then the
    entry point ``MLTrainingPipeline(n_systems=16384, n_steps=500,
    seed=0).generate_diverse_dataset_batched()`` once (500 steps: the
    least its clamp takes), its frame gated (16384
    rows, ``system_type`` in cohort order, both kernels launched);
-12. serving: ``ic_feature_frame`` and ``StabilityPredictor.predict_frame``
+13. serving: ``ic_feature_frame`` and ``StabilityPredictor.predict_frame``
    for the headline MLP and GBDT (``data/headline_pre_torch.npz``) on
    the bench population on the card, cold and the warm median of
-   SERVE_REPS, in systems/s and as a multiple of phase 11's analysis
+   SERVE_REPS, in systems/s and as a multiple of phase 12's analysis
    rate; the card's scores gated against the same port on the CPU on
    the same frame (MLP within SERVE_MLP_TOL with equal verdicts outside
    that band; GBDT raw scores bit for bit, probabilities within
-   SERVE_GBDT_TOL); the verdicts' agreement with phase 11's is_stable
+   SERVE_GBDT_TOL); the verdicts' agreement with phase 12's is_stable
    per cohort (not gated);
-13. ``bench.py``'s legs at full width: verlet and yoshida4 scans at
+14. ``bench.py``'s legs at full width: verlet and yoshida4 scans at
    B = 16384 and 1000 steps, the fused verlet at 2^24 and yoshida4 at
    2^22 (with the SASS instructions a step and the issue floor they
    give at the card's maximum SM clock), the ham_soft scan and fused kernel at 2^20 and 100 steps
@@ -127,36 +149,36 @@ routes; ``csrc/pairwise_force.cu``).  Phases (each prints its seconds):
    counts around its cold run, the warm median of three runs between
    CUDA events, the count of non-finite systems and system 0's
    relative drift of the extended Hamiltonian;
-14. the tiled force kernel against its plain version: N = 4097 (not a
+15. the tiled force kernel against its plain version: N = 4097 (not a
    tile multiple) at d = 2 and N = 1000 at d = 3 on all rows, B = 4
    systems with their own eps and G, and bench_largen's N = 10^5 cloud
    on 4096 sampled rows; each row's error from the float64 plain version
    over its magnitude sum, gated (FORCE_ERR_*), and the momentum;
-15. bench_largen's single evaluations at N = 10^4, 32768, 10^5, 10^6
+16. bench_largen's single evaluations at N = 10^4, 32768, 10^5, 10^6
    (its ICs drawn again with numpy in its order, its mesh sizes): P3M
    (and its short-range pass alone), the tiled kernel and, up to 32768,
    the dense eager force; P3M's
    error median and p99 against the dense force (else the kernel),
    gated (P3M_ERR_GATE, n_dropped = 0);
-16. bench_largen's rollouts, ``largen_rollout`` (dt 1e-4, eps 6 / Ng):
+17. bench_largen's rollouts, ``largen_rollout`` (dt 1e-4, eps 6 / Ng):
    p3m and direct_pallas at 10^4 and 10^5, p3m at 10^6, 50 steps
    each (10 at 10^6, cut for the time limit), cold and the warm median
    of three in steps/s;
    n_dropped_max = 0, finite states, the kernel's launches > 0 on the
    direct route;
-17. verlet through ``build_batch`` -> ``integrate_batch`` with
+18. verlet through ``build_batch`` -> ``integrate_batch`` with
    ``use_pallas_forces`` on one 4096-body cloud for 100 steps, against
    the same run on the dense force, both timed;
-18. bench_whfast_largen: 4096, 16384 and 65536 planets, LC-8, the kick
+19. bench_whfast_largen: 4096, 16384 and 65536 planets, LC-8, the kick
    on direct_pallas and on P3M with the star split: 20 timed substeps,
    the drift over 200 (float64 energy on the card, gated), P3M's kick
    error against direct_pallas (p99 gated);
-19. the tiled force kernel alone at its paths' widths (the classical
+20. the tiled force kernel alone at its paths' widths (the classical
    route's N = 4096, the 65536-planet kick, 10^5 and 10^6): many
    launches back to back between CUDA events, with its bound.
 
-It prints a ``{"kernels": [...]}`` line (seven kernels) and, last, the
-device line.  Any
+It prints a ``{"kernels": [...]}`` line (the seven kernels, and rows 1,
+2 and 4 again at d = 3) and, last, the device line.  Any
 failed check raises, so the script exits non-zero; without a CUDA
 device it exits non-zero before printing any result.  It writes
 nothing outside the build directory.
@@ -261,23 +283,25 @@ def card_line():
     return out.strip().splitlines()[0]
 
 
-def load_population(n_rows):
+def load_population(n_rows, path=DATA, d=2):
     """(mass, pos, vel, mask, G, softening, min_softening) of the first
-    ``n_rows`` dataset rows, as ml/dataset.py reads the file, and the
-    dataset's own labels for them (columns of REF_COLS)."""
+    ``n_rows`` rows of a dataset of dimension ``d``, as ml/dataset.py
+    reads the file, and the dataset's own labels for them (columns of
+    REF_COLS)."""
     import pandas as pd
 
-    cols = [f"{p}_{i}" for p in ("mass", "x", "y", "vx", "vy")
-            for i in range(N_SLOTS)]
-    df = pd.read_csv(DATA, comment="#", nrows=n_rows,
+    axes = ("x", "y", "z")[:d]
+    cols = [f"{p}_{i}" for p in ("mass",) + axes
+            + tuple(f"v{a}" for a in axes) for i in range(N_SLOTS)]
+    df = pd.read_csv(path, comment="#", nrows=n_rows,
                      usecols=cols + ["G", "softening", "min_softening"]
                      + list(REF_COLS))
     get = lambda p: df[[f"{p}_{i}" for i in range(N_SLOTS)]].to_numpy(
         np.float64)
     mass = get("mass")
     mask = np.isfinite(mass)
-    pos = np.stack([get("x"), get("y")], -1)
-    vel = np.stack([get("vx"), get("vy")], -1)
+    pos = np.stack([get(a) for a in axes], -1)
+    vel = np.stack([get(f"v{a}") for a in axes], -1)
     clean = lambda a: np.where(np.isfinite(a), a, 0.0)
     return (clean(mass), clean(pos), clean(vel), mask,
             df["G"].to_numpy(np.float64), df["softening"].to_numpy(np.float64),
@@ -412,8 +436,12 @@ def entry_ops(n, d):
 
 
 def metric_ops(n, d):
+    """The step metrics; at d = 3 the vector branch (per body a cross
+    product, its norm and the sums of L, |L_i| and their spread, then
+    |L|, |L0| and the tilt) does 17 n + 14 more than the scalar one."""
     P = n * (n - 1) // 2
-    return 2 * n * d + 2 * d + 9 * n + 4 + (3 * d + 9) * P + 17
+    return (2 * n * d + 2 * d + 9 * n + 4 + (3 * d + 9) * P + 17
+            + (17 * n + 14 if d == 3 else 0))
 
 
 def megno_ops(n, d):
@@ -454,13 +482,18 @@ def conditioning(st, dy, cfg):
     H0 = E.extended_hamiltonian(st, dy, cfg)
     scale_E = E.kinetic_energy(st) + torch.abs(E.potential_energy(st, dy))
     q, v = st.pos, st.vel
-    L_i = st.mass * (q[..., 0] * v[..., 1] - q[..., 1] * v[..., 0])
-    L_i = torch.where(st.mask, L_i, torch.zeros_like(L_i))
-    scale_L = torch.abs(L_i).sum(-1)
+    if q.shape[-1] == 2:
+        L_i = (st.mass * (q[..., 0] * v[..., 1] - q[..., 1] * v[..., 0]))[
+            ..., None]
+    else:  # d = 3: the drift of |L|, L the vector sum of m q x v
+        L_i = st.mass[..., None] * torch.linalg.cross(q, v, dim=-1)
+    L_i = torch.where(st.mask[..., None], L_i, torch.zeros_like(L_i))
+    scale_L = L_i.norm(dim=-1).sum(-1)
     ratio = lambda s, x: torch.clamp_min(
         s / torch.clamp_min(torch.abs(x), 1e-30), 1.0).cpu().numpy()
     return {"energy_drift": ratio(scale_E, H0),
-            "angular_momentum_drift": ratio(scale_L, L_i.sum(-1))}
+            "angular_momentum_drift": ratio(scale_L,
+                                            L_i.sum(-2).norm(dim=-1))}
 
 
 class Timed:
@@ -685,6 +718,43 @@ def compare_case(label, states, dyns, cfg, lanes, n_steps, n_sub_max, hk,
                     megno_steps, n_sub_max),
             "megno": (km.ms, pm.ms, state_err("megno"), n_sub,
                       n_steps, megno_steps, n_sub_max)}
+
+
+def bucket_cases(prefix, states, dyns, n_sub_raw, cfg, hk, tangent_of):
+    """Phase 4's two comparisons on a population (``compare_case``): the
+    lowest n_sub bucket (B_CMP lanes, or the B_CMP shallowest) at 20
+    steps on the tolerances alone, and the B_CMP deepest lanes at 2
+    steps with the widening; each kernel's time per trip of its deepest
+    lane.  Returns (cases, low lanes, top lanes, n_sub buckets)."""
+    from nbodysimproject_tpu_torch.analysis.batch import _bucket_ladder_values
+    from nbodysimproject_tpu_torch.analysis.fused import analyze_batch_fused
+
+    n_sub = np.minimum(n_sub_raw, cfg.analysis_n_sub_cap)
+    buckets = _bucket_ladder_values(n_sub)
+    low = np.nonzero(buckets == buckets.min())[0]
+    low = low[:B_CMP] if len(low) >= B_CMP else np.argsort(
+        n_sub, kind="stable")[:B_CMP]
+    top = np.argsort(-n_sub, kind="stable")[:B_CMP]
+    dev = states.pos.device
+    cases = []
+    for label, lanes, steps, nsm, widen in (
+            (f"{prefix}lowest bucket", low, 20, int(buckets[low].max()),
+             False),
+            (f"{prefix}top bucket", top, 2, int(cfg.analysis_n_sub_cap),
+             True)):
+        t0 = time.perf_counter()
+        cases.append(compare_case(label, states, dyns, cfg,
+                                  torch.as_tensor(lanes, device=dev), steps,
+                                  nsm, hk, analyze_batch_fused, tangent_of,
+                                  widen))
+        for kind, c in cases[-1].items():
+            ms, _, _, _, n_steps_c, msteps, nsm_c = c
+            trips = (n_steps_c if kind == "analysis" else msteps) * nsm_c
+            print(f"  {label}, {kind} kernel: {ms:.3f} ms, "
+                  f"{1e3 * ms / trips:.3f} us per trip of its deepest lane "
+                  f"({trips} trips)")
+        print(f"  {label} done in {time.perf_counter() - t0:.1f}s")
+    return cases, low, top, buckets
 
 
 # ------------------------------------------------------ the batched slice
@@ -994,7 +1064,7 @@ def compare_eps(label, st, dy, clamp, ek):
     err = row_gate(f"eps {label} clamp={clamp} (B={st.pos.shape[0]}, N={n})",
                    {"es": (k[0], p[0], p64[0], pr[0], EPS_TOL["es"]),
                     "grad": (k[1], p[1], p64[1], pr[1], EPS_TOL["grad"])})
-    b_ms, b_by = bound_eps(st.pos.shape[0], n, 2)
+    b_ms, b_by = bound_eps(st.pos.shape[0], n, st.pos.shape[2])
     print(f"  eps {label} clamp={clamp}: kernel {ms:.3f} ms, plain "
           f"{pms:.3f} ms, bound {b_ms:.4f} ms ({b_by}); nonzero gradient on "
           f"{int((p[1].abs().amax((1, 2)) > 0).sum())} rows", flush=True)
@@ -2041,6 +2111,10 @@ MODEL_PREFIX = os.path.join(HERE, "data", "headline_pre_")
 #: which took 99-187 s a 1000-step run on the card (PR 12)
 BENCH_STEPS = 250
 ENTRY_STEPS = 500
+#: warm runs of the bench population (one cold run before them), cut
+#: from WARM_REPS to keep the script inside its time limit once the 3-D
+#: phase came in (1,002 s on an H100 with three)
+BENCH_WARM_REPS = 2
 #: the card's scores against the same port on the CPU, on the same frame
 SERVE_MLP_TOL = 1e-5
 SERVE_GBDT_TOL = 1e-15
@@ -2158,7 +2232,7 @@ def generators_phase(dev):
 
 def bench_population_phase(cfg, hk, kw, dev):
     """bench.py's leg on its own population: analyze_population under
-    _PIPE_CFG at BENCH_STEPS steps, one cold and WARM_REPS warm runs;
+    _PIPE_CFG at BENCH_STEPS steps, one cold and BENCH_WARM_REPS warm runs;
     then the entry point MLTrainingPipeline(16384, ENTRY_STEPS, seed=0)
     .generate_diverse_dataset_batched() on a population drawn on the
     card."""
@@ -2181,7 +2255,7 @@ def bench_population_phase(cfg, hk, kw, dev):
         raise SystemExit(f"bench population: a kernel was not launched: "
                          f"{launches}")
     warm = []
-    for _ in range(WARM_REPS):
+    for _ in range(BENCH_WARM_REPS):
         tm = {}
         t0 = time.perf_counter()
         df = analyze_population(mass, pos, vel, mask, cfg, timing_out=tm,
@@ -2191,7 +2265,7 @@ def bench_population_phase(cfg, hk, kw, dev):
               f"tail_ms {tm['tail_ms']:.1f}, n_tail {tm['n_tail']}; "
               f"phases {tm}")
     t_med = float(np.median(warm))
-    print(f"  warm median {t_med:.3f}s over {WARM_REPS}: "
+    print(f"  warm median {t_med:.3f}s over {BENCH_WARM_REPS}: "
           f"{B_MAIN / t_med:.1f} systems/s (bench.py's population, "
           f"B={B_MAIN}, n_steps={kw['n_steps']}, N={N_SLOTS}, tail on)")
     check_output(df, "bench population")
@@ -2232,13 +2306,73 @@ def bench_population_phase(cfg, hk, kw, dev):
                 launches_entry=launches_e)
 
 
+def timed_host(fn, reps=SERVE_REPS):
+    """(cold s, warm median s of ``reps``, last output) of ``fn``; each
+    call ends in host copies, so the host clock covers the device
+    work."""
+    out, ts = None, []
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ts.append(time.perf_counter() - t0)
+    return ts[0], float(np.median(ts[1:])), out
+
+
+def card_scores(prefix, kind, frame, types, dev, what):
+    """One model's ``predict_frame`` on the card (timed_host) held to the
+    same predictor on the CPU on the same frame: the MLP within
+    SERVE_MLP_TOL with equal verdicts on the rows farther than that from
+    their operating point, the GBDT's raw scores bit for bit and its
+    probabilities within SERVE_GBDT_TOL (gated).  Returns the card's
+    (cold s, warm s, prob, stable) and the largest differences."""
+    from nbodysimproject_tpu_torch import StabilityPredictor
+
+    card = StabilityPredictor(prefix=prefix, model=kind, device=dev)
+    cpu = StabilityPredictor(prefix=prefix, model=kind, device="cpu")
+    c_p, t_p, (prob, stable, raw) = timed_host(
+        lambda: card.predict_frame(frame, cohorts=types, return_raw=True))
+    prob_c, stable_c, raw_c = cpu.predict_frame(frame, cohorts=types,
+                                                return_raw=True)
+    # each row's operating point: the calibration's (schema v2) or the
+    # legacy per-cohort threshold
+    calib = card.calibration
+    points = ((calib.get("cohort_operating_points") or {}) if calib
+              else card.cohort_thresholds)
+    default = calib["global_threshold"] if calib else card.threshold
+    thr = np.asarray([points.get(c, default) for c in types])
+    d_prob = float(np.abs(prob - prob_c).max())
+    d_raw = float(np.abs(raw.astype(float) - raw_c.astype(float)).max())
+    note = ""
+    if kind == "mlp":
+        clear = np.abs(prob_c - thr) > SERVE_MLP_TOL
+        if not (d_prob <= SERVE_MLP_TOL and d_raw <= SERVE_MLP_TOL
+                and np.array_equal(stable[clear], stable_c[clear])):
+            raise SystemExit(f"{what}: the card's MLP scores differ from "
+                             f"the CPU's")
+        note = (f"verdicts equal on the {int(clear.sum())} rows more than "
+                f"{SERVE_MLP_TOL} from their operating point; "
+                f"{int((stable != stable_c).sum())} differ in all")
+    else:
+        same_raw = np.array_equal(card.raw_score(frame), cpu.raw_score(frame))
+        if not (same_raw and d_prob <= SERVE_GBDT_TOL
+                and d_raw <= SERVE_GBDT_TOL
+                and np.array_equal(stable, stable_c)):
+            raise SystemExit(f"{what}: the card's GBDT differs from the "
+                             f"CPU's (raw scores equal: {same_raw})")
+        note = f"raw scores equal bit for bit: {same_raw}"
+    return dict(cold=c_p, s=t_p, prob=prob, stable=stable, d_prob=d_prob,
+                d_raw=d_raw, note=note)
+
+
 def serving_phase(cfg, bench, dev, main_rate):
     """ic_feature_frame and both headline predictors on the bench
     population on the card, timed (beside the bench population's
     analysis rate and the main path's 1000-step rate ``main_rate``), the
     card's scores gated against the same port on the CPU, the verdicts
     beside the bench population's is_stable."""
-    from nbodysimproject_tpu_torch import StabilityPredictor, ic_feature_frame
+    from nbodysimproject_tpu_torch import ic_feature_frame
 
     mass, pos, vel, mask, soft = bench["pop"]
     types = bench["types"]
@@ -2248,20 +2382,7 @@ def serving_phase(cfg, bench, dev, main_rate):
           f"{torch.get_float32_matmul_precision()!r} (the predictor runs "
           f"the MLP with TF32 off and 'highest' whatever these are)")
     kw = dict(G=1.0, softening=soft, min_softening=0.0, dt=DT)
-
-    def timed(fn, reps=SERVE_REPS):
-        """(cold s, warm median s, last output); each call ends in host
-        copies, so the host clock covers the device work."""
-        out, ts = None, []
-        for _ in range(reps + 1):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn()
-            torch.cuda.synchronize()
-            ts.append(time.perf_counter() - t0)
-        return ts[0], float(np.median(ts[1:])), out
-
-    c_ic, t_ic, frame = timed(lambda: ic_feature_frame(
+    c_ic, t_ic, frame = timed_host(lambda: ic_feature_frame(
         mass, pos, vel, mask, cfg, device=dev, **kw))
     frame_cpu = ic_feature_frame(mass, pos, vel, mask, cfg, device="cpu",
                                  **kw)
@@ -2278,20 +2399,9 @@ def serving_phase(cfg, bench, dev, main_rate):
           f"{d_feat:.3e} (not gated)")
     out = {"ic_s": t_ic}
     for kind in ("mlp", "gbdt"):
-        card = StabilityPredictor(prefix=MODEL_PREFIX, model=kind,
-                                  device=dev)
-        cpu = StabilityPredictor(prefix=MODEL_PREFIX, model=kind,
-                                 device="cpu")
-        c_p, t_p, (prob, stable, raw) = timed(
-            lambda: card.predict_frame(frame, cohorts=types,
-                                       return_raw=True))
-        prob_c, stable_c, raw_c = cpu.predict_frame(frame, cohorts=types,
-                                                    return_raw=True)
-        calib = card.calibration
-        thr = np.asarray([(calib.get("cohort_operating_points") or {}).get(
-            c, calib["global_threshold"]) for c in types])
-        d_prob = float(np.abs(prob - prob_c).max())
-        d_raw = float(np.abs(raw.astype(float) - raw_c.astype(float)).max())
+        sc = card_scores(MODEL_PREFIX, kind, frame, types, dev, "serving")
+        c_p, t_p, stable = sc["cold"], sc["s"], sc["stable"]
+        d_prob = sc["d_prob"]
         rate = B_MAIN / t_p
         both = B_MAIN / (t_p + t_ic)
         print(f"  {kind}: predict_frame cold {c_p:.3f}s, warm median "
@@ -2300,25 +2410,8 @@ def serving_phase(cfg, bench, dev, main_rate):
               f"population's analysis at {BENCH_STEPS} steps "
               f"({an_rate:.1f} systems/s), {both / main_rate:.1f}x the main "
               f"path's at {N_STEPS} ({main_rate:.1f}); card against CPU: "
-              f"max |dprob| {d_prob:.3e}, max |draw| {d_raw:.3e}")
-        if kind == "mlp":
-            clear = np.abs(prob_c - thr) > SERVE_MLP_TOL
-            if not (d_prob <= SERVE_MLP_TOL and d_raw <= SERVE_MLP_TOL
-                    and np.array_equal(stable[clear], stable_c[clear])):
-                raise SystemExit("serving: the card's MLP scores differ from "
-                                 "the CPU's")
-            print(f"    verdicts equal on the {int(clear.sum())} rows more "
-                  f"than {SERVE_MLP_TOL} from their operating point; "
-                  f"{int((stable != stable_c).sum())} differ in all")
-        else:
-            same_raw = np.array_equal(card.raw_score(frame),
-                                      cpu.raw_score(frame))
-            if not (same_raw and d_prob <= SERVE_GBDT_TOL
-                    and d_raw <= SERVE_GBDT_TOL
-                    and np.array_equal(stable, stable_c)):
-                raise SystemExit(f"serving: the card's GBDT differs from the "
-                                 f"CPU's (raw scores equal: {same_raw})")
-            print(f"    raw scores equal bit for bit: {same_raw}")
+              f"max |dprob| {d_prob:.3e}, max |draw| {sc['d_raw']:.3e}")
+        print(f"    {sc['note']}")
         truth = bench["df"]["is_stable"].to_numpy(bool)
         agree = per_cohort(types, np.mean,
                            agree=(stable == truth).astype(float),
@@ -2333,14 +2426,238 @@ def serving_phase(cfg, bench, dev, main_rate):
     return out
 
 
+# --------------------------------------------------- the 3-D product path
+DATA3 = os.path.join(HERE, "data", "stability_3d_131k.csv.gz")
+#: the JAX fused engine's labels (its Pallas kernels in interpret mode,
+#: full mode at the dataset's horizon) of the 3-D dataset's first 256
+#: rows with at most 2 substeps (``tests/torch_label_parity.py
+#: --d3-fused 256``); the JAX scan engine zeroes the eps* gradient on
+#: these rows (ROADMAP.md Queue 3), so its labels are not the reference
+LABELS3 = os.path.join(HERE, "data", "labels_3d_jax_fused_256.npz")
+MODEL3_PREFIX = os.path.join(HERE, "data", "headline3d_pre_")
+#: warm runs of the 3-D main path (one cold run before them)
+WARM_REPS_3D = 2
+#: the 3-D dataset's columns are round 3's: its cos_theta_mean lies
+#: outside [-1, 1] where a cosine cannot (the z-only L0 in the vector
+#: branch) and its angular_momentum_drift is the z component's
+#: (``tests/torch_label_parity.py --d3-fused``), so its labels are not
+#: shown to be the JAX package's and the card's agreement with them is
+#: printed, not gated
+DATASET3_LABELS_GATED = False
+#: the ham_soft scan at d = 3 (the eps kernel's path): its steps on the
+#: population's n_sub = 1 rows
+SCAN3_STEPS = 100
+
+
+def hamsoft_scan_3d(states, dyns, ek, dev):
+    """The ham_soft scan (``integrate_batch``, the eps kernel on every
+    (eps*, grad) evaluation) at d = 3 on the 3-D population's n_sub = 1
+    rows, SCAN3_STEPS steps: one cold and WARM_REPS warm runs between CUDA
+    events, the eps kernel's launches in the cold run (gated > 0), the
+    systems whose positions end non-finite (the random cohort's
+    blow-ups, counted as bench.py's legs count them)."""
+    from nbodysimproject_tpu_torch import SimConfig
+    from nbodysimproject_tpu_torch.parallel.batch_engine import \
+        integrate_batch
+
+    cfg = SimConfig(integrator_mode="ham_soft", fast_float32=True)
+    rows = torch.nonzero(dyns.n_sub == 1)[:, 0]
+    st, dy = states.take(rows), dyns.take(rows)
+    out, cold, med, la = run_leg(
+        f"ham_soft scan d=3 ({len(rows)} rows at n_sub 1)",
+        lambda: integrate_batch(st, dy, cfg, DT, SCAN3_STEPS, 1),
+        len(rows), SCAN3_STEPS, (ek.eps_star_and_grad_fused,))
+    bad = nonfinite(out.pos)
+    print(f"  ham_soft scan d=3: {bad} of {len(rows)} systems end with "
+          f"non-finite positions")
+    if not la["eps_star_and_grad_fused"]:
+        raise SystemExit(f"the 3-D ham_soft scan launched no eps kernel: "
+                         f"{la}")
+    return dict(cold=cold, med=med, launches=la["eps_star_and_grad_fused"],
+                B=len(rows), nonfinite=bad)
+
+
+def serve_3d(cfg, pop, soft, G, min_soft, dev):
+    """ic_feature_frame and both 3-D headline predictors on the 3-D
+    population on the card (warm median of SERVE_REPS), the card's
+    scores held to the CPU's as the 2-D serving phase holds them."""
+    from nbodysimproject_tpu_torch import ic_feature_frame
+
+    types = ["random"] * B_MAIN
+    _c, t_ic, frame = timed_host(lambda: ic_feature_frame(
+        *pop, cfg, device=dev, G=G, softening=soft, min_softening=min_soft,
+        dt=DT))
+    print(f"  3-D ic_feature_frame: {len(frame.columns)} columns, warm median "
+          f"{t_ic:.4f}s = {B_MAIN / t_ic:.1f} systems/s")
+    out = {"ic_s": t_ic}
+    for kind in ("mlp", "gbdt"):
+        sc = card_scores(MODEL3_PREFIX, kind, frame, types, dev,
+                         "3-D serving")
+        both = B_MAIN / (sc["s"] + t_ic)
+        print(f"  3-D {kind}: predict_frame warm median {sc['s']:.4f}s, with "
+              f"ic_feature_frame {both:.1f} systems/s; card against CPU max "
+              f"|dprob| {sc['d_prob']:.3e}, max |draw| {sc['d_raw']:.3e}; "
+              f"predicted stable share {sc['stable'].mean():.4f}; "
+              f"{sc['note']}")
+        out[kind] = dict(s=sc["s"], both=both, d_prob=sc["d_prob"],
+                         stable=float(sc["stable"].mean()))
+    return out
+
+
+def phase_3d(cfg, cfg_off, hk, ek, dev, tangent_of):
+    """The 3-D product path on the card: kernels held to their plain
+    versions at d = 3, the ham_soft scan, the main path (cold + warm),
+    the tail-off run, the labels, the main path's launches replayed, and
+    the 3-D headline models served."""
+    from nbodysimproject_tpu_torch import analyze_population
+    from nbodysimproject_tpu_torch.analysis.batch import (dispatch_plan,
+                                                          prepare_population)
+    from nbodysimproject_tpu_torch.analysis.fused import analyze_batch_fused
+    from nbodysimproject_tpu_torch.diagnostics.megno import (
+        init_tangent, population_normals)
+
+    (mass, pos, vel, mask, G, soft, min_soft), ref = load_population(
+        B_MAIN, DATA3, 3)
+    assert pos.shape == (B_MAIN, N_SLOTS, 3) and np.all(G == G[0])
+    print(f"  3-D population: {B_MAIN} systems, {int(mask.sum())} bodies, "
+          f"{np.bincount(mask.sum(1))} by body count, cohorts "
+          f"{ref['system_type'].value_counts().to_dict()}", flush=True)
+    states, dyns, n_sub_raw = prepare_population(
+        mass, pos, vel, mask, cfg, G=G, softening=soft,
+        min_softening=min_soft, dt=DT, device=dev)
+    out = {"cases": bucket_cases("3-D ", states, dyns, n_sub_raw, cfg, hk,
+                                 tangent_of)[0]}
+    first = torch.arange(B_CMP, device=dev)
+    out["eps"] = {clamp: compare_eps("3-D dataset", states.take(first),
+                                     dyns.take(first), clamp, ek)
+                  for clamp in (True, False)}
+    eps_layouts_agree(states, dyns, ek)
+    out["scan"] = hamsoft_scan_3d(states, dyns, ek, dev)
+
+    kw = dict(G=G, softening=soft, min_softening=min_soft, dt=DT,
+              n_steps=N_STEPS, mode="full", show_progress=False)
+    sel, _n_tail = tail_stats(states, dyns, cfg, n_sub_raw)
+    kinds = (hk.hamsoft_analysis_multistep, hk.hamsoft_megno_multistep)
+    reset_counts(*kinds)
+    tm = {}
+    t0 = time.perf_counter()
+    df = analyze_population(mass, pos, vel, mask, cfg, timing_out=tm, **kw)
+    cold = time.perf_counter() - t0
+    launches = {f.__name__: f.launches for f in kinds}
+    print(f"  3-D main path cold {cold:.3f}s ({B_MAIN / cold:.1f} "
+          f"systems/s), launches {launches}, phases {tm}", flush=True)
+    if not all(launches.values()):
+        raise SystemExit(f"the 3-D main path did not launch both kernels: "
+                         f"{launches}")
+    if tm["n_tail"] != int(sel.sum()) or not np.array_equal(
+            df["tail_fast_path"].to_numpy(bool), sel):
+        raise SystemExit("the 3-D main path's tail differs from its "
+                         "selection")
+    warm, fused_ms, tail_ms = [], [], []
+    for _ in range(WARM_REPS_3D):
+        tm = {}
+        t0 = time.perf_counter()
+        df = analyze_population(mass, pos, vel, mask, cfg, timing_out=tm,
+                                **kw)
+        warm.append(time.perf_counter() - t0)
+        fused_ms.append(tm["fused_ms"])
+        tail_ms.append(tm["tail_ms"])
+        print(f"  3-D warm {warm[-1]:.3f}s phases {tm}", flush=True)
+    t_med = float(np.median(warm))
+    print(f"  3-D main path: warm median {t_med:.3f}s over {WARM_REPS_3D} = "
+          f"{B_MAIN / t_med:.1f} systems/s (B={B_MAIN}, n_steps={N_STEPS}, "
+          f"N={N_SLOTS}, d=3, tail on its own stream); fused call "
+          f"{np.median(fused_ms):.1f} ms, tail {np.median(tail_ms):.1f} ms, "
+          f"n_tail {int(sel.sum())}")
+    check_output(df, "3-D tail on")
+    if not {"z_0", "vz_7"} <= set(df.columns):
+        raise SystemExit("the 3-D frame lacks its z columns")
+
+    t0 = time.perf_counter()
+    df_off = analyze_population(mass, pos, vel, mask, cfg_off, **kw)
+    t_off = time.perf_counter() - t0
+    check_output(df_off, "3-D tail off")
+    keep = ~sel
+    differ = {c: int((~((df[c].to_numpy()[keep] == df_off[c].to_numpy()[keep])
+                        | (pd_isnan(df[c].to_numpy()[keep])
+                           & pd_isnan(df_off[c].to_numpy()[keep])))).sum())
+              for c in df_off.columns}
+    differ = {c: v for c, v in differ.items() if v}
+    print(f"  3-D tail-off run {t_off:.3f}s ({B_MAIN / t_off:.1f} "
+          f"systems/s); non-tail rows ({int(keep.sum())}) bitwise equal to "
+          f"the tail-on run in every column: {not differ}")
+    if differ:
+        raise SystemExit(f"3-D non-tail rows differ from the tail-off run: "
+                         f"{differ}")
+
+    with np.load(LABELS3) as z:
+        rows, jax_stable = z["rows"], z["is_stable"].astype(bool)
+    if sel[rows].any():
+        raise SystemExit("3-D labels: a row of the JAX fused engine's went "
+                         "to the tail")
+    card = df["is_stable"].to_numpy(bool)[rows]
+    agree_jax = float((card == jax_stable).mean())
+    print(f"  3-D is_stable on the {len(rows)} rows of "
+          f"{os.path.basename(LABELS3)}: agrees with the JAX fused engine's "
+          f"on {agree_jax:.4f} (gated >= {LABEL_GATE}); stable shares card "
+          f"{card.mean():.4f}, JAX {jax_stable.mean():.4f}, the dataset "
+          f"{ref['is_stable'].to_numpy(bool)[rows].mean():.4f}")
+    if agree_jax < LABEL_GATE:
+        raise SystemExit(f"3-D is_stable agrees with the JAX package on "
+                         f"{agree_jax:.4f} of its rows (< {LABEL_GATE})")
+    agree_ds = label_agreement(df, ref, keep)
+    print_agreement("3-D non-tail rows: this run (first) against the "
+                    "dataset (second)", agree_ds)
+    a = agree_ds["is_stable"]["agree"]
+    why = "gated" if DATASET3_LABELS_GATED else \
+        "not gated: the 3-D dataset predates the vector-L fix"
+    print(f"  3-D is_stable against the dataset on the non-tail rows: "
+          f"{a:.4f} ({why})")
+    if DATASET3_LABELS_GATED and a < LABEL_GATE:
+        raise SystemExit(f"3-D is_stable agrees with the dataset on {a:.4f}")
+
+    # the main path's launches replayed on the same inputs
+    z1, z2 = population_normals(0, B_MAIN, (N_SLOTS, 3), torch.float32)
+    dr0, dv0 = init_tangent(z1.to(dev), z2.to(dev), states)
+    fused_rows = np.nonzero(~sel)[0]
+    order, n_sub_max, _ = dispatch_plan(n_sub_raw[fused_rows], cfg)
+    lanes = torch.as_tensor(fused_rows[order], device=dev)
+    ta, tmg = Timed(hk.hamsoft_analysis_multistep), Timed(
+        hk.hamsoft_megno_multistep)
+    megno_steps = min(100, min(50, N_STEPS // 2))
+    analyze_batch_fused(states.take(lanes), dyns.take(lanes), cfg, N_STEPS,
+                        DT, "full", n_sub_max, megno_steps,
+                        tangent=(dr0[lanes], dv0[lanes]), analysis_fn=ta,
+                        megno_fn=tmg)
+    ns_lanes = dyns.n_sub[lanes].cpu().numpy()
+    main_ms = {}
+    for kind, t, steps in (("analysis", ta, N_STEPS),
+                           ("megno", tmg, megno_steps)):
+        b = bound(kind, ns_lanes, n_sub_max, N_STEPS, megno_steps, N_SLOTS, 3)
+        per_trip = 1e3 * t.ms / (steps * n_sub_max)
+        main_ms[kind] = (t.ms, per_trip, b)
+        print(f"  3-D {kind}: {len(ns_lanes)} fused lanes, one launch "
+              f"{t.ms:.1f} ms = {per_trip:.3f} us per trip of the deepest "
+              f"lane, bound {b[0]:.3f} ms ({b[1]}), {t.ms / b[0]:.0f}x the "
+              f"bound", flush=True)
+
+    out.update(cold=cold, med=t_med, off=t_off, launches=launches,
+               n_tail=int(sel.sum()), fused_ms=float(np.median(fused_ms)),
+               tail_ms=float(np.median(tail_ms)), main_ms=main_ms,
+               agree_jax=agree_jax, agree_ds=a,
+               serve=serve_3d(cfg, (mass, pos, vel, mask), soft, G, min_soft,
+                              dev))
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
 
     from nbodysimproject_tpu_torch import SimConfig, analyze_population
-    from nbodysimproject_tpu_torch.analysis.batch import (
-        _bucket_ladder_values, dispatch_plan, prepare_population)
+    from nbodysimproject_tpu_torch.analysis.batch import (dispatch_plan,
+                                                          prepare_population)
     from nbodysimproject_tpu_torch.analysis.fused import analyze_batch_fused
     from nbodysimproject_tpu_torch.diagnostics.megno import (
         init_tangent, population_normals)
@@ -2372,10 +2689,12 @@ def main():
         for line in report.splitlines():
             print(f"    {line.strip()}")
     print(f"  build wall {time.perf_counter() - t0:.1f}s")
-    # the analysis and MEGNO kernels at N = 8, the multi-step kernel's two
-    # policies' instances at every N, the eps kernel at N = 3 and 8, the
+    # the analysis and MEGNO kernels at N = 8 (d = 2 and 3), the
+    # multi-step kernel's two policies' instances at every N, the eps
+    # kernel at N = 3 and 8 (d = 2 and 3), the
     # WHFast kernel and its Stumpff probe, the force kernel and its slice sum
-    for job, n_kernels in ([(("hamsoft.cu", N_SLOTS, 2), 2)]
+    for job, n_kernels in ([(("hamsoft.cu", N_SLOTS, 2), 2),
+                            (("hamsoft.cu", N_SLOTS, 3), 2)]
                            + [(j, 2) for j in hk.build_jobs()
                               if j[0] == "hamsoft_multistep.cu"]
                            + [(j, 1) for j in ek.build_jobs()]
@@ -2411,34 +2730,13 @@ def main():
     states, dyns, n_sub_raw = prepare_population(
         mass, pos, vel, mask, cfg, G=G, softening=soft,
         min_softening=min_soft, dt=DT, device=dev)
-    n_sub = np.minimum(n_sub_raw, cfg.analysis_n_sub_cap)
-    buckets = _bucket_ladder_values(n_sub)
-    low = np.nonzero(buckets == buckets.min())[0]
-    low = low[:B_CMP] if len(low) >= B_CMP else np.argsort(
-        n_sub, kind="stable")[:B_CMP]
-    top = np.argsort(-n_sub, kind="stable")[:B_CMP]
-
     def tangent_of(st):
         z1, z2 = population_normals(7, st.pos.shape[0],
                                     tuple(st.pos.shape[1:]), torch.float32)
         return init_tangent(z1.to(dev), z2.to(dev), st)
 
-    cases = []
-    for label, lanes, steps, nsm, widen in (
-            ("lowest bucket", low, 20, int(buckets[low].max()), False),
-            ("top bucket", top, 2, int(cfg.analysis_n_sub_cap), True)):
-        t0 = time.perf_counter()
-        cases.append(compare_case(label, states, dyns, cfg,
-                                  torch.as_tensor(lanes, device=dev), steps,
-                                  nsm, hk, analyze_batch_fused, tangent_of,
-                                  widen))
-        for kind, c in cases[-1].items():
-            ms, _, _, _, n_steps_c, msteps, nsm_c = c
-            trips = (n_steps_c if kind == "analysis" else msteps) * nsm_c
-            print(f"  {label}, {kind} kernel: {ms:.3f} ms, "
-                  f"{1e3 * ms / trips:.3f} us per trip of its deepest lane "
-                  f"({trips} trips)")
-        print(f"  {label} done in {time.perf_counter() - t0:.1f}s")
+    cases, low, top, buckets = bucket_cases("", states, dyns, n_sub_raw, cfg,
+                                            hk, tangent_of)
 
     phase("compare the batched slice's kernels with their plain versions")
     new_cmp = {}
@@ -2667,6 +2965,11 @@ def main():
               f"lane ({steps} x {n_sub_max} trips), bound {b_ms:.3f} ms "
               f"({b_by}), {t.ms / b_ms:.0f}x the bound", flush=True)
 
+    phase("the 3-D product path: analyze_population at d = 3 on the 3-D "
+          "dataset, its kernels, labels and the 3-D headline models")
+    p3 = phase_3d(cfg, cfg_off, hk, ek, dev, tangent_of)
+    torch.cuda.empty_cache()
+
     phase("generators: diverse_population on the card")
     gen_out = generators_phase(dev)
     phase("bench population: analyze_population on bench.py's population, "
@@ -2751,6 +3054,50 @@ def main():
               f"{c['plain_ms']:.3f} ms, bound {c['bound'][0]:.4f} ms "
               f"({c['bound'][1]}); launches in the {leg} leg "
               f"{legs[leg][2][name]}")
+    for kind, replaces in (
+            ("analysis", "nbodysimproject_tpu/ops/pallas_hamsoft.py:565"),
+            ("megno", "nbodysimproject_tpu/ops/pallas_hamsoft.py:770")):
+        ms, plain_ms, err, ns, steps, msteps, nsm = p3["cases"][1][kind]
+        b_ms, b_by = bound(kind, ns, nsm, steps, msteps, N_SLOTS, 3)
+        entries.append({
+            "name": f"hamsoft_{kind}_multistep d=3",
+            "route": "cuda",
+            "source": "nbodysimproject_tpu_torch/csrc/hamsoft.cu",
+            "replaces": replaces,
+            "launches": p3["launches"][f"hamsoft_{kind}_multistep"],
+            "max_abs_err": max(err, p3["cases"][0][kind][2]),
+            "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+        m_ms, per_trip, (mb, mby) = p3["main_ms"][kind]
+        print(f"  {kind} d=3: top-bucket case kernel {ms:.3f} ms, plain "
+              f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}); 3-D main-"
+              f"path launch {m_ms:.1f} ms ({per_trip:.3f} us per trip), "
+              f"bound {mb:.3f} ms ({mby})")
+    e3 = p3["eps"][True]
+    entries.append({
+        "name": "eps_star_and_grad_fused d=3", "route": "cuda",
+        "source": "nbodysimproject_tpu_torch/csrc/eps_grad.cu",
+        "replaces": "nbodysimproject_tpu/ops/pallas_eps.py:50",
+        "launches": p3["scan"]["launches"],
+        "max_abs_err": max(v["err"] for v in p3["eps"].values()),
+        "ms": e3["ms"], "plain_ms": e3["plain_ms"], "bound_ms": e3["bound"][0],
+        "bound_by": e3["bound"][1], "library_ms": None})
+    print(f"  eps d=3: 3-D dataset case (B={B_CMP}, N={N_SLOTS}, clamp) kernel "
+          f"{e3['ms']:.3f} ms, plain {e3['plain_ms']:.3f} ms, bound "
+          f"{e3['bound'][0]:.4f} ms ({e3['bound'][1]}); launches in the 3-D "
+          f"ham_soft scan ({p3['scan']['B']} systems, {SCAN3_STEPS} steps) "
+          f"{p3['scan']['launches']}, its warm median {p3['scan']['med']:.1f} "
+          f"ms")
+    print(f"  3-D main path (tail on): warm median {p3['med']:.3f}s = "
+          f"{B_MAIN / p3['med']:.1f} systems/s (cold {p3['cold']:.3f}s), "
+          f"fused call {p3['fused_ms']:.1f} ms, tail {p3['tail_ms']:.1f} ms, "
+          f"n_tail {p3['n_tail']}; tail off {p3['off']:.3f}s; is_stable "
+          f"against the JAX package {p3['agree_jax']:.4f}, against the "
+          f"dataset (non-tail) {p3['agree_ds']:.4f}")
+    for kind in ("mlp", "gbdt"):
+        v = p3["serve"][kind]
+        print(f"  3-D serving {kind}: with ic_feature_frame {v['both']:.1f} "
+              f"systems/s, card against CPU max |dprob| {v['d_prob']:.3e}")
     c = force_cmp["N=1e5"]
     main_roll = ln_rolls[("direct_pallas", 100_000)]
     entries.append({

@@ -33,7 +33,10 @@ Ported so far (d = 2 unless stated):
   generate_diverse_dataset_batched`` (a population drawn and analysed
   in one pass), ``ic_feature_frame`` (the pre-integration features, no
   integration) and ``StabilityPredictor`` (``ml/``: the headline MLP
-  and GBDT read from ``data/headline_pre_torch.npz`` with numpy alone).
+  and GBDT read from ``data/headline_pre_torch.npz`` with numpy alone);
+* the 3-D product path: ``analyze_population`` at d = 3 (the analysis,
+  MEGNO and eps kernels take d = 3), ``ic_feature_frame`` at d = 3 and
+  the 3-D headline models (``data/headline3d_pre_torch.npz``).
 
 Entry points run on the current CUDA device unless the caller passes
 ``device="cpu"`` (the generators draw from a ``torch.Generator`` on that

@@ -21,7 +21,10 @@ The JAX package falls back to its scan engine on the CPU
 (``fused_path_applicable``); here the engine runs wherever the
 configuration is covered (``fused_config_covered``), and on the CPU the
 kernel wrappers run their plain versions because the tensors lie there.
-``use_fused_megno=False``, the "reference" gradient and d = 3 raise.
+``use_fused_megno=False`` and the "reference" gradient raise.  At d = 3
+L0 is the (B, 3) L vector, ``angular_momentum_drift`` the relative drift
+of |L| and cos_theta the tilt of L against L0 (the JAX package's
+analysis/fused.py:98-108, :172-182).
 """
 
 from __future__ import annotations
@@ -35,7 +38,8 @@ from ..diagnostics.metrics import step_metrics
 from ..ops.hamsoft_kernels import (hamsoft_analysis_multistep,
                                    hamsoft_megno_multistep,
                                    hamsoft_multistep)
-from .stability import _mean, _rel_drift, _running_update, _std
+from .stability import (_ang_mom_drift, _angular_momentum, _mean,
+                        _rel_drift, _running_update, _std)
 
 
 def _kernel_policy(cfg) -> str:
@@ -82,9 +86,6 @@ def analyze_batch_fused(states, dyns, cfg, n_steps: int, dt, mode: str,
     to the kernel wrappers; a comparison passes their plain versions,
     which take the same arguments.  Returns (result columns dict of (B,)
     tensors, final state)."""
-    d = states.pos.shape[-1]
-    if d != 2:
-        raise NotImplementedError("analyze_batch_fused: ported for d = 2")
     B = states.pos.shape[0]
     dtype = states.pos.dtype
     n_sub = torch.clamp_min(dyns.n_sub, 1)
@@ -97,7 +98,7 @@ def analyze_batch_fused(states, dyns, cfg, n_steps: int, dt, mode: str,
                 policy=_kernel_policy(cfg), grad_mode=str(cfg.eps_grad_mode))
 
     H0 = E.extended_hamiltonian(states, dyns, cfg)
-    L0 = E.angular_momentum_z(states)
+    L0 = _angular_momentum(states)
 
     sample_interval = max(1, n_steps // 100)
     if getattr(cfg, "use_fused_metrics", False):
@@ -124,7 +125,7 @@ def analyze_batch_fused(states, dyns, cfg, n_steps: int, dt, mode: str,
     st1 = _states_with(states, (po, vo, eo, pio))
     H1 = E.extended_hamiltonian(st1, dyns, cfg)
     energy_drift = _rel_drift(H1, H0)
-    ang_mom_drift = _rel_drift(E.angular_momentum_z(st1), L0)
+    ang_mom_drift = _ang_mom_drift(st1, L0)
 
     if mode == "full" and megno_steps > 0:
         if not cfg.use_fused_megno:

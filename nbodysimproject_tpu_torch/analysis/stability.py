@@ -47,6 +47,25 @@ def _rel_drift(x1, x0):
                                    torch.full_like(x0, float("inf"))))
 
 
+def _angular_momentum(states):
+    """L0 of the verdict and the tilt: L_z (B,) for d = 2, the L vector
+    (B, 3) for d = 3 (stability.py:97-101 of the JAX package)."""
+    from ..diagnostics import energy as E
+
+    if states.pos.shape[-1] == 2:
+        return E.angular_momentum_z(states)
+    return E.angular_momentum_vector(states)
+
+
+def _ang_mom_drift(state, L0):
+    """Relative drift of L_z (d = 2) or of |L| (d = 3)."""
+    L1 = _angular_momentum(state)
+    if L1.dim() == 1:
+        return _rel_drift(L1, L0)
+    norm = lambda x: torch.sqrt((x * x).sum(-1))
+    return _rel_drift(norm(L1), norm(L0))
+
+
 def _running_init(like):
     z = torch.zeros_like(like)
     return (z, z, z, torch.full_like(z, -math.inf),
@@ -78,8 +97,6 @@ def analyze_batch(states, dyns, cfg, n_steps: int, dt, mode: str,
     from ..diagnostics.metrics import step_metrics
     from ..integrators.step import _per_system, _trips, macro_step_dynamic
 
-    if states.pos.shape[-1] != 2:
-        raise NotImplementedError("analyze_batch: the port covers d = 2")
     if mode not in ("core", "full"):
         raise NotImplementedError(f"analyze_batch: mode {mode!r} is not "
                                   f"ported")
@@ -90,7 +107,7 @@ def analyze_batch(states, dyns, cfg, n_steps: int, dt, mode: str,
     step = lambda s: macro_step_dynamic(s, dyns, cfg, dtv, n_sub_max, trips)
     H0 = E.extended_hamiltonian(states, dyns, cfg)
     state = states
-    L0 = E.angular_momentum_z(states)
+    L0 = _angular_momentum(states)
     sample_interval = max(1, int(n_steps) // 100)
     accs = {k: _running_init(states.eps) for k in _SAMPLED}
     for i in range(int(n_steps)):
@@ -100,7 +117,7 @@ def analyze_batch(states, dyns, cfg, n_steps: int, dt, mode: str,
             accs = {k: _running_update(accs[k], met[k]) for k in accs}
 
     energy_drift = _rel_drift(E.extended_hamiltonian(state, dyns, cfg), H0)
-    ang_mom_drift = _rel_drift(E.angular_momentum_z(state), L0)
+    ang_mom_drift = _ang_mom_drift(state, L0)
     if mode == "full" and megno_steps > 0:
         state, megno, lyap, slope_med = megno_scan(
             state, dyns, cfg, tangent[0], tangent[1], megno_steps, dtv,

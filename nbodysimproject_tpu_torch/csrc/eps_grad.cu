@@ -3,10 +3,11 @@
 //
 // Replaces the TPU kernel of nbodysimproject_tpu/ops/pallas_eps.py:
 //   eps_star_and_grad_fused (_eps_grad_kernel, :50) -> hs_eps_grad
-// the 8 clipped SPH iterations seeded from h0, the softmin eps* and the
-// hand-written reverse sweep for its exact gradient, then (clamp) the soft
-// policy's value clamp to [min(eps_min, eps_max), max(eps_min, eps_max)]
-// with the gradient zeroed where the clamp saturates.  The "reference"
+// at d = 2 and 3 (HS_D): the 8 clipped SPH iterations seeded from h0, the
+// softmin eps* and the hand-written reverse sweep for its exact gradient,
+// then (clamp) the soft policy's value clamp to
+// [min(eps_min, eps_max), max(eps_min, eps_max)] with the gradient zeroed
+// where the clamp saturates.  The "reference"
 // gradient fallback is not ported; the wrapper refuses it.  A slot whose
 // mask is off takes mass 0 and drops out of every sum and of the softmin;
 // its gradient is 0.

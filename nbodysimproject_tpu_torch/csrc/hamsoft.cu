@@ -3,10 +3,10 @@
 // Replaces the TPU kernels of nbodysimproject_tpu/ops/pallas_hamsoft.py:
 //   hamsoft_analysis_multistep (_hamsoft_analysis_kernel, :565) -> hs_analysis
 //   hamsoft_megno_multistep    (_hamsoft_megno_kernel,    :770) -> hs_megno
-// on the cooperative physics of hamsoft_physics_warp.cuh.  Covered
-// configuration: the soft barrier policy and the exact eps* gradient (the
-// dataset pipeline's); the wrappers in ops/hamsoft_kernels.py refuse the
-// others.
+// on the cooperative physics of hamsoft_physics_warp.cuh, at d = 2 and 3
+// (HS_D).  Covered configuration: the soft barrier policy and the exact
+// eps* gradient (the dataset pipeline's); the wrappers in
+// ops/hamsoft_kernels.py refuse the others.
 //
 // What bounds it: operations, not bytes, and on the main path the serial
 // chain of the deepest systems (n_sub 256 over 1000 steps: 256,000
@@ -33,9 +33,9 @@
 //     start in the first wave; every output is written at the system's
 //     own index, so a result does not depend on where the system lies in
 //     the batch;
-//   * inputs stay coordinate-major ((N*D, B) and (B,) rows), read once at
-//     entry; device memory is touched again only at each metric sample,
-//     each MEGNO row, and at exit.
+//   * inputs stay coordinate-major ((N*D, B), (B,) rows and L0 as 1 or 3
+//     rows of B), read once at entry; device memory is touched again only
+//     at each metric sample, each MEGNO row, and at exit.
 
 #include "hamsoft_physics_warp.cuh"
 
@@ -106,14 +106,25 @@ __device__ __forceinline__ void tangent_accel_w(const Lane<N, D>& s,
   for (int a = 0; a < D; ++a) acc[a] = xsum<1, kLPB>(part[a], s.mask);
 }
 
-// The four in-register step metrics (diagnostics/metrics.py:56-123),
-// d = 2, on every lane of the system.
+// L0 of the tilt: L_z (d = 2) or the L vector (d = 3)
+template <int D>
+struct Lrows {
+  static constexpr int R = D == 2 ? 1 : 3;
+};
+
+// The four in-register step metrics (diagnostics/metrics.py:56-123), on
+// every lane of the system.  d = 2: the reference's scalar L_z
+// statistics; d = 3: the vector branch of the TPU kernel
+// (_hamsoft_analysis_kernel :656-686): L_tot = |sum_i m_i q_i x v_i|,
+// var_L the variance of the per-body |L_i|, cos_theta the tilt of L
+// against L0.
 template <int N, int D>
 __device__ __forceinline__ void metrics_w(const Lane<N, D>& s,
                                           const float* qi, const float* qj,
                                           const float* vi, float eps,
-                                          float L0, float nb, float* out) {
-  static_assert(D == 2, "the analysis metrics are ported for d = 2");
+                                          const float* L0, float nb,
+                                          float* out) {
+  static_assert(D == 2 || D == 3, "the analysis metrics take d = 2 or 3");
   constexpr int SYS = Lay<N>::SYS;
   float com2 = 0.f;
 #pragma unroll
@@ -123,14 +134,36 @@ __device__ __forceinline__ void metrics_w(const Lane<N, D>& s,
   }
   out[0] = sqrtf(com2);
 
-  float L_i = s.mval_i * (qi[0] * vi[1] - qi[1] * vi[0]);
-  float L_tot = xsum<kLPB, SYS>(L_i, s.mask);
-  float L_mean = L_tot / nb;
-  float d0 = L_i - L_mean;
-  float var_L = xsum<kLPB, SYS>(s.valid_i ? d0 * d0 : 0.f, s.mask) / nb;
-  bool cos_ok = (L0 != 0.f) && (L_tot != 0.f);
-  out[1] = cos_ok ? (L_tot * L0) / (fabsf(L_tot) * fabsf(L0)) : nanf("");
-  out[2] = var_L;
+  if constexpr (D == 2) {
+    float L_i = s.mval_i * (qi[0] * vi[1] - qi[1] * vi[0]);
+    float L_tot = xsum<kLPB, SYS>(L_i, s.mask);
+    float L_mean = L_tot / nb;
+    float d0 = L_i - L_mean;
+    float var_L = xsum<kLPB, SYS>(s.valid_i ? d0 * d0 : 0.f, s.mask) / nb;
+    bool cos_ok = (L0[0] != 0.f) && (L_tot != 0.f);
+    out[1] = cos_ok ? (L_tot * L0[0]) / (fabsf(L_tot) * fabsf(L0[0]))
+                    : nanf("");
+    out[2] = var_L;
+  } else {
+    const float c[3] = {s.mval_i * (qi[1] * vi[2] - qi[2] * vi[1]),
+                        s.mval_i * (qi[2] * vi[0] - qi[0] * vi[2]),
+                        s.mval_i * (qi[0] * vi[1] - qi[1] * vi[0])};
+    float Lv[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) Lv[a] = xsum<kLPB, SYS>(c[a], s.mask);
+    float L_tot = sqrtf(Lv[0] * Lv[0] + Lv[1] * Lv[1] + Lv[2] * Lv[2]);
+    float l_i = sqrtf(c[0] * c[0] + c[1] * c[1] + c[2] * c[2]);
+    float l_mean = xsum<kLPB, SYS>(s.valid_i ? l_i : 0.f, s.mask) / nb;
+    float d0 = l_i - l_mean;
+    float var_L = xsum<kLPB, SYS>(s.valid_i ? d0 * d0 : 0.f, s.mask) / nb;
+    float L0n = sqrtf(L0[0] * L0[0] + L0[1] * L0[1] + L0[2] * L0[2]);
+    float dot = Lv[0] * L0[0] + Lv[1] * L0[1] + Lv[2] * L0[2];
+    bool cos_ok = (L0n != 0.f) && (L_tot != 0.f);
+    // the TPU kernel floors the denominator at 1e-300, which is 0 in
+    // float32: the floor is max(x, 0), NaN kept
+    out[1] = cos_ok ? dot / maxf(L_tot * L0n, 0.f) : nanf("");
+    out[2] = var_L;
+  }
 
   float eps2 = eps * eps;
   float tr = 0.f;
@@ -189,7 +222,9 @@ __global__ void __launch_bounds__(kBlock) analysis_kernel(
   gather_slots(s, qi, qj);
   float eps = eps_in[b], pi = pi_in[b];
   const int ns = min(max(nsub_in[b], 1), n_sub_max);
-  const float L0 = L0_in[b];
+  float L0[Lrows<D>::R];
+#pragma unroll
+  for (int a = 0; a < Lrows<D>::R; ++a) L0[a] = L0_in[a * B + b];
   float nb = xsum<kLPB, GE::SYS>(s.valid_i ? 1.f : 0.f, s.mask);
   nb = maxf(nb, 1.f);
 

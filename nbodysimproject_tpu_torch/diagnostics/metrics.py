@@ -4,9 +4,10 @@ Counterpart of ``step_metrics`` and ``tidal_trace`` of
 ``nbodysimproject_tpu/diagnostics/metrics.py`` (parity:
 ``minbody/diagnostics.py:241-285``) on a batched state: one value per
 system for COM drift, J_eps, theta_eps, the angular-momentum statistics,
-the tidal trace and (optionally) the energy breakdown.  d = 2 only (the
-scalar L_z statistics of the reference); the d = 3 vector branch is not
-ported.
+the tidal trace and (optionally) the energy breakdown.  d = 2 takes the
+reference's scalar L_z statistics, d = 3 the JAX package's vector
+branch (L_tot = |sum m q x v|, var_L of the per-body |L_i|, cos_theta
+the tilt of L against L0).
 """
 
 from __future__ import annotations
@@ -40,16 +41,55 @@ def tidal_trace(state, dyn, cfg=None):
     return dyn.G * contrib.sum((-2, -1))  # i != j double counts
 
 
+def _l_stats_2d(m, pos, vel, msk, L0, nan):
+    """Scalar L_z statistics, the reference's semantics."""
+    zero = torch.zeros_like(m)
+    L_i = m * (pos[..., 0] * vel[..., 1] - pos[..., 1] * vel[..., 0])
+    L_i = torch.where(msk, L_i, zero)
+    L_tot = L_i.sum(-1)
+    nb = torch.clamp_min(msk.to(L_i.dtype).sum(-1), 1.0)
+    L_mean = L_tot / nb
+    var_L = torch.where(msk, (L_i - L_mean[..., None]) ** 2, zero).sum(-1) / nb
+    if L0 is None:
+        L0 = L_tot
+    cos_ok = (L0 != 0.0) & (L_tot != 0.0)
+    cos_theta = torch.where(cos_ok, (L_tot * L0)
+                            / (torch.abs(L_tot) * torch.abs(L0)), nan)
+    return L_tot, var_L, cos_theta
+
+
+def _l_stats_3d(m, pos, vel, msk, L0, nan):
+    """Vector angular momentum (metrics.py:95-110 of the JAX package):
+    L_tot the magnitude of the total, var_L the variance of the per-body
+    |L_i|, cos_theta the tilt of L against L0.  The floor 1e-300 of the
+    tilt's denominator is taken in the working dtype, as there: 0 in
+    float32."""
+    L_iv = torch.where(msk[..., None],
+                       m[..., None] * torch.linalg.cross(pos, vel, dim=-1),
+                       torch.zeros_like(pos))
+    L_vec = L_iv.sum(-2)
+    L_tot = torch.sqrt((L_vec * L_vec).sum(-1))
+    l_i = torch.sqrt((L_iv * L_iv).sum(-1))
+    zero = torch.zeros_like(l_i)
+    nb = torch.clamp_min(msk.to(l_i.dtype).sum(-1), 1.0)
+    l_mean = torch.where(msk, l_i, zero).sum(-1) / nb
+    var_L = torch.where(msk, (l_i - l_mean[..., None]) ** 2, zero).sum(-1) / nb
+    L0v = L_vec if L0 is None else L0
+    L0n = torch.sqrt((L0v * L0v).sum(-1))
+    cos_ok = (L0n != 0.0) & (L_tot != 0.0)
+    den = torch.maximum(L_tot * L0n, L_tot.new_tensor(1e-300))
+    cos_theta = torch.where(cos_ok, (L_vec * L0v).sum(-1) / den, nan)
+    return L_tot, var_L, cos_theta
+
+
 def step_metrics(state, dyn, cfg, L0=None, megno_slope_median=None,
                  energies: bool = True):
     """dict of (B,) step metrics (diagnostics.py:241-285).  ``L0`` is the
-    first-seen total L_z; ``energies=False`` leaves out the energy
-    breakdown (an eps* solve), which callers reading only the metric
-    columns do not need."""
-    if state.pos.shape[-1] != 2:
-        raise NotImplementedError("step_metrics: the port covers d = 2")
+    first-seen total angular momentum: L_z (B,) for d = 2, the L vector
+    (B, 3) for d = 3; ``energies=False`` leaves out the energy breakdown
+    (an eps* solve), which callers reading only the metric columns do
+    not need."""
     m, pos, vel, msk = state.mass, state.pos, state.vel, state.mask
-    zero = torch.zeros_like(m)
 
     com_vec = torch.where(msk[..., None], m[..., None] * pos,
                           torch.zeros_like(pos)).sum(-2)
@@ -63,17 +103,10 @@ def step_metrics(state, dyn, cfg, L0=None, megno_slope_median=None,
     theta_eps = torch.where(denom_ok, torch.atan2(state.pi, mu * state.eps),
                             nan)
 
-    L_i = m * (pos[..., 0] * vel[..., 1] - pos[..., 1] * vel[..., 0])
-    L_i = torch.where(msk, L_i, zero)
-    L_tot = L_i.sum(-1)
-    nb = torch.clamp_min(msk.to(L_i.dtype).sum(-1), 1.0)
-    L_mean = L_tot / nb
-    var_L = torch.where(msk, (L_i - L_mean[..., None]) ** 2, zero).sum(-1) / nb
-    if L0 is None:
-        L0 = L_tot
-    cos_ok = (L0 != 0.0) & (L_tot != 0.0)
-    cos_theta = torch.where(cos_ok, (L_tot * L0)
-                            / (torch.abs(L_tot) * torch.abs(L0)), nan)
+    if pos.shape[-1] == 2:
+        L_tot, var_L, cos_theta = _l_stats_2d(m, pos, vel, msk, L0, nan)
+    else:
+        L_tot, var_L, cos_theta = _l_stats_3d(m, pos, vel, msk, L0, nan)
 
     out = dict(
         com_drift=com_drift, J_eps=J_eps, L_tot=L_tot, var_L=var_L,

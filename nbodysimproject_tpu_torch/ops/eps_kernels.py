@@ -41,6 +41,8 @@ MAX_SLOTS = 16
 #: body-slot counts built ahead by ``build_jobs`` (any N <= MAX_SLOTS is
 #: built on first use)
 BUILD_SLOTS = (3, 8)
+#: the dimensions the kernel takes
+DIMS = (2, 3)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -49,7 +51,7 @@ _LL = ctypes.c_longlong
 
 
 def build_jobs(slots=BUILD_SLOTS):
-    return [(SOURCE, n, 2) for n in slots]
+    return [(SOURCE, n, d) for d in DIMS for n in slots]
 
 
 @functools.lru_cache(maxsize=None)
@@ -65,10 +67,10 @@ def _check(q, use_fallback: bool) -> None:
         raise NotImplementedError(
             "eps_star_and_grad_fused: the 'reference' gradient fallback is "
             "not ported")
-    if q.dim() != 3 or q.shape[-1] != 2:
+    if q.dim() != 3 or q.shape[-1] not in DIMS:
         raise NotImplementedError(
-            f"eps_star_and_grad_fused: ported for (B, N, 2); got "
-            f"{tuple(q.shape)}")
+            f"eps_star_and_grad_fused: ported for (B, N, d), d in {DIMS}; "
+            f"got {tuple(q.shape)}")
 
 
 def _rows(x, like):
@@ -126,8 +128,9 @@ def eps_star_and_grad_fused(q, m, h0, alpha, eps_min, eps_max, mask, *,
                             eta: float = 1.35, clamp: bool = False,
                             use_fallback: bool = False,
                             lam_align: float = 0.3):
-    """Batched (eps*, grad) on a (B, N, 2) float32 population: the CUDA
-    kernel for CUDA tensors, the plain version for CPU tensors.
+    """Batched (eps*, grad) on a (B, N, d) float32 population, d = 2 or
+    3: the CUDA kernel for CUDA tensors, the plain version for CPU
+    tensors.
 
     Per-system h0 (the SPH seed; the scan passes state.eps), alpha,
     eps_min, eps_max: (B,) tensors or scalars (on the card: float32
@@ -135,7 +138,7 @@ def eps_star_and_grad_fused(q, m, h0, alpha, eps_min, eps_max, mask, *,
     (float32 on the card); mask (B, N) bool.
     ``lam_align`` feeds only the fallback and is accepted for the JAX
     signature.  Any B is taken (the TPU kernel's B % 8 tiling has no
-    counterpart here).  Returns (es (B,), grad (B, N, 2))."""
+    counterpart here).  Returns (es (B,), grad (B, N, d))."""
     args = dict(eta=eta, clamp=clamp, use_fallback=use_fallback,
                 lam_align=lam_align)
     if q.device.type == "cpu":

@@ -28,8 +28,9 @@ other.  The wrappers hand their kernel the systems deepest first
 (``deepest_first``); each output comes back at the system's own index.
 
 Covered configuration: ``grad_mode="exact"``; the analysis and MEGNO
-kernels take ``policy="soft"`` (the dataset pipeline's), the multi-step
-kernel also ``"reflection"`` and ``"none"``.  The "reference" gradient
+kernels take ``policy="soft"`` (the dataset pipeline's) at d = 2 and 3,
+the multi-step kernel also ``"reflection"`` and ``"none"``, at d = 2
+(its d = 3 is not ported).  The "reference" gradient
 and the analysis/MEGNO kernels' reflection policy raise
 ``NotImplementedError`` on both routes.  As in the TPU kernels, all 8
 SPH iterations always run (no convergence freeze: a <= 1e-6 relative
@@ -62,14 +63,18 @@ _ITERS = 8
 BUILD_SLOTS = (3, 4, 8)
 #: the analysis and MEGNO kernels, and the plain multi-step kernel
 SOURCES = ("hamsoft.cu", "hamsoft_multistep.cu")
+#: the dimensions each source is built for
+SOURCE_DIMS = {"hamsoft.cu": (2, 3), "hamsoft_multistep.cu": (2,)}
 #: the policies the multi-step kernel takes (the analysis and MEGNO
 #: kernels take "soft" only)
 MULTISTEP_POLICIES = ("soft", "reflection", "none")
 
 
 def build_jobs(slots=BUILD_SLOTS):
-    """(source, n, d) of every library of this module, d = 2."""
-    return [(src, n, 2) for src in SOURCES for n in slots]
+    """(source, n, d) of every library of this module: the analysis and
+    MEGNO kernels at d = 2 and 3, the multi-step kernel at d = 2."""
+    return [(src, n, d) for src in SOURCES for d in SOURCE_DIMS[src]
+            for n in slots]
 
 
 _P = ctypes.c_void_p
@@ -77,17 +82,18 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 
 
-def _check_slots(n: int, d: int) -> None:
-    if d != 2 or n not in BUILD_SLOTS:
+def _check_slots(source: str, n: int, d: int) -> None:
+    dims = SOURCE_DIMS[source]
+    if d not in dims or n not in BUILD_SLOTS:
         raise NotImplementedError(
-            f"hamsoft kernels are built for d = 2 and N in {BUILD_SLOTS}; "
+            f"{source} is built for d in {dims} and N in {BUILD_SLOTS}; "
             f"got N = {n}, d = {d}")
 
 
 @functools.lru_cache(maxsize=None)
 def _library(n: int, d: int):
     """The bound analysis/MEGNO library for (n, d), built on first use."""
-    _check_slots(n, d)
+    _check_slots(SOURCES[0], n, d)
     lib = cuda_build.load(SOURCES[0], n, d)
     lib.hs_analysis.argtypes = [_P] * 21 + [_I] * 4 + [_F] * 4 + [_I, _I, _P]
     lib.hs_analysis.restype = _I
@@ -99,7 +105,7 @@ def _library(n: int, d: int):
 @functools.lru_cache(maxsize=None)
 def _multistep_library(n: int, d: int):
     """The bound multi-step library for (n, d), built on first use."""
-    _check_slots(n, d)
+    _check_slots(SOURCES[1], n, d)
     lib = cuda_build.load(SOURCES[1], n, d)
     lib.hs_multistep.argtypes = [_P] * 17 + [_I] * 3 + [_F] * 4 \
         + [_I, _I, _I, _P]
@@ -324,19 +330,37 @@ class _Physics:
                            torch.zeros_like(contrib)).sum(-2)
 
     def metrics_of(self, pos, vel, eps, L0, nb):
-        """com_drift, cos_theta, var_L, tr_hessian (metrics.py:56-123),
-        d = 2."""
+        """com_drift, cos_theta, var_L, tr_hessian (metrics.py:56-123):
+        L0 is L_z (B,) at d = 2, the L vector (B, 3) at d = 3."""
         com = (self.mval[..., None] * pos).sum(-2)
         com_drift = torch.sqrt((com * com).sum(-1))
-        L_i = self.mval * (pos[..., 0] * vel[..., 1] - pos[..., 1] * vel[..., 0])
-        L_tot = L_i.sum(-1)
-        d0 = L_i - (L_tot / nb)[:, None]
+        nan = torch.full_like(nb, math.nan)
+        if pos.shape[-1] == 2:
+            L_i = self.mval * (pos[..., 0] * vel[..., 1]
+                               - pos[..., 1] * vel[..., 0])
+            L_tot = L_i.sum(-1)
+            d0 = L_i - (L_tot / nb)[:, None]
+            cos_ok = (L0 != 0.0) & (L_tot != 0.0)
+            cos_theta = torch.where(cos_ok, (L_tot * L0)
+                                    / (torch.abs(L_tot) * torch.abs(L0)),
+                                    nan)
+        else:
+            # per-body L_i = m q x v; the tilt's denominator floored at
+            # 1e-300 in the working dtype (0 in float32), as the TPU
+            # kernel does
+            c = self.mval[..., None] * torch.linalg.cross(pos, vel, dim=-1)
+            Lv = c.sum(-2)
+            L_tot = torch.sqrt((Lv * Lv).sum(-1))
+            l_i = torch.sqrt((c * c).sum(-1))
+            zero = torch.zeros_like(l_i)
+            l_mean = torch.where(self.valid, l_i, zero).sum(-1) / nb
+            d0 = l_i - l_mean[:, None]
+            L0n = torch.sqrt((L0 * L0).sum(-1))
+            cos_ok = (L0n != 0.0) & (L_tot != 0.0)
+            den = torch.maximum(L_tot * L0n, L_tot.new_tensor(1e-300))
+            cos_theta = torch.where(cos_ok, (Lv * L0).sum(-1) / den, nan)
         var_L = torch.where(self.valid, d0 * d0,
                             torch.zeros_like(d0)).sum(-1) / nb
-        cos_ok = (L0 != 0.0) & (L_tot != 0.0)
-        cos_theta = torch.where(cos_ok, (L_tot * L0)
-                                / (torch.abs(L_tot) * torch.abs(L0)),
-                                torch.full_like(L0, math.nan))
         diff = pos[:, :, None, :] - pos[:, None, :, :]
         r2 = (diff * diff).sum(-1)
         s = r2 + (eps * eps)[:, None, None]
@@ -480,16 +504,27 @@ def _kernel_scalars(B, like, n_sub, *xs):
     return out, ns
 
 
-def _analysis_args(pos, n_sub, scalars, n_steps, n_sub_max, interval, G,
-                   k_wall, eta, jcap, bexp, policy, grad_mode):
+def _l0_rows(L0, pos):
+    """L0 as a (B,) row (L_z, d = 2) or a (B, 3) tensor (the L vector,
+    d = 3) like ``pos``."""
+    B, _, d = pos.shape
+    if d == 2:
+        return _per_system(L0, pos)
+    return torch.broadcast_to(torch.as_tensor(L0, dtype=pos.dtype,
+                                              device=pos.device),
+                              (B, 3)).contiguous()
+
+
+def _analysis_args(pos, n_sub, L0, scalars, n_steps, n_sub_max, interval,
+                   G, k_wall, eta, jcap, bexp, policy, grad_mode):
     _check_config(policy, grad_mode)
-    if pos.shape[-1] != 2:
-        raise NotImplementedError("the analysis kernel is ported for d = 2")
+    if pos.shape[-1] not in (2, 3):
+        raise NotImplementedError("the analysis kernel takes d = 2 or 3")
     vals, ns = _kernel_scalars(pos.shape[0], pos, n_sub, *scalars)
     kw = dict(n_sub=ns, n_steps=int(n_steps), n_sub_max=int(n_sub_max),
               interval=int(interval), G=float(G), k_wall=float(k_wall),
               eta=float(eta), jcap=float(jcap), bexp=int(bexp))
-    return vals, kw
+    return _l0_rows(L0, pos), vals, kw
 
 
 def _accs_of(out_acc):
@@ -508,9 +543,9 @@ def hamsoft_analysis_multistep_plain(pos, vel, mass, eps, pi, L0, *, k_soft,
                                      grad_mode: str = "exact"):
     """The plain PyTorch version of ``hamsoft_analysis_multistep`` (same
     arguments, same outputs), on any device."""
-    (eps, pi, L0, k_soft, mu, alpha, eps_min, eps_max, h), kw = \
-        _analysis_args(pos, n_sub, (eps, pi, L0, k_soft, mu, alpha, eps_min,
-                                    eps_max, h), n_steps, n_sub_max,
+    L0, (eps, pi, k_soft, mu, alpha, eps_min, eps_max, h), kw = \
+        _analysis_args(pos, n_sub, L0, (eps, pi, k_soft, mu, alpha, eps_min,
+                                        eps_max, h), n_steps, n_sub_max,
                        interval, G, k_wall, eta, jcap, bexp, policy,
                        grad_mode)
     return _analysis_loop(pos, vel, mass, eps, pi, L0, k_soft=k_soft, mu=mu,
@@ -540,12 +575,13 @@ def hamsoft_analysis_multistep(pos, vel, mass, eps, pi, L0, *, k_soft, mu,
     with the analysis metric sampling fused in: the CUDA kernel for CUDA
     tensors, the plain version for CPU tensors.
 
-    Per-system (B,) inputs: eps, pi, L0 (L_z, d = 2), k_soft, mu, alpha,
-    eps_min, eps_max, h, n_sub (each system runs min(n_sub, n_sub_max)
-    trips per step).  Returns (pos, vel, eps, pi, accs, eps_samples,
-    pi_samples): ``accs`` maps each of ``ACC_METRICS`` to a
-    (count, sum, sumsq, max, min) tuple of (B,) tensors and the sample
-    tensors are (n_samples, B), n_samples = ceil(n_steps / interval)."""
+    Per-system (B,) inputs: eps, pi, k_soft, mu, alpha, eps_min,
+    eps_max, h, n_sub (each system runs min(n_sub, n_sub_max) trips per
+    step); L0 is L_z (B,) at d = 2 and the L vector (B, 3) at d = 3.
+    Returns (pos, vel, eps, pi, accs, eps_samples, pi_samples): ``accs``
+    maps each of ``ACC_METRICS`` to a (count, sum, sumsq, max, min)
+    tuple of (B,) tensors and the sample tensors are (n_samples, B),
+    n_samples = ceil(n_steps / interval)."""
     args = dict(k_soft=k_soft, mu=mu, alpha=alpha, eps_min=eps_min,
                 eps_max=eps_max, h=h, n_sub=n_sub, n_steps=n_steps,
                 n_sub_max=n_sub_max, interval=interval, G=G, k_wall=k_wall,
@@ -556,17 +592,19 @@ def hamsoft_analysis_multistep(pos, vel, mass, eps, pi, L0, *, k_soft, mu,
                                                 **args)
     if pos.device.type != "cuda":
         raise RuntimeError(f"hamsoft kernels: unsupported device {pos.device}")
-    (eps, pi, L0, k_soft, mu, alpha, eps_min, eps_max, h), kw = \
-        _analysis_args(pos, n_sub, (eps, pi, L0, k_soft, mu, alpha, eps_min,
-                                    eps_max, h), n_steps, n_sub_max,
+    L0, (eps, pi, k_soft, mu, alpha, eps_min, eps_max, h), kw = \
+        _analysis_args(pos, n_sub, L0, (eps, pi, k_soft, mu, alpha, eps_min,
+                                        eps_max, h), n_steps, n_sub_max,
                        interval, G, k_wall, eta, jcap, bexp, policy,
                        grad_mode)
     B, n, d = pos.shape
     ns = kw["n_sub"]
     _check_cuda_inputs(pos, mass, dict(vel=vel), dict(
-        eps=eps, pi=pi, L0=L0, k_soft=k_soft, mu=mu, alpha=alpha,
+        eps=eps, pi=pi, k_soft=k_soft, mu=mu, alpha=alpha,
         eps_min=eps_min, eps_max=eps_max, h=h, n_sub=ns))
     order = deepest_first(ns, kw["n_sub_max"])
+    # L0 as 1 (d = 2) or 3 (d = 3) coordinate rows of B
+    L0_c = L0.reshape(B, -1).t().contiguous()
     pos_c, vel_c = _coord_major(pos), _coord_major(vel)
     mass_c = mass.t().contiguous()
     n_samples = -(-kw["n_steps"] // kw["interval"])
@@ -579,7 +617,7 @@ def hamsoft_analysis_multistep(pos, vel, mass, eps, pi, L0, *, k_soft, mu,
     code = lib.hs_analysis(
         *cuda_build.pointers(
             pos_c, vel_c, mass_c, eps, pi, k_soft, mu, alpha, eps_min,
-            eps_max, h, ns, order, L0, out_pos, out_vel, out_eps, out_pi,
+            eps_max, h, ns, order, L0_c, out_pos, out_vel, out_eps, out_pi,
             out_acc, out_es, out_ps),
         B, kw["n_steps"], kw["n_sub_max"], kw["interval"], kw["G"],
         kw["k_wall"], kw["eta"], kw["jcap"], kw["bexp"],
@@ -720,7 +758,8 @@ def _multistep_args(pos, n_sub, scalars, n_steps, n_sub_max, G, k_wall, eta,
                     jcap, bexp, policy, grad_mode):
     _check_config(policy, grad_mode, MULTISTEP_POLICIES)
     if pos.shape[-1] != 2:
-        raise NotImplementedError("the multi-step kernel is ported for d = 2")
+        raise NotImplementedError(
+            "the multi-step kernel is ported for d = 2; d = 3 is not ported")
     vals, ns = _kernel_scalars(pos.shape[0], pos, n_sub, *scalars)
     kw = dict(n_sub=ns, n_steps=int(n_steps), n_sub_max=int(n_sub_max),
               G=float(G), k_wall=float(k_wall), eta=float(eta),

@@ -8,7 +8,8 @@ leading system axis — no per-system host loop — and ``integrate_batch``
 / ``step_batch`` (``integrate_dynamic`` / ``macro_step_dynamic`` of
 ``integrators/step.py`` on the whole batch: the JAX package's vmap is
 the batch axis here).  Integrator modes ham_soft, verlet and yoshida4
-and, with the classical construction, whfast and kepler_split, at d = 2.
+and, with the classical construction, whfast and kepler_split, at d = 2
+or 3.
 """
 
 from __future__ import annotations
@@ -34,9 +35,6 @@ def build_batch(mass, pos, vel, mask, cfg: SimConfig, G, softening,
     """Construct batched (SimState, DynParams) for a (B, N[, d])
     population; ``G`` / ``softening`` / ``min_softening`` may be scalars
     or (B,) arrays.  The tensors' device and dtype come from ``pos``."""
-    if pos.shape[-1] != 2:
-        raise NotImplementedError(
-            f"build_batch: the port covers d = 2; got d = {pos.shape[-1]}")
     B = pos.shape[0]
     f = lambda x: _per_system(x, B, pos)
     if not skip_cm_recenter:

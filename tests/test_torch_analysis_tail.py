@@ -72,7 +72,7 @@ def _port(pop, tangent, cfg, n_steps, **kw):
                                  **_kw(n_steps), **kw)
 
 
-def _sensitivity(pop, tangent, cfg, tail):
+def _sensitivity(pop, tangent, cfg, tail, softening=SOFT):
     """|float32 - float64| of the port's scan engine on the tail lanes,
     per column: the float32 rounding floor of those rows."""
     from nbodysimproject_tpu_torch.analysis.batch import (
@@ -80,7 +80,8 @@ def _sensitivity(pop, tangent, cfg, tail):
     from nbodysimproject_tpu_torch.analysis.stability import analyze_batch
 
     st, dy, n_raw = prepare_population(*pop, cfg, G=np.float64(1.0),
-                                       softening=SOFT, min_softening=0.0,
+                                       softening=softening,
+                                       min_softening=0.0,
                                        dt=0.01, device="cpu")
     sel, n_tail = _tail_selection(st, dy, cfg, n_raw, 0.01)
     assert np.array_equal(sel, tail)

@@ -14,7 +14,8 @@
 * ``production_grad_omega``, the legacy gradient and
   ``integrators/hamsoft.py::grad_eps_target`` in float64, to round-off.
 * The "reference" gradient fallback raises ``NotImplementedError`` on
-  both routes.
+  both routes; d = 3 at N = 3 against the interpret-mode kernel, with
+  the float32 tolerances above.
 
 Positions are drawn clustered (scale 0.05 against smoothing lengths of
 0.01-5), so the SPH clip does not saturate everywhere and the gradients
@@ -159,13 +160,28 @@ def test_grad_eps_target_matches_float64():
 
 
 def test_reference_fallback_and_d3_raise():
-    q, m, h0, alpha, emin, emax, mask = (_t(a) for a in _inputs(3, 3, False))
+    """The "reference" fallback raises on both routes; d = 3 (the same
+    inputs with a drawn z column) is ported and held to the JAX Pallas
+    kernel in interpret mode with the tolerances above."""
+    import jax.numpy as jnp
+
+    from nbodysimproject_tpu.ops.pallas_eps import eps_star_and_grad_fused
+
+    args = _inputs(3, 3, False)
+    q, m, h0, alpha, emin, emax, mask = (_t(a) for a in args)
     with pytest.raises(NotImplementedError):
         ek.eps_star_and_grad_fused(q, m, h0, alpha, emin, emax, mask,
                                    use_fallback=True)
     with pytest.raises(NotImplementedError):
         tem.eps_star_and_grad(q, m, h0=h0, alpha=alpha, eps_min=emin,
                               eps_max=emax, mask=mask, use_fallback=True)
-    q3 = torch.cat([q, torch.zeros_like(q[..., :1])], -1)
-    with pytest.raises(NotImplementedError):  # d = 3
-        ek.eps_star_and_grad_fused(q3, m, h0, alpha, emin, emax, mask)
+    z = 0.05 * np.random.default_rng(11).normal(size=args[0].shape[:2] + (1,))
+    args3 = (np.concatenate([args[0], z.astype(np.float32)], -1),) + args[1:]
+    es_ref, g_ref = eps_star_and_grad_fused(
+        *(jnp.asarray(a) for a in args3), eta=1.35, clamp=False,
+        use_fallback=False, lanes=2, interpret=True)
+    es, g = ek.eps_star_and_grad_fused(*(_t(a) for a in args3), eta=1.35)
+    g_ref = np.asarray(g_ref)
+    assert g.shape == args3[0].shape and np.abs(g_ref[..., 2]).max() > 0.1
+    np.testing.assert_allclose(es.numpy(), np.asarray(es_ref), rtol=1e-6)
+    np.testing.assert_allclose(g.numpy(), g_ref, rtol=1e-5, atol=1e-5)

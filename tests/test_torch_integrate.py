@@ -19,8 +19,10 @@ build their own batch from the same numpy arrays.
   equal the port's own build (classical and ham_soft fields).
 * whfast and kepler_split build and integrate (their parity tests are
   ``test_torch_whfast.py`` and ``test_torch_kepler_split.py``), WHFast
-  also on its large-N force routes; the "reference" gradient and d = 3
-  raise ``NotImplementedError``.
+  also on its large-N force routes; the "reference" gradient raises
+  ``NotImplementedError``.  ``build_batch`` at d = 3 (the same systems
+  with a drawn z column) equals the JAX package's in float64 to
+  round-off, for whfast, kepler_split and ham_soft.
 """
 
 import dataclasses
@@ -108,6 +110,39 @@ def _assert_state(jstate, tstate, names, rtol, atol, tag):
 ICS = {"bench": _bench_ics, "masked4": _masked_ics}
 
 
+def lift_3d(q, v, seed=9):
+    """(B, N, 2) positions and velocities with a drawn z column."""
+    rng = np.random.default_rng(seed)
+    z = lambda x: np.concatenate([x, 0.1 * rng.normal(size=x.shape[:2]
+                                                      + (1,))], -1)
+    return z(q), z(v)
+
+
+def assert_build_3d_matches(cfg_kw, m, q3, v3, mask, softening):
+    """build_batch at d = 3 in float64 against the JAX package's: every
+    DynParams and SimState field to round-off, n_sub exactly."""
+    import jax.numpy as jnp
+
+    from nbodysimproject_tpu.parallel import build_batch as jbuild
+
+    cj, ct = nb.SimConfig(**cfg_kw), nt.SimConfig(**cfg_kw)
+    sj, dj = jbuild(*(jnp.asarray(a) for a in (m, q3, v3)),
+                    jnp.asarray(mask), cj, 1.0, softening, 0.0, 0.01)
+    t = lambda a: torch.as_tensor(np.asarray(a))
+    st, dt = build_batch(t(m), t(q3), t(v3), t(mask), ct, 1.0, softening,
+                         0.0, 0.01)
+    assert st.pos.shape[-1] == 3
+    for name, a in _fields(dj).items():
+        b = getattr(dt, name)
+        if name == "n_sub":
+            np.testing.assert_array_equal(b.numpy(), np.asarray(a))
+        else:
+            np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=1e-10,
+                                       atol=1e-12, err_msg=name)
+    _assert_state(sj, st, [f for f in _fields(sj) if f != "mask"], 1e-10,
+                  1e-12, "build d = 3")
+
+
 @pytest.mark.parametrize("ics", sorted(ICS))
 @pytest.mark.parametrize("mode", ["verlet", "yoshida4", "ham_soft"])
 def test_build_batch_matches_float64(mode, ics):
@@ -178,9 +213,8 @@ def test_state_from_numpy_carries_the_jax_build(mode):
 def test_unported_modes_raise(mode):
     """Both modes are ported (tests/test_torch_whfast.py and
     tests/test_torch_kepler_split.py hold them to the JAX package) and
-    build, integrate and step here; what stays unported in them raises:
-    WHFast's large-N force routes (``force_mode`` other than "direct")
-    and d = 3."""
+    build, integrate and step here, WHFast also on its large-N force
+    routes; their construction at d = 3 equals the JAX package's."""
     m, q, v, mask = (torch.as_tensor(a) for a in _bench_ics(B=4))
     cfg = nt.SimConfig(integrator_mode=mode)
     st, dt = build_batch(m, q, v, mask, cfg, 1.0, 1e-3, 0.0, 0.01)
@@ -190,22 +224,22 @@ def test_unported_modes_raise(mode):
     if mode == "whfast":
         out = step_batch(st, dt, cfg.replace(force_mode="p3m"), 0.01, 1)
         assert torch.isfinite(out.pos).all() and torch.isfinite(out.vel).all()
-    q3 = torch.cat([q, torch.zeros_like(q[..., :1])], -1)
-    with pytest.raises(NotImplementedError):
-        build_batch(m, q3, torch.cat([v, torch.zeros_like(v[..., :1])], -1),
-                    mask, cfg, 1.0, 1e-3, 0.0, 0.01)
+    q3, v3 = lift_3d(q.numpy(), v.numpy())
+    assert_build_3d_matches(dict(integrator_mode=mode), m.numpy(), q3, v3,
+                            mask.numpy(), 1e-3)
 
 
 def test_reference_gradient_and_d3_raise():
+    """The "reference" gradient raises; the ham_soft construction at
+    d = 3 equals the JAX package's."""
     m, q, v, mask = (torch.as_tensor(a) for a in _bench_ics(B=4))
     cfg = nt.SimConfig(eps_grad_mode="reference")
     st, dt = build_batch(m, q, v, mask, nt.SimConfig(), 1.0, 5e-2, 0.0, 0.01)
     with pytest.raises(NotImplementedError):
         integrate_batch(st, dt, cfg, 0.01, 1, 1)
-    q3 = torch.cat([q, torch.zeros_like(q[..., :1])], -1)
-    with pytest.raises(NotImplementedError):
-        build_batch(m, q3, torch.cat([v, torch.zeros_like(v[..., :1])], -1),
-                    mask, nt.SimConfig(), 1.0, 5e-2, 0.0, 0.01)
+    q3, v3 = lift_3d(q.numpy(), v.numpy())
+    assert_build_3d_matches(dict(integrator_mode="ham_soft"), m.numpy(), q3,
+                            v3, mask.numpy(), 5e-2)
 
 
 @pytest.mark.parametrize("mode", ["verlet", "ham_soft"])

@@ -12,7 +12,8 @@ package from the same arrays.
   with the adaptive Newton solver (``whfast_kepler_iters=0``, the
   default) and with the fixed-depth LC-8 solver.
 * ``force_mode`` other than ``"direct"`` (the large-N slice's routes)
-  runs; d = 3 and P3M at d = 3 raise.
+  runs; ``build_batch`` at d = 3 equals the JAX package's in float64;
+  P3M at d = 3 raises.
 
 The fused kernel's plain version is held to the JAX Pallas kernel in
 ``tests/test_torch_whfast_kernel.py``.
@@ -25,6 +26,7 @@ import torch
 import nbodysimproject_tpu as nb
 import nbodysimproject_tpu_torch as nt
 from nbodysimproject_tpu_torch.integrators import whfast as tw
+from test_torch_integrate import assert_build_3d_matches
 
 RTOL, ATOL = 1e-10, 1e-12
 
@@ -117,8 +119,8 @@ def test_integrate_batch_matches_float64(iters):
 def test_force_mode_other_than_direct_raises():
     """The many-planet force routes run since the large-N slice: P3M with
     the star split and the tiled kernel give finite states, P3M's equal
-    to the JAX package's in float64.  What stays unported still raises:
-    d = 3 through ``build_batch``, and P3M at d = 3."""
+    to the JAX package's in float64.  The construction at d = 3 equals
+    the JAX package's; P3M at d = 3 still raises."""
     import jax.numpy as jnp
 
     from nbodysimproject_tpu.parallel import integrate_batch as jint
@@ -134,8 +136,8 @@ def test_force_mode_other_than_direct_raises():
                        jnp.float64(0.01), 1, 1)
             _close(ref.pos, out.pos, msg="p3m pos")
             _close(ref.vel, out.vel, msg="p3m vel")
-    m, q, v, mask = (torch.as_tensor(a) for a in _planets(4, d=3))
-    with pytest.raises(NotImplementedError):
-        nt.build_batch(m, q, v, mask, ct, 1.0, 1e-3, 0.0, 0.01)
+    assert_build_3d_matches(dict(integrator_mode="whfast",
+                                 whfast_kepler_iters=0), *_planets(4, d=3),
+                            1e-3)
     with pytest.raises(ValueError, match="d=2 only"):
         make_force_fn(ct.replace(force_mode="p3m"), 3, 3)
