@@ -70,7 +70,7 @@ routes; ``csrc/pairwise_force.cu``).  Phases (each prints its seconds):
    Stumpff evaluations that take the closed form;
 6. main path: ``analyze_population(mode="full", n_steps=1000, dt=0.01)``
    on all 16384 systems under ``_PIPE_CFG`` (tail on), one cold and
-   three warm runs with the tail on its own stream, one with the tail
+   WARM_REPS warm runs with the tail on its own stream, one with the tail
    after the fused call; the tail's count and n_tail
    histogram, the deepest fused lane, the fused call's and the tail's
    device time; the launch counts read around the cold run;
@@ -106,8 +106,38 @@ routes; ``csrc/pairwise_force.cu``).  Phases (each prints its seconds):
    path's launches replayed between CUDA events with their bound at
    d = 3, and the 3-D headline MLP and GBDT
    (``data/headline3d_pre_torch.npz``) served on the card, held to the
-   CPU as phase 13 holds the 2-D ones;
-11. generators: ``diverse_population`` (a ``torch.Generator`` on the card
+   CPU as phase 14 holds the 2-D ones;
+11. the fused engine's remaining branches: the analysis and
+   MEGNO kernels under the reflection policy, the no-barrier policy and
+   the "reference" eps* gradient held to their plain versions on phase
+   4's lanes under ``row_gate``'s rule (``bucket_cases``; a row past
+   the widening allowed only where ``branch_walk`` finds kernel and
+   plain parting at a trip whose fold or switch the float64 plain trip
+   puts within BRANCH_ULPS float32 ulps of its threshold, on at most
+   MAX_WIDENED rows, is_stable still gated there), the
+   "reference" gradient at d = 3 on the 3-D lowest bucket; the
+   multi-step kernel under the "reference" gradient with both policies
+   (B = 2^20, N = 3, 2 steps) and at d = 3, N = 8 (the 3-D lowest
+   bucket, 20 steps); the eps kernel with ``use_fallback`` under both
+   clamps (the bench population and the first 1024 dataset rows; the
+   systems whose branch the kernel takes otherwise than the plain
+   version counted and allowed only where the plain version's float64
+   rerun puts gmax within BRANCH_ULPS float32 ulps of the threshold) and
+   its two layouts bit for bit
+   under it; the WHFast kernel at d = 3 (B = 2^22, 5 steps, inclined
+   orbits); the fallback's share at t = 0 on the dataset rows and the
+   bench population (gated > 0); the three branches through
+   ``analyze_population`` on the 16384 dataset rows (tail off; systems/s,
+   fused_ms, both kernels' launches gated > 0, non-finite rows and
+   is_stable beside the soft/exact run's, printed; the launches replayed
+   with their bounds; under reflection every final eps inside its walls,
+   gated), the 3-D rows with ``use_fused_metrics=False`` (the multi-step
+   kernel at d = 3, launches gated; its launches replayed; one step
+   bitwise the fused way's, gated), the ham_soft scan and fused leg under
+   the "reference" gradient and the WHFast leg at d = 3 at bench.py's
+   widths (launches gated > 0); the registers and spills of every build
+   of the phase, and the exact builds' registers beside PERF.md's;
+12. generators: ``diverse_population`` (a ``torch.Generator`` on the card
    seeded 0, 16384 systems, 8 slots) between CUDA events, twice (the
    same bits, gated); gated on the cohort sizes and order, each cohort's
    body counts, finite float32 values on the card and each system's
@@ -116,11 +146,11 @@ routes; ``csrc/pairwise_force.cu``).  Phases (each prints its seconds):
    |sum m v|) at most COM_GATE of its scale; the per-cohort medians of
    total mass, virial ratio and mean separation beside those of the
    committed bench population;
-12. bench population: ``data/bench_population_16384.npz`` (bench.py's
+13. bench population: ``data/bench_population_16384.npz`` (bench.py's
    own population, ``diverse_population(PRNGKey(0), 16384, n_slots=8)``
    drawn by the JAX package on the CPU, read with numpy) through
    ``analyze_population`` under ``_PIPE_CFG`` as bench.py's leg runs it
-   but at BENCH_STEPS = 250 steps (bench.py's 1000 cut for the time
+   but at BENCH_STEPS = 60 steps (bench.py's 1000 cut for the time
    limit: its eager Kepler tail runs up to 7 trips a step),
    one cold and BENCH_WARM_REPS warm runs (systems/s, ``timing_out``'s phases,
    fused_ms, tail_ms, n_tail, the launches of the analysis and MEGNO
@@ -129,56 +159,58 @@ routes; ``csrc/pairwise_force.cu``).  Phases (each prints its seconds):
    seed=0).generate_diverse_dataset_batched()`` once (500 steps: the
    least its clamp takes), its frame gated (16384
    rows, ``system_type`` in cohort order, both kernels launched);
-13. serving: ``ic_feature_frame`` and ``StabilityPredictor.predict_frame``
+14. serving: ``ic_feature_frame`` and ``StabilityPredictor.predict_frame``
    for the headline MLP and GBDT (``data/headline_pre_torch.npz``) on
    the bench population on the card, cold and the warm median of
-   SERVE_REPS, in systems/s and as a multiple of phase 12's analysis
+   SERVE_REPS, in systems/s and as a multiple of phase 13's analysis
    rate; the card's scores gated against the same port on the CPU on
    the same frame (MLP within SERVE_MLP_TOL with equal verdicts outside
    that band; GBDT raw scores bit for bit, probabilities within
-   SERVE_GBDT_TOL); the verdicts' agreement with phase 12's is_stable
+   SERVE_GBDT_TOL); the verdicts' agreement with phase 13's is_stable
    per cohort (not gated);
-14. ``bench.py``'s legs at full width: verlet and yoshida4 scans at
+15. ``bench.py``'s legs at full width: verlet and yoshida4 scans at
    B = 16384 and 1000 steps, the fused verlet at 2^24 and yoshida4 at
    2^22 (with the SASS instructions a step and the issue floor they
    give at the card's maximum SM clock), the ham_soft scan and fused kernel at 2^20 and 100 steps
    under both barrier policies, the WHFast scan (adaptive Kepler
-   solver) at B = 16384 and 200 steps (bench.py's 1000 cut for the time
+   solver) at B = 16384 and 100 steps (bench.py's 1000 cut for the time
    limit) and the fused WHFast kernel at
    2^22 and 100 steps (8 Laguerre-Conway updates), each with launch
-   counts around its cold run, the warm median of three runs between
-   CUDA events, the count of non-finite systems and system 0's
+   counts around its cold run, the warm median of LEG_WARM_REPS runs
+   between CUDA events, the count of non-finite systems and system 0's
    relative drift of the extended Hamiltonian;
-15. the tiled force kernel against its plain version: N = 4097 (not a
+16. the tiled force kernel against its plain version: N = 4097 (not a
    tile multiple) at d = 2 and N = 1000 at d = 3 on all rows, B = 4
    systems with their own eps and G, and bench_largen's N = 10^5 cloud
    on 4096 sampled rows; each row's error from the float64 plain version
    over its magnitude sum, gated (FORCE_ERR_*), and the momentum;
-16. bench_largen's single evaluations at N = 10^4, 32768, 10^5, 10^6
+17. bench_largen's single evaluations at N = 10^4, 32768, 10^5, 10^6
    (its ICs drawn again with numpy in its order, its mesh sizes): P3M
    (and its short-range pass alone), the tiled kernel and, up to 32768,
    the dense eager force; P3M's
    error median and p99 against the dense force (else the kernel),
    gated (P3M_ERR_GATE, n_dropped = 0);
-17. bench_largen's rollouts, ``largen_rollout`` (dt 1e-4, eps 6 / Ng):
+18. bench_largen's rollouts, ``largen_rollout`` (dt 1e-4, eps 6 / Ng):
    p3m and direct_pallas at 10^4 and 10^5, p3m at 10^6, 50 steps
    each (10 at 10^6, cut for the time limit), cold and the warm median
-   of three in steps/s;
+   of LEG_WARM_REPS in steps/s;
    n_dropped_max = 0, finite states, the kernel's launches > 0 on the
    direct route;
-18. verlet through ``build_batch`` -> ``integrate_batch`` with
+19. verlet through ``build_batch`` -> ``integrate_batch`` with
    ``use_pallas_forces`` on one 4096-body cloud for 100 steps, against
    the same run on the dense force, both timed;
-19. bench_whfast_largen: 4096, 16384 and 65536 planets, LC-8, the kick
+20. bench_whfast_largen: 4096, 16384 and 65536 planets, LC-8, the kick
    on direct_pallas and on P3M with the star split: 20 timed substeps,
    the drift over 200 (float64 energy on the card, gated), P3M's kick
    error against direct_pallas (p99 gated);
-20. the tiled force kernel alone at its paths' widths (the classical
+21. the tiled force kernel alone at its paths' widths (the classical
    route's N = 4096, the 65536-planet kick, 10^5 and 10^6): many
    launches back to back between CUDA events, with its bound.
 
-It prints a ``{"kernels": [...]}`` line (the seven kernels, and rows 1,
-2 and 4 again at d = 3) and, last, the device line.  Any
+It prints a ``{"kernels": [...]}`` line (the seven kernels, rows 1, 2
+and 4 again at d = 3, rows 1 and 2 under each branch of phase 11, row 3
+under the "reference" gradient and at d = 3, row 4's fallback and row 6
+at d = 3) and, last, the device line.  Any
 failed check raises, so the script exits non-zero; without a CUDA
 device it exits non-zero before printing any result.  It writes
 nothing outside the build directory.
@@ -201,7 +233,13 @@ B_CMP = 1024
 N_SLOTS = 8
 N_STEPS = 1000
 DT = 0.01
-WARM_REPS = 3
+#: warm runs of the 2-D main path (one cold run before them); 3 until
+#: the fused engine's branches came in, then 2, cut for the time limit
+#: (1,214.5 s on a slow host with 2)
+WARM_REPS = 1
+#: warm runs of each of bench.py's legs (``run_leg``); 3 until the fused
+#: engine's branches came in, then 2, cut for the time limit
+LEG_WARM_REPS = 1
 #: the dataset pipeline's configuration (nbodysimproject_tpu/generators/
 #: pipeline.py:40-51), unmodified: the Kepler tail policy is "kepler"
 PIPE = dict(slot_bucket=8, fast_float32=True, analysis_n_sub_cap=256,
@@ -243,6 +281,14 @@ SENS_FACTOR = 10.0
 #: itself lies outside the tolerances from its float64 run (any column
 #: or final state value), and on at most this many other rows
 MAX_WIDENED = 10
+#: under a branch of the physics (the reflection fold, the "reference"
+#: switch), a row past the widening is allowed only where the kernel's
+#: and the plain version's trajectories first part at a trip where the
+#: float64 plain trip, from the kernel's own state before it, puts the
+#: branch's input within this many float32 ulps of its threshold
+#: (``branch_walk``); at most MAX_WIDENED such rows
+BRANCH_ULPS = 8
+F32_ULP = 2.0 ** -23
 #: final pos, vel, eps and pi of both kernels: (rtol, atol), as the
 #: CPU tests hold the plain versions to the JAX kernels
 STATE_TOL = (1e-4, 1e-5)
@@ -257,6 +303,9 @@ MEGNO_COLS = ("MEGNO", "lyapunov_time", "megno_slope_med")
 #: the dataset's own columns read for the comparison with the main path
 REF_COLS = ("is_stable", "pathological_energy", "energy_drift", "n_sub",
             "system_type")
+#: SimConfig's lambda_softening: the legacy gradient's strength in the
+#: "reference" fallback's sign alignment
+LAMBDA_SOFTENING = 0.3
 #: published H100 SXM peaks (NVIDIA H100 datasheet): FP32 outside
 #: the tensor cores, HBM bandwidth
 PEAK_FP32 = 67e12
@@ -449,25 +498,80 @@ def megno_ops(n, d):
     return (6 * d + 14) * P + 8 * n * d + 8
 
 
-def bound(kind, n_sub_lanes, n_sub_max, n_steps, megno_steps, n, d):
+def ref_ops(n, d, share):
+    """The "reference" gradient's work on one eps* evaluation, counted off
+    reference_switch in csrc/hamsoft_physics.cuh as trip_ops counts: the
+    test on every evaluation (each valid row's norm, 2 d and a root, and
+    the largest pair distance's root) and, on the ``share`` of
+    evaluations that take the fallback, the Omega gradient (per body 12,
+    per ordered pair 17 + 4 d: the kernel term, its two sums, the
+    coefficient and its scatter), the legacy gradient (per pair 9 + 5 d,
+    3 more) and the sign alignment (2 n d).  The median runs only where
+    the largest distance cannot decide and is not counted; ``share``
+    (the fallback's share of lanes at t = 0, ``fallback_lanes``) stands
+    for the share of every trip's evaluations, which the run does not
+    record."""
+    P, M = n * (n - 1) // 2, n * (n - 1)
+    fallback = 12 * n + M * (17 + 4 * d) + P * (9 + 5 * d) + 3 + 2 * n * d
+    return n * (2 * d + 1) + 1 + share * fallback
+
+
+def bound(kind, n_sub_lanes, n_sub_max, n_steps, megno_steps, n, d,
+          share=None):
     """(bound_ms, bound_by) of one launch on these lanes: the larger of
     the bytes it must move over HBM bandwidth and the operations it does
     (each lane runs min(n_sub, n_sub_max) trips per step) over the FP32
-    peak."""
+    peak; with ``share`` (the "reference" gradient) ``ref_ops`` more on
+    every trip and at entry."""
     ns = np.minimum(np.maximum(n_sub_lanes, 1), n_sub_max).astype(np.float64)
     B = len(ns)
+    extra = 0.0 if share is None else ref_ops(n, d, share)
+    trip, entry = trip_ops(n, d) + extra, entry_ops(n, d) + extra
     if kind == "analysis":
         n_samples = -(-n_steps // max(1, n_steps // 100))
-        ops = (ns.sum() * n_steps * trip_ops(n, d)
-               + B * (n_samples * metric_ops(n, d) + entry_ops(n, d)))
+        ops = (ns.sum() * n_steps * trip
+               + B * (n_samples * metric_ops(n, d) + entry))
         words = B * (4 * n * d + n + 10 + 2 + 17 + 2 * n_samples)
     else:
-        ops = (ns.sum() * megno_steps * trip_ops(n, d)
-               + B * (megno_steps * megno_ops(n, d) + entry_ops(n, d)))
+        ops = (ns.sum() * megno_steps * trip
+               + B * (megno_steps * megno_ops(n, d) + entry))
         words = B * (6 * n * d + n + 11 + 4 + megno_steps)
     t_ops, t_bytes = ops / PEAK_FP32, 4 * words / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
+
+
+def fallback_lanes(st, dy, clamp=False, ek=False, eta=1.35):
+    """Per system (taken, near): whether the "reference" fallback takes
+    the gradient at ``st.pos`` in the plain physics (float32), and
+    whether the float64 plain rerun puts gmax at the threshold: on the
+    other branch, or within BRANCH_ULPS float32 ulps of 1e-9 r_median or
+    of 1e-12 (``switch_ulps``).  ``ek``: the eps kernel's bounds (min and
+    max of eps_min and eps_max) and, with ``clamp``, its value clamp;
+    else the ham_soft kernels' (eps_min and eps_max as they are)."""
+    from nbodysimproject_tpu_torch.ops.eps_model import degenerate_grad
+    from nbodysimproject_tpu_torch.ops.hamsoft_kernels import _Physics
+
+    res = []
+    for dt_ in (torch.float32, torch.float64):
+        pos = st.pos.to(dt_)
+        m = torch.where(st.mask, st.mass, torch.zeros_like(st.mass)).to(dt_)
+        lo, hi = dy.min_softening.to(dt_), dy.max_softening.to(dt_)
+        a, b = (torch.minimum(lo, hi), torch.maximum(lo, hi)) if ek \
+            else (lo, hi)
+        flo = torch.clamp_min(a, 1e-12) if ek else a
+        cap = torch.maximum(flo, b) if ek else b
+        one = torch.ones_like(lo)
+        ph = _Physics(m, st.eps.to(dt_), one, one, dy.alpha_run.to(dt_), flo,
+                      cap, G=1.0, k_wall=0.0, eta=eta, jcap=0.02, bexp=5)
+        es, g, _h = ph.exact_eps_grad(pos)
+        if clamp:
+            g = torch.where(((es >= a) & (es <= b))[:, None, None], g,
+                            torch.zeros_like(g))
+        res.append(degenerate_grad(g, pos, ph.valid))
+    (taken, _g32, _t32), (taken64, g64, t64) = res
+    near = (taken != taken64) | (switch_ulps(g64, t64) <= BRANCH_ULPS)
+    return taken, near
 
 
 # ------------------------------------------------------------------ compare
@@ -551,15 +655,364 @@ def _permuted(st, tan, perm):
             (tan[0][:, perm], tan[1][:, perm]))
 
 
-def _final_state(timed, perm):
-    """The final (pos, vel, eps, pi) of a timed kernel call as float64
-    arrays, the body slots put back in the original order."""
-    pos, vel, eps, pi = (x.detach().cpu().numpy().astype(np.float64)
+def _stacked(*xs):
+    """The systems of each of ``xs`` (SimStates or DynParams) in turn."""
+    if len(xs) == 1:
+        return xs[0]
+    return type(xs[0])(**{f.name: torch.cat([getattr(x, f.name) for x in xs])
+                          for f in dataclasses.fields(xs[0])})
+
+
+def _final_state(timed, perm, rows=slice(None)):
+    """The final (pos, vel, eps, pi) of systems ``rows`` of a timed kernel
+    call as float64 arrays, the body slots put back in the original
+    order."""
+    pos, vel, eps, pi = (x[rows].detach().cpu().numpy().astype(np.float64)
                          for x in timed.out[:4])
     if perm is not None:
         inv = np.argsort(perm.cpu().numpy())
         pos, vel = pos[:, inv], vel[:, inv]
     return {"pos": pos, "vel": vel, "eps": eps, "pi": pi}
+
+
+class PlainTrace:
+    """Within the context, watches the plain physics (``hk._Physics``).
+    With ``count``: ``share``, the share of the eps* evaluations of
+    active lanes (every lane at entry) whose gradient the "reference"
+    fallback replaced; it compares the switch's output with its input,
+    so that the count costs the timed plain run next to nothing (a
+    fallback equal to the exact gradient in every bit is not counted).
+    With ``record``: ``runs``, (pos, vel, eps, pi) after every trip, one
+    list a ``hk._Physics`` made (one a kernel's plain version called),
+    in the order they were made."""
+
+    def __init__(self, hk, count=False, record=False):
+        self.hk, self.count, self.record = hk, count, record
+        self.taken, self.evals, self.runs = 0, 0, []
+
+    def __enter__(self):
+        if not (self.count or self.record):
+            return self
+        rec, base = self, self.hk._Physics
+
+        class Watched(base):
+            def __init__(self, *args, **kw):
+                super().__init__(*args, **kw)
+                self._live, self._trips = None, []
+                rec.runs.append(self._trips)
+
+            def strang_trip(self, *args):
+                self._live = args[-1]
+                try:
+                    out = super().strang_trip(*args)
+                finally:
+                    self._live = None
+                if rec.record:
+                    self._trips.append(out[:4])
+                return out
+
+            def reference_switch(self, pos, h_fin, g):
+                out = super().reference_switch(pos, h_fin, g)
+                if rec.count:
+                    took = (out != g).flatten(1).any(1)
+                    live = self._live
+                    if live is not None:
+                        took = took & live
+                    rec.taken = rec.taken + took.sum()
+                    rec.evals = rec.evals + (took.numel() if live is None
+                                             else live.sum())
+                return out
+
+        self.base = base
+        self.hk._Physics = Watched
+        return self
+
+    def __exit__(self, *exc):
+        if self.count or self.record:
+            self.hk._Physics = self.base
+
+    @property
+    def share(self):
+        return float(self.taken) / max(float(self.evals), 1.0)
+
+
+def fold_ulps(ph, e):
+    """How near the reflection fold's input ``e`` lies to a wall or to
+    the fold's period (where pi changes sign), in float32 ulps of ``e``;
+    an input exactly on one (the state a fold left there, which every
+    version folds alike) counts as infinitely far."""
+    R = ph.cap - ph.flo
+    x = e - ph.flo
+    y = x - 2.0 * R * torch.floor(x / (2.0 * R))
+    gap = torch.minimum(torch.minimum(y, (y - R).abs()), 2.0 * R - y)
+    ulps = gap / (e.abs() * F32_ULP)
+    return torch.where(gap > 0, torch.nan_to_num(ulps, nan=np.inf),
+                       torch.full_like(ulps, np.inf))
+
+
+def switch_ulps(gmax, thr):
+    """How near gmax lies to the "reference" switch's thresholds (1e-12
+    and ``thr``, 1e-9 times the median pair distance), in float32 ulps
+    of the threshold."""
+    a = (gmax - 1e-12).abs() / (1e-12 * F32_ULP)
+    b = torch.nan_to_num((gmax - thr).abs() / (thr * F32_ULP), nan=np.inf)
+    return torch.minimum(a, b)
+
+
+def branch_gaps(hk, start, seed, mass, h, phys, conf):
+    """One plain trip from ``start`` (pos, vel, eps, pi; every system
+    active), its SPH solve seeded from ``seed``, with the entry
+    gradient: per system the nearest approach, in float32 ulps, of a
+    reflection fold's input to a wall or of gmax to the switch's
+    threshold (``fold_ulps``, ``switch_ulps``)."""
+    from nbodysimproject_tpu_torch.ops import eps_model as epsmod
+
+    near = []
+
+    class Gaps(hk._Physics):
+        def fold(self, e, p):
+            near.append(fold_ulps(self, e))
+            return super().fold(e, p)
+
+        def reference_switch(self, pos, h_fin, g):
+            _deg, gmax, thr = epsmod.degenerate_grad(g, pos, self.valid)
+            near.append(switch_ulps(gmax, thr))
+            return super().reference_switch(pos, h_fin, g)
+
+    pos, vel, eps, pi = start
+    ph = Gaps(mass, seed, phys["k_soft"], phys["mu"], phys["alpha"],
+              phys["eps_min"], phys["eps_max"], **conf)
+    es, grad = ph.eps_star_and_grad(pos)
+    ph.strang_trip(pos, vel, eps, pi, es, grad, h,
+                   torch.ones_like(eps, dtype=torch.bool))
+    gap = torch.full_like(eps, np.inf)
+    for u in near:
+        gap = torch.minimum(gap, u)
+    return gap
+
+
+def state_parts(a, b):
+    """Per system, whether the states ``a`` and ``b`` (pos, vel, eps, pi)
+    lie apart by more than STATE_TOL, or are finite in other entries."""
+    rtol, atol = STATE_TOL
+    out = torch.zeros(a[2].shape, dtype=torch.bool, device=a[2].device)
+    for x, y in zip(a, b):
+        x, y = x.double().reshape(len(out), -1), y.double().reshape(
+            len(out), -1)
+        fin = torch.isfinite(x) & torch.isfinite(y)
+        far = torch.where(fin, (x - y).abs() > atol + rtol * y.abs(),
+                          torch.isfinite(x) != torch.isfinite(y))
+        out |= far.any(1)
+    return out
+
+
+def recorded_prefixes(trips, start, per, steps):
+    """The plain version's states after 0, 1, ... trips of each system,
+    from the trips its run recorded (``PlainTrace``: ``steps`` macro steps
+    of len(trips) // steps trips, a system active in the first ``per``
+    of each): a list of (pos, vel, eps, pi)."""
+    tmax = len(trips) // steps
+    stacked = [torch.stack([t[q] for t in trips]) for q in range(4)]
+    last = steps * per
+    rows = torch.arange(len(per), device=per.device)
+    out = [start]
+    for m in range(1, int(last.max()) + 1):
+        j = torch.clamp_max(torch.full_like(per, m), last) - 1
+        idx = (j // per) * tmax + j % per
+        out.append(tuple(x[idx, rows] for x in stacked))
+    return out
+
+
+def kernel_prefixes(multistep, start, mass, trips, h, phys, conf):
+    """The kernel's states after 0, 1, ... max(trips) trips, from one
+    launch of the multi-step kernel (``multistep``): each system copied
+    once for every prefix m, which runs min(m, trips) trips of size h in
+    one macro step (the analysis and MEGNO kernels run these trips in
+    the same arithmetic).  A list as ``recorded_prefixes``'."""
+    R, T = len(trips), int(trips.max())
+    dev = trips.device
+    m = torch.arange(1, T + 1, device=dev)
+    ns = torch.minimum(m[None, :], trips[:, None]).reshape(-1).to(
+        torch.int32)
+    rep = lambda x: x.repeat_interleave(T, 0)
+    out = multistep(*(rep(x) for x in (start[0], start[1], mass, start[2],
+                                       start[3])),
+                    **{k: rep(v) for k, v in phys.items()}, h=rep(h),
+                    n_sub=ns, n_steps=1, n_sub_max=T, **conf)
+    out = [x.reshape((R, T) + x.shape[1:]) for x in out]
+    return [start] + [tuple(x[:, j] for x in out) for j in range(T)]
+
+
+def branch_walk(hk, st, dy, cfg, n_steps, megno_steps, n_sub_max, kfinal,
+                plain_trips, names):
+    """For the systems (st, dy) of a branch case (the reflection fold,
+    the "reference" switch) that lie past the widening: whether the
+    kernel's and the plain version's trajectories first part at a trip
+    where a branch sits at its threshold.  The kernel's states come from
+    ``kernel_prefixes`` (the multi-step kernel), checked bit for bit
+    against the analysis and MEGNO kernels' final states ``kfinal``
+    ({kind: (pos, vel, eps, pi)}); the plain version's from the trips its
+    run recorded (``plain_trips``: {kind: ``PlainTrace.runs`` list}).  At the first trip where they lie apart by more
+    than STATE_TOL (``state_parts``), the float64 plain trip from the
+    kernel's own state before it (``branch_gaps``) must put a fold's
+    input or gmax within BRANCH_ULPS float32 ulps of its threshold.
+    Returns per system whether it is allowed, and prints each walk
+    (``names``: the systems' rows in the case)."""
+    from nbodysimproject_tpu_torch.analysis.fused import _kernel_policy
+
+    nsub = torch.clamp_min(dy.n_sub, 1)
+    per = torch.clamp_max(nsub, n_sub_max)
+    h = DT / nsub.to(torch.float32)
+    phys = dict(k_soft=dy.k_soft, mu=dy.mu_soft, alpha=dy.alpha_run,
+                eps_min=dy.min_softening, eps_max=dy.max_softening)
+    conf = dict(G=1.0, k_wall=float(cfg.k_wall), eta=float(cfg.eta),
+                jcap=float(cfg.j_max_cap), bexp=int(cfg.barrier_exponent),
+                policy=_kernel_policy(cfg), grad_mode=str(cfg.eps_grad_mode),
+                lam_align=float(cfg.lambda_softening))
+    R = len(per)
+    allowed = np.zeros(R, bool)
+    walked = np.zeros(R, bool)
+    k_at = (st.pos, st.vel, st.eps, st.pi)
+    p_at = k_at
+    for kind, steps in (("analysis", n_steps), ("megno", megno_steps)):
+        trips = steps * per
+        K = kernel_prefixes(hk.hamsoft_multistep, k_at, st.mass, trips, h,
+                            phys, conf)
+        P = recorded_prefixes(plain_trips[kind], p_at, per, steps)
+        T = trips.cpu().numpy()
+        end = lambda S: tuple(torch.stack([S[t][i][r] for r, t in
+                                           enumerate(T)]) for i in range(4))
+        k_end, p_end = end(K), end(P)
+        same = torch.ones(R, dtype=torch.bool, device=per.device)
+        for x, y in zip(k_end, kfinal[kind]):
+            x, y = x.reshape(R, -1), y.reshape(R, -1)
+            same &= ((x == y) | (torch.isnan(x) & torch.isnan(y))).all(1)
+        parts = torch.stack([state_parts(K[j], P[j])
+                             for j in range(len(K))]).cpu().numpy()
+        first = np.where(parts.any(0), parts.argmax(0), -1)
+        rows = np.nonzero((first > 0) & ~walked)[0]
+        if len(rows):
+            ix = torch.as_tensor(rows, device=per.device)
+            before = tuple(torch.stack([K[first[r] - 1][i][r] for r in rows])
+                           for i in range(4))
+            d64 = lambda x: x.double()
+            gap = branch_gaps(
+                hk, tuple(d64(x) for x in before), d64(k_at[2][ix]),
+                d64(st.mass[ix]), d64(h[ix]),
+                {k: d64(v[ix]) for k, v in phys.items()}, conf)
+            gap = gap.cpu().numpy()
+            for j, r in enumerate(rows):
+                walked[r] = True
+                allowed[r] = bool(same[r]) and gap[j] <= BRANCH_ULPS
+                print(f"      walk of row {names[r]}: the {kind} kernel's replay "
+                      f"{'equals' if same[r] else 'differs from'} its final "
+                      f"state bit for bit; kernel and plain part at trip "
+                      f"{first[r]} of {T[r]}, where the float64 plain trip "
+                      f"puts a branch {gap[j]:.3g} float32 ulps from its "
+                      f"threshold: {'allowed' if allowed[r] else 'not allowed'}")
+        k_at, p_at = kfinal[kind], p_end
+    for r in np.nonzero(~walked)[0]:
+        print(f"      walk of row {names[r]}: no trip where kernel and plain "
+              f"first part by more than STATE_TOL: not a branch, not "
+              f"allowed")
+    return allowed
+
+
+def judge_case(rp, rk, others, cond, allowed):
+    """The verdict of ``compare_case`` on its compared rows: ``rp``/``rk``
+    the plain and kernel columns (arrays with the rows first; the final
+    states as "<kernel>.pos" and so on), ``others`` the plain version's
+    other runs ("plain float64", "plain reversed", "plain rolled": those
+    made), ``cond`` the drift columns' conditioning, ``allowed`` the rows
+    that ``branch_walk`` allows past the widening (at most MAX_WIDENED;
+    is_stable stays gated on them).  Returns (report lines, failures,
+    rows outside the widening before any is allowed)."""
+    n_keep = len(rp["energy_drift"])
+    row_any = lambda x: x.reshape(n_keep, -1).any(1)
+    ones = np.ones(n_keep)
+
+    def spread(col):
+        """max |plain - plain in float64 or on reordered slots|, per row
+        and element (0 where not widening)"""
+        s = np.zeros_like(rp[col])
+        for o in others.values():
+            dlt = np.abs(o[col] - rp[col])
+            s = np.maximum(s, np.where(np.isfinite(dlt), dlt, 0.0))
+        return s
+
+    tols = {c: (TOL[c] if c in TOL else STATE_TOL) for c in rp
+            if c != "is_stable" and (c in TOL or "." in c)}
+    lines, failures = [], []
+    widened, f32_off = np.zeros(n_keep, bool), np.zeros(n_keep, bool)
+    outside = np.zeros(n_keep, bool)
+    for col in sorted(tols):
+        a, b = rp[col], rk[col]
+        rtol, atol = tols[col]
+        atol = (atol * cond.get(col, ones)).reshape((-1,) + (1,) * (a.ndim - 1))
+        sens = spread(col)
+        both = np.isfinite(a) & np.isfinite(b)
+        err = np.where(both, np.abs(b - a), 0.0)
+        base = atol + rtol * np.abs(np.where(both, a, 0.0))
+        out_rows = row_any((err > base + SENS_FACTOR * sens)
+                           | (np.isfinite(a) != np.isfinite(b)))
+        outside |= out_rows
+        at_branch = out_rows & allowed
+        out_rows = out_rows & ~allowed
+        wide_rows = row_any(err > base) & ~out_rows & ~at_branch
+        widened |= wide_rows
+        rel = err[both] / np.maximum(np.abs(a[both]), 1e-30)
+        line = (f"    {col:24s} max_abs {err.max(initial=0):.3e} "
+                f"max_rel {rel.max(initial=0):.3e} outside "
+                f"{int(out_rows.sum())} rows, widened {int(wide_rows.sum())}, "
+                f"allowed at a branch {int(at_branch.sum())}")
+        if "plain float64" in others:
+            c = others["plain float64"][col]
+            fin = both & np.isfinite(c)
+            d32 = np.where(fin, np.abs(a - c), 0.0)
+            dk = np.where(fin, np.abs(b - c), 0.0)
+            off = row_any(d32 > base)
+            f32_off |= off
+            line += (f"; to float64 plain: max_abs float32 plain "
+                     f"{d32.max(initial=0):.3e}, kernel "
+                     f"{dk.max(initial=0):.3e}; float32 plain outside the "
+                     f"tolerance on {int(off.sum())} rows")
+        lines.append(line)
+        for i in np.nonzero(out_rows)[0][:5]:
+            j = np.unravel_index(np.argmax((err - base)[i]), err[i].shape)
+            idx = [int(x) for x in j]
+            lines.append(f"      row {i}{idx if idx else ''}: plain "
+                         f"{a[i][j]:.6e} kernel {b[i][j]:.6e} plain reorder "
+                         f"spread {sens[i][j]:.3e}")
+        if out_rows.any():
+            failures.append(col)
+    other = widened & ~f32_off
+    n_allowed = int((allowed & outside).sum())
+    lines.append(f"    {int(widened.sum())} rows needed the widening, "
+                 f"{int(other.sum())} of them (at most {MAX_WIDENED}) outside "
+                 f"the {int(f32_off.sum())} rows where the float32 plain "
+                 f"version lies outside the tolerances from its float64 run; "
+                 f"{n_allowed} rows allowed at a branch (at most "
+                 f"{MAX_WIDENED})")
+    if other.sum() > MAX_WIDENED:
+        failures.append(f"{int(widened.sum())} widened rows")
+    if n_allowed > MAX_WIDENED:
+        failures.append(f"{n_allowed} rows allowed at a branch")
+    # labels: exact, except rows where a verdict input lies within its
+    # own tolerance of the threshold (there the label may flip legitimately)
+    edge = np.zeros(n_keep, bool)
+    for col, thr in VERDICT.items():
+        rtol, atol = TOL[col]
+        atol = atol * cond.get(col, ones)
+        edge |= np.abs(rp[col] - thr) <= (atol + rtol * abs(thr)
+                                          + SENS_FACTOR * spread(col))
+    differ = rp["is_stable"] != rk["is_stable"]
+    flips = differ & ~edge
+    lines.append(f"    is_stable: {int(differ.sum())} differ, "
+                 f"{int(edge.sum())} rows at a threshold, {int(flips.sum())} "
+                 f"flips away from one")
+    if flips.any():
+        failures.append("is_stable")
+    return lines, failures, outside
 
 
 def compare_case(label, states, dyns, cfg, lanes, n_steps, n_sub_max, hk,
@@ -569,9 +1022,14 @@ def compare_case(label, states, dyns, cfg, lanes, n_steps, n_sub_max, hk,
     tolerances, plus (``widen``) SENS_FACTOR times the plain version's
     own rounding sensitivity (its distance to its float64 run and to
     its runs on reordered body slots), on the rows where float32 itself
-    misses the tolerances against float64 and at most MAX_WIDENED more.
-    Returns per-kernel (kernel ms, plain ms, max abs error of the final
-    state, n_sub, n_steps, megno_steps, n_sub_max)."""
+    misses the tolerances against float64 and at most MAX_WIDENED more
+    (``judge_case``).  Under a branch (the reflection fold, the
+    "reference" switch) a row past that is allowed only where
+    ``branch_walk`` finds the two trajectories parting at a branch's
+    threshold, on at most MAX_WIDENED rows.  Returns per kernel (kernel
+    ms, plain ms, max abs error of the final state, n_sub, n_steps,
+    megno_steps, n_sub_max, the fallback's share of the plain run's eps*
+    evaluations or None)."""
     st, dy = states.take(lanes), dyns.take(lanes)
     tan = tangent_of(st)
     megno_steps = min(100, min(50, n_steps // 2))
@@ -584,122 +1042,92 @@ def compare_case(label, states, dyns, cfg, lanes, n_steps, n_sub_max, hk,
           "multistep": "hamsoft_multistep"}[first]
     kern = (getattr(hk, fn), hk.hamsoft_megno_multistep)
     plain = (getattr(hk, f"{fn}_plain"), hk.hamsoft_megno_multistep_plain)
-    # (route, functions, body-slot order, float64); the first kernel run
-    # warms up
-    runs = [("warm", kern, None, False), ("kernel", kern, None, False),
-            ("plain", plain, None, False)]
+    # (routes, functions, body-slot orders, float64); the first kernel
+    # run warms up.  Routes of several orders run as one batch, a copy of
+    # the systems an order (the plain version is bound by its launches,
+    # not by its batch), and are split after
+    runs = [(("warm",), kern, (None,), False),
+            (("kernel",), kern, (None,), False),
+            (("plain",), plain, (None,), False)]
     if widen:
-        runs += [("plain float64", plain, None, True),
-                 ("plain reversed", plain, torch.arange(n - 1, -1, -1,
-                                                        device=dev), False),
-                 ("plain rolled", plain, torch.roll(torch.arange(
-                     n, device=dev), 3), False)]
+        runs += [(("plain float64",), plain, (None,), True),
+                 (("plain reversed", "plain rolled"), plain,
+                  (torch.arange(n - 1, -1, -1, device=dev),
+                   torch.roll(torch.arange(n, device=dev), 3)), False)]
+    ref = cfg.eps_grad_mode == "reference"
+    # the branches of the physics a float32 rounding can flip: the
+    # plain run keeps its trips for ``branch_walk``
+    branches = not (cfg.use_soft_barrier or cfg.disable_barrier) or ref
+    walk = branches and first == "analysis"
     out = {}
-    for route, fns, perm, f64 in runs:
-        start, t_in = _permuted(st, tan, perm)
-        dyn = dy
+    for routes, fns, perms, f64 in runs:
+        route = routes[0]
+        starts = [_permuted(st, tan, p) for p in perms]
+        start = _stacked(*(s_ for s_, _t in starts))
+        t_in = tuple(torch.cat([t[i] for _s, t in starts]) for i in range(2))
+        dyn = _stacked(*([dy] * len(perms)))
         if f64:
             start, dyn = _double(start), _double(dy)
             t_in = (t_in[0].double(), t_in[1].double())
         ta, tm = (Timed(f) for f in fns)
         t0 = time.perf_counter()
-        res, _ = engine(start, dyn, cfg, n_steps, DT, "full", n_sub_max,
-                        megno_steps, tangent=t_in, g_static=1.0,
-                        megno_fn=tm, **{f"{first}_fn": ta})
+        with PlainTrace(hk, count=ref and route == "plain",
+                        record=walk and route == "plain") as trace:
+            res, _ = engine(start, dyn, cfg, n_steps, DT, "full", n_sub_max,
+                            megno_steps, tangent=t_in, g_static=1.0,
+                            megno_fn=tm, **{f"{first}_fn": ta})
         torch.cuda.synchronize()
-        cols = {k: v.cpu().numpy().astype(np.float64) for k, v in res.items()}
-        for kind, t in ((first, ta), ("megno", tm)):
-            cols.update({f"{kind}.{k}": v
-                         for k, v in _final_state(t, perm).items()})
-        out[route] = (cols, ta, tm, time.perf_counter() - t0)
+        if route == "plain":
+            share = trace.share if ref else None
+            plain_runs = trace.runs
+        secs = time.perf_counter() - t0
+        for j, (name, perm) in enumerate(zip(routes, perms)):
+            rows = slice(j * len(lanes), (j + 1) * len(lanes))
+            cols = {k: v[rows].cpu().numpy().astype(np.float64)
+                    for k, v in res.items()}
+            for kind, t in ((first, ta), ("megno", tm)):
+                cols.update({f"{kind}.{k}": v for k, v in
+                             _final_state(t, perm, rows).items()})
+            out[name] = (cols, ta, tm, secs)
     rk, ka, km, tk = out["kernel"]
     rp, pa, pm, tp = out["plain"]
     keep = np.isfinite(rp["energy_drift"]) & (np.abs(rp["energy_drift"])
                                               <= 10.0)
     n_keep = int(keep.sum())
-
-    def spread(col):
-        """max |plain - plain in float64 or on reordered slots|, per
-        compared row and element (0 where not widening)"""
-        base = rp[col][keep]
-        s = np.zeros_like(base)
-        for route in ("plain float64", "plain reversed", "plain rolled"):
-            if route in out:
-                dlt = np.abs(out[route][0][col][keep] - base)
-                s = np.maximum(s, np.where(np.isfinite(dlt), dlt, 0.0))
-        return s
-
     print(f"  {label}: {len(lanes)} systems, n_steps={n_steps}, "
           f"megno_steps={megno_steps}, n_sub_max={n_sub_max}; kernel "
           f"engine {tk:.3f}s, plain engine {tp:.3f}s; {n_keep} rows with "
           f"non-pathological energy compared; "
-          f"{'widened by the plain version sensitivity' if widen else 'tolerances alone'}")
-    cond = conditioning(st, dy, cfg) if widen else {}
-    state_cols = [f"{kind}.{k}" for kind in (first, "megno")
-                  for k in ("pos", "vel", "eps", "pi")]
-    tols = {c: TOL[c] for c in TOL if c != "is_stable"}
-    tols.update({c: STATE_TOL for c in state_cols})
-    failures, widened = [], np.zeros(n_keep, bool)
-    f32_off = np.zeros(n_keep, bool)  # plain float32 outside tol of float64
-    row_any = lambda x: x.reshape(n_keep, -1).any(1)
-    for col in sorted(tols):
-        a, b = rp[col][keep], rk[col][keep]
-        rtol, atol = tols[col]
-        atol = atol * cond.get(col, np.ones(len(lanes)))[keep]
-        atol = atol.reshape((-1,) + (1,) * (a.ndim - 1))
-        sens = spread(col)
-        both = np.isfinite(a) & np.isfinite(b)
-        err = np.where(both, np.abs(b - a), 0.0)
-        base = atol + rtol * np.abs(np.where(both, a, 0.0))
-        out_rows = row_any((err > base + SENS_FACTOR * sens)
-                           | (np.isfinite(a) != np.isfinite(b)))
-        wide_rows = row_any(err > base) & ~out_rows
-        widened |= wide_rows
-        rel = err[both] / np.maximum(np.abs(a[both]), 1e-30)
-        line = (f"    {col:24s} max_abs {err.max(initial=0):.3e} "
-                f"max_rel {rel.max(initial=0):.3e} outside "
-                f"{int(out_rows.sum())} rows, widened {int(wide_rows.sum())}")
-        if "plain float64" in out:
-            c = out["plain float64"][0][col][keep]
-            fin = both & np.isfinite(c)
-            d32 = np.where(fin, np.abs(a - c), 0.0)
-            dk = np.where(fin, np.abs(b - c), 0.0)
-            off = row_any(d32 > base)
-            f32_off |= off
-            line += (f"; to float64 plain: max_abs float32 plain "
-                     f"{d32.max(initial=0):.3e}, kernel "
-                     f"{dk.max(initial=0):.3e}; float32 plain outside the "
-                     f"tolerance on {int(off.sum())} rows")
-        print(line)
-        for i in np.nonzero(out_rows)[0][:5]:
-            j = np.unravel_index(np.argmax((err - base)[i]), err[i].shape)
-            at = [int(x) for x in j]
-            print(f"      row {i}{at if at else ''}: plain "
-                  f"{a[i][j]:.6e} kernel {b[i][j]:.6e} plain reorder "
-                  f"spread {sens[i][j]:.3e}")
-        if out_rows.any():
-            failures.append(col)
-    other = widened & ~f32_off
-    print(f"    {int(widened.sum())} rows needed the widening, "
-          f"{int(other.sum())} of them (at most {MAX_WIDENED}) outside the "
-          f"{int(f32_off.sum())} rows where the float32 plain version lies "
-          f"outside the tolerances from its float64 run")
-    if other.sum() > MAX_WIDENED:
-        failures.append(f"{int(widened.sum())} widened rows")
-    # labels: exact, except rows where a verdict input lies within its
-    # own tolerance of the threshold (there the label may flip legitimately)
-    edge = np.zeros(n_keep, bool)
-    for col, thr in VERDICT.items():
-        rtol, atol = TOL[col]
-        atol = atol * cond.get(col, np.ones(len(lanes)))[keep]
-        edge |= np.abs(rp[col][keep] - thr) <= (atol + rtol * abs(thr)
-                                                 + SENS_FACTOR * spread(col))
-    differ = rp["is_stable"][keep] != rk["is_stable"][keep]
-    flips = differ & ~edge
-    print(f"    is_stable: {int(differ.sum())} differ, {int(edge.sum())} rows "
-          f"at a threshold, {int(flips.sum())} flips away from one")
-    if flips.any():
-        failures.append("is_stable")
+          f"{'widened by the plain version sensitivity' if widen else 'tolerances alone'}"
+          + (f"; the fallback replaced {share:.4f} of the plain run's eps* "
+             f"evaluations" if ref else ""))
+    sel = lambda cols: {k: v[keep] for k, v in cols.items()}
+    others = {r: sel(out[r][0]) for r in ("plain float64", "plain reversed",
+                                          "plain rolled") if r in out}
+    cond = ({k: v[keep] for k, v in conditioning(st, dy, cfg).items()}
+            if widen else {})
+    allowed = np.zeros(n_keep, bool)
+    _lines, _fail, outside = judge_case(sel(rp), sel(rk), others, cond,
+                                        allowed)
+    if branches and outside.any():
+        rows = np.nonzero(keep)[0][outside]
+        print(f"    {len(rows)} rows past the widening under a branch "
+              f"(the reflection fold or the reference switch)")
+        if first != "analysis" or len(rows) > MAX_WIDENED:
+            print(f"    not walked: {'more than MAX_WIDENED' if len(rows) > MAX_WIDENED else 'the fused way only'}")
+        else:
+            ix = torch.as_tensor(rows, device=dev)
+            kfinal = {kind: tuple(torch.as_tensor(
+                rk[f"{kind}.{k}"][rows], dtype=torch.float32, device=dev)
+                for k in ("pos", "vel", "eps", "pi"))
+                for kind in ("analysis", "megno")}
+            trips = {kind: [tuple(x[ix] for x in t) for t in run]
+                     for kind, run in zip(("analysis", "megno"), plain_runs)}
+            allowed[np.nonzero(outside)[0]] = branch_walk(
+                hk, st.take(ix), dy.take(ix), cfg, n_steps, megno_steps,
+                n_sub_max, kfinal, trips, rows)
+    lines, failures, _ = judge_case(sel(rp), sel(rk), others, cond, allowed)
+    print("\n".join(lines))
     if failures:
         raise SystemExit(f"{label}: kernel disagrees with its plain version "
                          f"on {failures}")
@@ -715,17 +1143,19 @@ def compare_case(label, states, dyns, cfg, lanes, n_steps, n_sub_max, hk,
 
     n_sub = dy.n_sub.cpu().numpy()
     return {first: (ka.ms, pa.ms, state_err(first), n_sub, n_steps,
-                    megno_steps, n_sub_max),
+                    megno_steps, n_sub_max, share),
             "megno": (km.ms, pm.ms, state_err("megno"), n_sub,
-                      n_steps, megno_steps, n_sub_max)}
+                      n_steps, megno_steps, n_sub_max, share)}
 
 
-def bucket_cases(prefix, states, dyns, n_sub_raw, cfg, hk, tangent_of):
+def bucket_cases(prefix, states, dyns, n_sub_raw, cfg, hk, tangent_of,
+                 which=("lowest", "top")):
     """Phase 4's two comparisons on a population (``compare_case``): the
     lowest n_sub bucket (B_CMP lanes, or the B_CMP shallowest) at 20
     steps on the tolerances alone, and the B_CMP deepest lanes at 2
-    steps with the widening; each kernel's time per trip of its deepest
-    lane.  Returns (cases, low lanes, top lanes, n_sub buckets)."""
+    steps with the widening (``which`` names the ones to run); each
+    kernel's time per trip of its deepest lane.  Returns (cases, low
+    lanes, top lanes, n_sub buckets)."""
     from nbodysimproject_tpu_torch.analysis.batch import _bucket_ladder_values
     from nbodysimproject_tpu_torch.analysis.fused import analyze_batch_fused
 
@@ -742,13 +1172,15 @@ def bucket_cases(prefix, states, dyns, n_sub_raw, cfg, hk, tangent_of):
              False),
             (f"{prefix}top bucket", top, 2, int(cfg.analysis_n_sub_cap),
              True)):
+        if label[len(prefix):].split()[0] not in which:
+            continue
         t0 = time.perf_counter()
         cases.append(compare_case(label, states, dyns, cfg,
                                   torch.as_tensor(lanes, device=dev), steps,
                                   nsm, hk, analyze_batch_fused, tangent_of,
                                   widen))
         for kind, c in cases[-1].items():
-            ms, _, _, _, n_steps_c, msteps, nsm_c = c
+            ms, _, _, _, n_steps_c, msteps, nsm_c, _share = c
             trips = (n_steps_c if kind == "analysis" else msteps) * nsm_c
             print(f"  {label}, {kind} kernel: {ms:.3f} ms, "
                   f"{1e3 * ms / trips:.3f} us per trip of its deepest lane "
@@ -765,9 +1197,10 @@ BENCH_Q = ((0.0, 0.0), (1.0, 0.0), (0.0, 2.0))
 BENCH_V = ((0.0, 0.0), (0.0, 1.0), (-0.5, 0.0))
 #: the six legs' widths and horizons (bench.py:44-340)
 B_SCAN, SCAN_STEPS = 16384, 1000
-#: the eager WHFast scan leg's depth, cut from 1000 steps (PR 12) so the
-#: script keeps inside its time limit; its rate is per system-step
-WH_SCAN_STEPS = 200
+#: the eager WHFast scan leg's depth, cut from 1000 steps and from 200
+#: so the script keeps inside its time limit; its rate is per
+#: system-step
+WH_SCAN_STEPS = 100
 B_VERLET_FUSED, B_Y4_FUSED, B_HS = 1 << 24, 1 << 22, 1 << 20
 HS_STEPS, HS_NSUB_CAP = 100, 50
 FUSED_EPS2 = 1e-6
@@ -834,16 +1267,18 @@ def bound_composition(B, n, d, steps, stages):
                      B * (4 * n * d + n + 1))
 
 
-def bound_multistep(n_sub, nsm, steps, n, d):
+def bound_multistep(n_sub, nsm, steps, n, d, share=None):
     ns = np.minimum(np.maximum(n_sub, 1), nsm).astype(np.float64)
     B = len(ns)
-    return ops_bound(ns.sum() * steps * trip_ops(n, d)
-                     + B * entry_ops(n, d),
+    extra = 0.0 if share is None else ref_ops(n, d, share)
+    return ops_bound(ns.sum() * steps * (trip_ops(n, d) + extra)
+                     + B * (entry_ops(n, d) + extra),
                      B * (4 * n * d + n + 13))
 
 
-def bound_eps(B, n, d):
-    return ops_bound(B * (entry_ops(n, d) + 6),
+def bound_eps(B, n, d, share=None):
+    extra = 0.0 if share is None else ref_ops(n, d, share)
+    return ops_bound(B * (entry_ops(n, d) + 6 + extra),
                      B * (2 * n * d + n + 5))
 
 
@@ -1008,7 +1443,7 @@ def hamsoft_bench_batch(cfg, dev):
     return st, dy
 
 
-def multistep_kw(cfg, dy, steps, policy):
+def multistep_kw(cfg, dy, steps, policy, grad_mode="exact"):
     n_sub = torch.clamp_min(dy.n_sub, 1)
     return dict(k_soft=dy.k_soft, mu=dy.mu_soft, alpha=dy.alpha_run,
                 eps_min=dy.min_softening, eps_max=dy.max_softening,
@@ -1016,13 +1451,29 @@ def multistep_kw(cfg, dy, steps, policy):
                 n_sub_max=int(n_sub.max()), n_steps=steps, G=1.0,
                 k_wall=float(cfg.k_wall), eta=float(cfg.eta),
                 jcap=float(cfg.j_max_cap), bexp=int(cfg.barrier_exponent),
-                policy=policy)
+                policy=policy, grad_mode=grad_mode,
+                lam_align=float(cfg.lambda_softening))
 
 
-def compare_multistep(cfg, st, dy, policy, hk):
-    steps = CMP_MULTISTEP_STEPS
-    kw = multistep_kw(cfg, dy, steps, policy)
-    rev = torch.arange(2, -1, -1, device=st.pos.device)
+def compare_multistep(cfg, st, dy, policy, hk, grad_mode="exact",
+                      steps=CMP_MULTISTEP_STEPS):
+    """The multi-step kernel against its plain version (``row_gate``) on
+    (st, dy) under ``policy`` and ``grad_mode``; under the "reference"
+    gradient the bound counts the fallback's firings in the timed plain
+    run (``PlainTrace``)."""
+    kw = multistep_kw(cfg, dy, steps, policy, grad_mode)
+    n, d = st.pos.shape[1:]
+    rev = torch.arange(n - 1, -1, -1, device=st.pos.device)
+    ref = grad_mode == "reference"
+    fc, counted = PlainTrace(hk, count=ref), []
+
+    def plain(a, per):
+        """the plain version; its first (timed) call counted"""
+        if counted:
+            return hk.hamsoft_multistep_plain(*a, **per)
+        counted.append(True)
+        with fc:
+            return hk.hamsoft_multistep_plain(*a, **per)
 
     def make(dt_):
         per = {k: (v.to(dt_) if torch.is_floating_point(v) else v)
@@ -1032,24 +1483,36 @@ def compare_multistep(cfg, st, dy, policy, hk):
 
     k, p, p64, pr, ms, pms = _runs(
         lambda a, per: hk.hamsoft_multistep(*a, **per),
-        lambda a, per: hk.hamsoft_multistep_plain(*a, **per),
-        lambda dt_: make(dt_),
+        plain, lambda dt_: make(dt_),
         lambda ap: ((ap[0][0][:, rev], ap[0][1][:, rev], ap[0][2][:, rev],
                      ap[0][3], ap[0][4]), ap[1]),
         lambda o: (o[0][:, rev], o[1][:, rev], o[2], o[3]))
-    err = row_gate(f"multistep {policy} (B={st.pos.shape[0]}, {steps} steps)",
-                   {n: (k[i], p[i], p64[i], pr[i], STATE_TOL)
-                    for i, n in enumerate(("pos", "vel", "eps", "pi"))})
+    label = f"multistep {policy}" + (
+        f" {grad_mode}" if grad_mode != "exact" else "") + (
+        f" N={n} d={d}" if (n, d) != (3, 2) else "")
+    err = row_gate(f"{label} (B={st.pos.shape[0]}, {steps} steps)",
+                   {x: (k[i], p[i], p64[i], pr[i], STATE_TOL)
+                    for i, x in enumerate(("pos", "vel", "eps", "pi"))})
+    share = fc.share if ref else None
     b_ms, b_by = bound_multistep(dy.n_sub.cpu().numpy(), kw["n_sub_max"],
-                                 steps, 3, 2)
-    print(f"  multistep {policy}: kernel {ms:.3f} ms, plain {pms:.3f} ms, "
-          f"bound {b_ms:.4f} ms ({b_by})", flush=True)
-    return dict(ms=ms, plain_ms=pms, err=err, bound=(b_ms, b_by))
+                                 steps, n, d, share)
+    print(f"  {label}: kernel {ms:.3f} ms, plain {pms:.3f} ms, "
+          f"bound {b_ms:.4f} ms ({b_by}"
+          + (f"; the fallback replaced {share:.4f} of the plain run's eps* "
+             f"evaluations" if ref else "") + ")", flush=True)
+    return dict(ms=ms, plain_ms=pms, err=err, bound=(b_ms, b_by),
+                share=share)
 
 
-def compare_eps(label, st, dy, clamp, ek):
+def compare_eps(label, st, dy, clamp, ek, use_fallback=False,
+                lam=LAMBDA_SOFTENING):
+    """The eps kernel against its plain version (``row_gate``); with
+    ``use_fallback`` also the systems whose branch the kernel takes
+    otherwise than the plain version, allowed only where the float64
+    plain run puts gmax at the threshold (``fallback_lanes``)."""
     n = st.pos.shape[1]
     rev = torch.arange(n - 1, -1, -1, device=st.pos.device)
+    kw = dict(clamp=clamp, use_fallback=use_fallback, lam_align=lam)
 
     def make(dt_):
         return (st.pos.to(dt_), st.mass.to(dt_), st.eps.to(dt_),
@@ -1057,26 +1520,52 @@ def compare_eps(label, st, dy, clamp, ek):
                 dy.max_softening.to(dt_), st.mask)
 
     k, p, p64, pr, ms, pms = _runs(
-        lambda *a: ek.eps_star_and_grad_fused(*a, clamp=clamp),
-        lambda *a: ek.eps_star_and_grad_fused_plain(*a, clamp=clamp), make,
+        lambda *a: ek.eps_star_and_grad_fused(*a, **kw),
+        lambda *a: ek.eps_star_and_grad_fused_plain(*a, **kw), make,
         lambda a: (a[0][:, rev], a[1][:, rev]) + a[2:6] + (a[6][:, rev],),
         lambda o: (o[0], o[1][:, rev]))
-    err = row_gate(f"eps {label} clamp={clamp} (B={st.pos.shape[0]}, N={n})",
+    tag = f"eps {label} clamp={clamp}" + (" fallback" if use_fallback
+                                          else "")
+    share = None
+    if use_fallback:
+        taken, near = fallback_lanes(st, dy, clamp, ek=True)
+        # the branch the kernel took: the plain version's fallback output
+        # against its exact one, whichever the kernel lies nearer to
+        gx = ek.eps_star_and_grad_fused_plain(*make(torch.float32),
+                                              clamp=clamp,
+                                              use_fallback=False)[1]
+        dist = lambda g: (k[1] - g).abs().amax((1, 2))
+        k_taken = (dist(p[1]) <= dist(gx)) & ((p[1] - gx).abs().amax((1, 2))
+                                              > 0)
+        p_taken = (p[1] - gx).abs().amax((1, 2)) > 0
+        other = k_taken != p_taken
+        share = float(taken.float().mean())
+        print(f"    {tag}: the fallback takes {int(taken.sum())} of "
+              f"{len(taken)} systems ({share:.4f}; {int(p_taken.sum())} "
+              f"change their gradient); {int(near.sum())} systems at the "
+              f"threshold in the float64 plain run; the kernel takes the "
+              f"other branch on {int(other.sum())} systems, "
+              f"{int((other & ~near).sum())} of them away from the threshold")
+        if (other & ~near).any():
+            raise SystemExit(f"{tag}: the kernel takes the other branch "
+                             f"away from the threshold")
+    err = row_gate(f"{tag} (B={st.pos.shape[0]}, N={n})",
                    {"es": (k[0], p[0], p64[0], pr[0], EPS_TOL["es"]),
                     "grad": (k[1], p[1], p64[1], pr[1], EPS_TOL["grad"])})
-    b_ms, b_by = bound_eps(st.pos.shape[0], n, st.pos.shape[2])
-    print(f"  eps {label} clamp={clamp}: kernel {ms:.3f} ms, plain "
-          f"{pms:.3f} ms, bound {b_ms:.4f} ms ({b_by}); nonzero gradient on "
+    b_ms, b_by = bound_eps(st.pos.shape[0], n, st.pos.shape[2], share)
+    print(f"  {tag}: kernel {ms:.3f} ms, plain {pms:.3f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by}); nonzero gradient on "
           f"{int((p[1].abs().amax((1, 2)) > 0).sum())} rows", flush=True)
-    return dict(ms=ms, plain_ms=pms, err=err, bound=(b_ms, b_by))
+    return dict(ms=ms, plain_ms=pms, err=err, bound=(b_ms, b_by),
+                share=share)
 
 
-def eps_layouts_agree(states, dyns, ek):
+def eps_layouts_agree(states, dyns, ek, use_fallback=False):
     """The eps kernel's two layouts on the same systems: the dataset's
     3-body rows in 3 slots (one thread per system) and in their 8 slots
     (one lane per body; slots 3-7 masked) give eps* and gradients equal
-    in every bit under both clamps, and a zero gradient in the masked
-    slots (gated)."""
+    in every bit under both clamps (and ``use_fallback``), and a zero
+    gradient in the masked slots (gated)."""
     three = (states.mask[:, :3].all(1)
              & ~states.mask[:, 3:].any(1)).nonzero()[:, 0]
     args8 = (states.pos[three], states.mass[three], states.eps[three],
@@ -1084,14 +1573,16 @@ def eps_layouts_agree(states, dyns, ek):
              dyns.max_softening[three], states.mask[three])
     args3 = tuple(x[:, :3].contiguous() if x.dim() >= 2 else x
                   for x in args8)
+    kw = dict(use_fallback=use_fallback, lam_align=LAMBDA_SOFTENING)
     for clamp in (True, False):
-        e3, g3 = ek.eps_star_and_grad_fused(*args3, clamp=clamp)
-        e8, g8 = ek.eps_star_and_grad_fused(*args8, clamp=clamp)
+        e3, g3 = ek.eps_star_and_grad_fused(*args3, clamp=clamp, **kw)
+        e8, g8 = ek.eps_star_and_grad_fused(*args8, clamp=clamp, **kw)
         bits = sum(int((a.contiguous().view(torch.int32)
                         != b.contiguous().view(torch.int32)).sum())
                    for a, b in ((e3, e8), (g3, g8[:, :3])))
         pad = bool((g8[:, 3:] == 0).all())
-        print(f"  eps layouts, {len(three)} 3-body rows, clamp={clamp}: "
+        print(f"  eps layouts, {len(three)} 3-body rows, clamp={clamp}"
+              f"{', fallback' if use_fallback else ''}: "
               f"N = 3 against N = 8: {bits} entries differ in their bits, "
               f"masked slots zero {pad}; nonzero gradient on "
               f"{int((g3.abs().amax((1, 2)) > 0).sum())} rows", flush=True)
@@ -1129,13 +1620,15 @@ def eps_alone(ek, cases):
         args = tuple(x.contiguous() for x in args)
         B, n, d = args[0].shape
         for clamp in (True, False):
-            ek.eps_star_and_grad_fused(*args, clamp=clamp)
+            ek.eps_star_and_grad_fused(*args, clamp=clamp,
+                                       use_fallback=False)
             torch.cuda.synchronize()
             for trace in range(EPS_TRACES):
                 with profile(activities=[ProfilerActivity.CPU,
                                          ProfilerActivity.CUDA]) as prof:
                     for _ in range(EPS_ALONE_REPS):
-                        ek.eps_star_and_grad_fused(*args, clamp=clamp)
+                        ek.eps_star_and_grad_fused(*args, clamp=clamp,
+                                                   use_fallback=False)
                     torch.cuda.synchronize()
                 dev_events = [e for e in prof.events()
                               if e.device_type.name == "CUDA"]
@@ -1157,8 +1650,8 @@ def eps_alone(ek, cases):
             calls = []
             for _ in range(EPS_CALL_REPS):
                 torch.cuda.synchronize()
-                t = Timed(lambda: ek.eps_star_and_grad_fused(*args,
-                                                             clamp=clamp))
+                t = Timed(lambda: ek.eps_star_and_grad_fused(
+                    *args, clamp=clamp, use_fallback=False))
                 t()
                 calls.append(t.ms)
             call = float(np.median(calls))
@@ -1330,8 +1823,8 @@ def drift_sys0(cfg, dy0, before, after):
     return abs((H1 - H0) / H0) if H0 != 0 else float("nan")
 
 
-def run_leg(name, fn, B, steps, counted):
-    """One cold and WARM_REPS warm runs of ``fn`` between CUDA events;
+def run_leg(name, fn, B, steps, counted, reps=LEG_WARM_REPS):
+    """One cold and ``reps`` warm runs of ``fn`` between CUDA events;
     the launch counts of ``counted`` are set to 0 before the cold run
     and read after it.  Returns (last output, cold ms, warm median ms,
     launches)."""
@@ -1340,7 +1833,7 @@ def run_leg(name, fn, B, steps, counted):
     out = cold()
     launches = {f.__name__: f.launches for f in counted}
     warm = []
-    for _ in range(WARM_REPS):
+    for _ in range(reps):
         t = Timed(fn)
         out = t()
         warm.append(t.ms)
@@ -1508,7 +2001,8 @@ def whfast_legs(dev, kernels, wk):
 #: (its ICs drawn again from numpy.random.default_rng(0) in its order,
 #: its mesh sizes, r_cut of 6 cells) and tools/bench_whfast_largen.py's
 #: many-planet WHFast (planetary_system(N, seed=1), LC-8, 20 timed
-#: substeps, 200 for the energy drift)
+#: substeps, 100 for the energy drift: 200 until a slow host ran the
+#: script for 1,185.2 s, cut for the time limit)
 LN_NS = (10_000, 32_768, 100_000, 1_000_000)
 LN_NG = {10_000: 256, 32_768: 384, 100_000: 640, 1_000_000: 3072}
 LN_R_CUT = 6.0
@@ -1530,7 +2024,7 @@ P3M_ERR_GATE = (2e-3, 2e-2)
 FORCE_ERR_FACTOR, FORCE_ERR_MAX = 4.0, 1e-4
 FORCE_SAMPLE_ROWS = 4096
 CLASSICAL_N, CLASSICAL_STEPS = 4096, 100
-WL_NS, WL_TIMED, WL_STEPS, WL_ITERS = (4096, 16384, 65536), 20, 200, 8
+WL_NS, WL_TIMED, WL_STEPS, WL_ITERS = (4096, 16384, 65536), 20, 100, 8
 #: above this many bodies the tool builds the WHFast state directly
 #: (build_batch's calibration is O(N^2) dense)
 WL_BUILD_MAX = 16384
@@ -1760,9 +2254,9 @@ def largen_evals(fk, pm, dev, evals):
 
 def largen_rollouts(fk, dev, rolls):
     """bench_largen's rollouts through largen_rollout: p3m and
-    direct_pallas at 10^4 and 10^5, p3m at 10^6; one cold and WARM_REPS
-    warm runs between CUDA events, the kernel's launches counted around
-    the cold run.  Returns {(mode, N): row}."""
+    direct_pallas at 10^4 and 10^5, p3m at 10^6; one cold and
+    LEG_WARM_REPS warm runs between CUDA events, the kernel's launches
+    counted around the cold run.  Returns {(mode, N): row}."""
     from nbodysimproject_tpu_torch import SimConfig, largen_rollout
 
     out = {}
@@ -1989,15 +2483,16 @@ def cols_outside(ref, got, rows):
     return out
 
 
-def chunked_parity_horizon(states, dyns, cfg, n_sub_max, engine):
+def chunked_parity_horizon(states, dyns, cfg, n_sub_max, engine,
+                           horizons=CHUNK_PARITY_STEPS):
     """use_fused_metrics=False against True on every lane (core mode) at
-    each horizon of CHUNK_PARITY_STEPS: rows that differ at all and rows
+    each horizon of ``horizons``: rows that differ at all and rows
     outside TOL, by n_sub.  At one step every row must lie within TOL and
     the final states must be bitwise equal."""
     B = states.pos.shape[0]
     ns = np.minimum(dyns.n_sub.cpu().numpy(), n_sub_max)
     groups = ((ns <= 2), (ns > 2) & (ns < 64), (ns >= 64))
-    for steps in CHUNK_PARITY_STEPS:
+    for steps in horizons:
         res, fin = {}, {}
         for flag in (True, False):
             r, st1 = engine(states, dyns,
@@ -2108,13 +2603,16 @@ MODEL_PREFIX = os.path.join(HERE, "data", "headline_pre_")
 #: the bench population's horizon and the pipeline entry point's
 #: n_steps (its clamp's least value), cut from bench.py's 1000 steps for
 #: the time limit: their Kepler tail runs up to 7 trips a step, eagerly,
-#: which took 99-187 s a 1000-step run on the card (PR 12)
-BENCH_STEPS = 250
+#: which took 99-187 s a 1000-step run on the card; the bench
+#: population's cut from 250 to 125 steps with the fused engine's
+#: branches, and to 60 steps after a slow host's 1,214.5 s
+BENCH_STEPS = 60
 ENTRY_STEPS = 500
 #: warm runs of the bench population (one cold run before them), cut
-#: from WARM_REPS to keep the script inside its time limit once the 3-D
-#: phase came in (1,002 s on an H100 with three)
-BENCH_WARM_REPS = 2
+#: from 3 to keep the script inside its time limit once the 3-D phase
+#: came in (1,002 s on an H100 with three), and from 2 to 1 with the
+#: fused engine's branches
+BENCH_WARM_REPS = 1
 #: the card's scores against the same port on the CPU, on the same frame
 SERVE_MLP_TOL = 1e-5
 SERVE_GBDT_TOL = 1e-15
@@ -2435,8 +2933,9 @@ DATA3 = os.path.join(HERE, "data", "stability_3d_131k.csv.gz")
 #: these rows (ROADMAP.md Queue 3), so its labels are not the reference
 LABELS3 = os.path.join(HERE, "data", "labels_3d_jax_fused_256.npz")
 MODEL3_PREFIX = os.path.join(HERE, "data", "headline3d_pre_")
-#: warm runs of the 3-D main path (one cold run before them)
-WARM_REPS_3D = 2
+#: warm runs of the 3-D main path (one cold run before them); 2 until
+#: the fused engine's branches came in, cut for the time limit
+WARM_REPS_3D = 1
 #: the 3-D dataset's columns are round 3's: its cos_theta_mean lies
 #: outside [-1, 1] where a cosine cannot (the z-only L0 in the vector
 #: branch) and its angular_momentum_drift is the z component's
@@ -2452,8 +2951,8 @@ SCAN3_STEPS = 100
 def hamsoft_scan_3d(states, dyns, ek, dev):
     """The ham_soft scan (``integrate_batch``, the eps kernel on every
     (eps*, grad) evaluation) at d = 3 on the 3-D population's n_sub = 1
-    rows, SCAN3_STEPS steps: one cold and WARM_REPS warm runs between CUDA
-    events, the eps kernel's launches in the cold run (gated > 0), the
+    rows, SCAN3_STEPS steps: one cold and LEG_WARM_REPS warm runs between
+    CUDA events, the eps kernel's launches in the cold run (gated > 0), the
     systems whose positions end non-finite (the random cohort's
     blow-ups, counted as bench.py's legs count them)."""
     from nbodysimproject_tpu_torch import SimConfig
@@ -2525,8 +3024,9 @@ def phase_3d(cfg, cfg_off, hk, ek, dev, tangent_of):
     states, dyns, n_sub_raw = prepare_population(
         mass, pos, vel, mask, cfg, G=G, softening=soft,
         min_softening=min_soft, dt=DT, device=dev)
-    out = {"cases": bucket_cases("3-D ", states, dyns, n_sub_raw, cfg, hk,
-                                 tangent_of)[0]}
+    cases, low3, _top3, _b3 = bucket_cases("3-D ", states, dyns, n_sub_raw,
+                                           cfg, hk, tangent_of)
+    out = {"cases": cases, "low": low3}
     first = torch.arange(B_CMP, device=dev)
     out["eps"] = {clamp: compare_eps("3-D dataset", states.take(first),
                                      dyns.take(first), clamp, ek)
@@ -2646,7 +3146,403 @@ def phase_3d(cfg, cfg_off, hk, ek, dev, tangent_of):
                tail_ms=float(np.median(tail_ms)), main_ms=main_ms,
                agree_jax=agree_jax, agree_ds=a,
                serve=serve_3d(cfg, (mass, pos, vel, mask), soft, G, min_soft,
-                              dev))
+                              dev),
+               pop=dict(raw=(mass, pos, vel, mask), G=G, soft=soft,
+                        min_soft=min_soft, states=states, dyns=dyns,
+                        n_sub_raw=n_sub_raw, low=out["low"], df_off=df_off))
+    return out
+
+
+# ------------------------------------- the fused engine's other branches
+#: the analysis and MEGNO kernels' branches of this phase: label, the
+#: SimConfig fields that select it
+BRANCHES = (("reflection", dict(use_soft_barrier=False)),
+            ("none", dict(disable_barrier=True)),
+            ("reference", dict(eps_grad_mode="reference")))
+#: the build variants of this phase, started with every other build in
+#: phase 2: the analysis and MEGNO kernels' reflection fold and
+#: "reference" gradient at N = 8 (d = 2; the "reference" gradient at
+#: d = 3 too), the multi-step kernel's at N = 3 (the bench's systems)
+#: and at N = 8 (``branch_walk`` replays the analysis and MEGNO kernels'
+#: trips with it), the eps kernel's at N = 3 and 8
+BRANCH_JOBS = (("hamsoft.cu", 8, 2, "refl"), ("hamsoft.cu", 8, 2, "ref"),
+               ("hamsoft.cu", 8, 3, "ref"),
+               ("hamsoft_multistep.cu", 3, 2, "ref"),
+               ("hamsoft_multistep.cu", 8, 2, "ref"),
+               ("hamsoft_multistep.cu", 8, 3, "ref"),
+               ("eps_grad.cu", 3, 2, "ref"), ("eps_grad.cu", 8, 2, "ref"))
+#: the default builds this phase adds (d = 3 of rows 3 and 6)
+BRANCH_DEFAULT_JOBS = tuple(("hamsoft_multistep.cu", n, 3) for n in (3, 4, 8)) \
+    + (("whfast.cu", 3, 3),)
+#: registers of the exact builds as PERF.md section 6 records them:
+#: (source, N, d) -> {kernel: registers of its instances}
+EXACT_REGISTERS = {
+    ("hamsoft.cu", 8, 2): {"analysis_kernel": [128], "megno_kernel": [141]},
+    ("hamsoft.cu", 8, 3): {"analysis_kernel": [128], "megno_kernel": [158]},
+    ("hamsoft_multistep.cu", 3, 2): {"multistep_thread": [190, 192]},
+    ("eps_grad.cu", 3, 2): {"eps_grad_thread": [156]},
+    ("eps_grad.cu", 8, 2): {"eps_grad_lane": [167]},
+    ("eps_grad.cu", 3, 3): {"eps_grad_thread": [167]},
+    ("eps_grad.cu", 8, 3): {"eps_grad_lane": [186]},
+    ("whfast.cu", 3, 2): {"whfast_kernel": [62]},
+}
+
+
+def ptxas_entries(report):
+    """[(kernel name, REFL/REF template arguments if any, registers,
+    spill bytes)] of a ptxas report, in its order."""
+    import re
+
+    out, name = [], None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            mangled = m.group(1)
+            name = next((k for k in ("analysis_kernel", "megno_kernel",
+                                     "multistep_thread", "multistep_warp",
+                                     "eps_grad_thread", "eps_grad_lane",
+                                     "whfast_kernel", "stumpff_probe")
+                         if k in mangled), mangled[:40])
+            # bool template arguments print as Lb0E / Lb1E
+            flags = "".join(re.findall(r"Lb(\d)E", mangled))
+            out.append([name, flags, None, 0])
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and out:
+            out[-1][2] = int(m.group(1))
+        for x in re.findall(r"(\d+) bytes spill (?:stores|loads)", line):
+            if out:
+                out[-1][3] += int(x)
+    return out
+
+
+def whfast_ics_3d(B, seed, dev):
+    """bench.py's WHFast systems with each planet's orbit tilted about the
+    x axis by up to 0.1 rad and 1% Gaussian perturbations in all three
+    coordinates, drawn on the card from ``seed``."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    f = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)
+    q2, v2 = f(WH_Q), f(WH_V)
+    inc = 0.1 * torch.rand((B, 3), generator=gen, device=dev)
+    c, s = torch.cos(inc), torch.sin(inc)
+    q = torch.stack([q2[:, 0].expand(B, 3), q2[:, 1] * c, q2[:, 1] * s], -1)
+    v = torch.stack([v2[:, 0].expand(B, 3), v2[:, 1] * c, v2[:, 1] * s], -1)
+    q = q + 0.01 * torch.randn((B, 3, 3), generator=gen, device=dev)
+    v = v + 0.01 * torch.randn((B, 3, 3), generator=gen, device=dev)
+    return f(WH_M).expand(B, 3).contiguous(), q, v
+
+
+def compare_whfast_3d(dev, wk):
+    """The WHFast kernel at d = 3 against its plain version (``row_gate``,
+    the plain version's float64 run as the sensitivity, as at d = 2) at
+    B = 2^22, CMP_WH_STEPS steps, on inclined planetary systems."""
+    B, steps = B_WH_FUSED, CMP_WH_STEPS
+    m, q, v = whfast_ics_3d(B, 29, dev)
+    eps2 = torch.full((B,), FUSED_EPS2, device=dev)
+    kw = dict(h=DT, G=1.0, n_steps=steps, iters=WH_ITERS)
+
+    def make(dt_):
+        return tuple(x.to(dt_) for x in (q, v, m, eps2))
+
+    k, p, p64, pr, ms, pms = _runs(
+        lambda *a: wk.whfast_multistep(*a, **kw),
+        lambda *a: wk.whfast_multistep_plain(*a, **kw), make,
+        lambda a: a, lambda o: o)
+    err = row_gate(f"whfast d=3 (B={B}, {steps} steps)",
+                   {n: (k[i], p[i], p64[i], pr[i], STATE_TOL)
+                    for i, n in enumerate(("pos", "vel"))})
+    shares = kepler_shares(wk, q, v, m, eps2, kw)
+    b_ms, b_by = bound_whfast(B, 3, 3, steps, WH_ITERS, shares)
+    print(f"  whfast d=3: kernel {ms:.3f} ms, plain {pms:.3f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by}), largest |kernel - plain| {err:.3e}",
+          flush=True)
+    return dict(ms=ms, plain_ms=pms, err=err, bound=(b_ms, b_by),
+                ics=(m, q, v, eps2))
+
+
+def nonfinite_rows(df):
+    """Rows with a non-finite value in any compared column, and the
+    count in each column that has one (NaN MEGNO columns on blown-up
+    systems, an infinite lyapunov_time where MEGNO is 0)."""
+    bad = ~np.isfinite(df[list(TOL)].to_numpy(float))
+    cols = {c: int(n) for c, n in zip(TOL, bad.sum(0)) if n}
+    return f"{int(bad.any(1).sum())} {cols}"
+
+
+def branch_run(label, cfg_b, pop, states, dyns, n_sub_raw, ref_df, hk,
+               share, d, dev):
+    """One full-width ``analyze_population`` run of a branch (tail off):
+    systems/s, fused_ms, the launches of both kernels (gated > 0), its
+    non-finite rows beside the soft/exact run's (``ref_df``), is_stable
+    beside it (printed: the physics differs); then its kernel launches
+    replayed on the same lanes between CUDA events, with their bounds,
+    and under the reflection policy every final eps within [eps_min,
+    eps_max] (gated)."""
+    from nbodysimproject_tpu_torch import analyze_population
+    from nbodysimproject_tpu_torch.analysis.batch import dispatch_plan
+    from nbodysimproject_tpu_torch.analysis.fused import analyze_batch_fused
+    from nbodysimproject_tpu_torch.diagnostics.megno import (
+        init_tangent, population_normals)
+
+    (mass, pos, vel, mask), G, soft, min_soft = pop
+    kinds = (hk.hamsoft_analysis_multistep, hk.hamsoft_megno_multistep)
+    reset_counts(*kinds)
+    tm = {}
+    t0 = time.perf_counter()
+    df = analyze_population(mass, pos, vel, mask, cfg_b, G=G, softening=soft,
+                            min_softening=min_soft, dt=DT, n_steps=N_STEPS,
+                            mode="full", show_progress=False, timing_out=tm)
+    t_run = time.perf_counter() - t0
+    launches = {f.__name__: f.launches for f in kinds}
+    agree = float((df["is_stable"].to_numpy(bool)
+                   == ref_df["is_stable"].to_numpy(bool)).mean())
+    print(f"  {label}: {t_run:.3f}s = {len(df) / t_run:.1f} systems/s "
+          f"(d={d}, tail off, cold), fused call {tm['fused_ms']:.1f} ms, "
+          f"launches {launches}; non-finite rows {nonfinite_rows(df)} "
+          f"(soft/exact run {nonfinite_rows(ref_df)}); is_stable agrees with "
+          f"the soft/exact run on {agree:.4f} (stable share "
+          f"{df['is_stable'].mean():.4f} against "
+          f"{ref_df['is_stable'].mean():.4f}; not gated)", flush=True)
+    if not all(launches.values()):
+        raise SystemExit(f"{label}: the run did not launch both kernels: "
+                         f"{launches}")
+    z1, z2 = population_normals(0, len(df), tuple(states.pos.shape[1:]),
+                                torch.float32)
+    dr0, dv0 = init_tangent(z1.to(dev), z2.to(dev), states)
+    order, nsm, _ = dispatch_plan(n_sub_raw, cfg_b)
+    lanes = torch.as_tensor(order, device=dev)
+    ta, tmg = Timed(hk.hamsoft_analysis_multistep), Timed(
+        hk.hamsoft_megno_multistep)
+    megno_steps = min(100, min(50, N_STEPS // 2))
+    _r, st1 = analyze_batch_fused(
+        states.take(lanes), dyns.take(lanes), cfg_b, N_STEPS, DT, "full", nsm,
+        megno_steps, tangent=(dr0[lanes], dv0[lanes]), analysis_fn=ta,
+        megno_fn=tmg)
+    ns_lanes = dyns.n_sub[lanes].cpu().numpy()
+    if share is not None:
+        # the bound takes the fallback's share at t = 0 for every trip:
+        # the kernels do not count their firings; the share at the end
+        # shows how far it moved
+        end = float(fallback_lanes(st1, dyns.take(lanes))[0].float().mean())
+        print(f"    the fallback's share at t = 0 {share:.4f} (the bounds "
+              f"below), at the end of the run {end:.4f}", flush=True)
+    times = {}
+    for kind, t, steps in (("analysis", ta, N_STEPS),
+                           ("megno", tmg, megno_steps)):
+        b = bound(kind, ns_lanes, nsm, N_STEPS, megno_steps, N_SLOTS, d, share)
+        times[kind] = (t.ms, b)
+        print(f"    {kind} replayed: one launch {t.ms:.1f} ms = "
+              f"{1e3 * t.ms / (steps * nsm):.3f} us per trip of the deepest "
+              f"lane, bound {b[0]:.3f} ms ({b[1]}), {t.ms / b[0]:.0f}x the "
+              f"bound", flush=True)
+    if cfg_b.use_soft_barrier is False and not cfg_b.disable_barrier:
+        dl = dyns.take(lanes)
+        inside = (st1.eps >= dl.min_softening) & (st1.eps <= dl.max_softening)
+        print(f"    reflection: final eps inside [eps_min, eps_max] on "
+              f"{int(inside.sum())} of {len(inside)} systems (gated: all)")
+        if not bool(inside.all()):
+            raise SystemExit(f"{label}: a final eps lies outside its walls")
+    return dict(s=t_run, fused_ms=tm["fused_ms"], launches=launches,
+                agree=agree, times=times, df=df)
+
+
+def phase_branches(cfg, cfg_off, hk, ek, wk, dev, tangent_of, pop, states,
+                   dyns, n_sub_raw, df_off, p3, built):
+    """The fused engine's remaining branches on the card: the builds'
+    registers and spills, the fallback's share at t = 0, the kernels
+    held to their plain versions in each branch, and the branches' runs
+    at full width.  Returns the numbers of the report."""
+    from nbodysimproject_tpu_torch import SimConfig, analyze_population
+    from nbodysimproject_tpu_torch.analysis.batch import dispatch_plan
+    from nbodysimproject_tpu_torch.analysis.fused import analyze_batch_fused
+    from nbodysimproject_tpu_torch.diagnostics.megno import (
+        init_tangent, population_normals)
+    from nbodysimproject_tpu_torch.ops import cuda_build
+    from nbodysimproject_tpu_torch.parallel.batch_engine import \
+        integrate_batch
+
+    t_phase = time.perf_counter()
+    out = {"cases": {}}
+    # the builds: this phase's started with every other in phase 2
+    secs = [built[j][1] for j in BRANCH_JOBS + BRANCH_DEFAULT_JOBS]
+    print(f"  builds of this phase: {len(secs)}, the longest "
+          f"{max(secs):.1f}s, in phase 2's parallel build")
+    for job in BRANCH_JOBS + BRANCH_DEFAULT_JOBS:
+        print(f"    {cuda_build.job_name(job)}: " + "; ".join(
+            f"{n}{'<' + f + '>' if f else ''} {r} registers, {sp} bytes "
+            f"spilled" for n, f, r, sp in ptxas_entries(built[job][2])))
+    for job, want in EXACT_REGISTERS.items():
+        got = {n: sorted(r for k, _f, r, _sp in ptxas_entries(built[job][2])
+                         if k == n) for n in want}
+        print(f"    exact build {cuda_build.job_name(job)}: registers {got}, "
+              f"PERF.md {want}; unchanged {got == want}")
+
+    # the fallback's share of lanes at t = 0
+    cfg_hs = SimConfig(integrator_mode="ham_soft", fast_float32=True)
+    st_h, dy_h = hamsoft_bench_batch(cfg_hs, dev)
+    shares = {}
+    for what, st, dy, ek_sem in (("dataset rows", states, dyns, False),
+                                 ("bench population", st_h, dy_h, True)):
+        taken, near = fallback_lanes(st, dy, clamp=ek_sem, ek=ek_sem)
+        shares[what] = float(taken.float().mean())
+        print(f"  the fallback's share at t = 0 on the {what} "
+              f"({len(taken)} systems{', the eps kernel' if ek_sem else ''}"
+              f"): {shares[what]:.4f} ({int(taken.sum())} systems; gated "
+              f"> 0); {int(near.sum())} at the threshold in float64",
+              flush=True)
+        if shares[what] <= 0.0:
+            raise SystemExit(f"the fallback takes no system of the {what}")
+    out["shares"] = shares
+    share_ds = shares["dataset rows"]
+
+    # rows 1-2 in each branch against their plain versions
+    pop3 = p3["pop"]
+    for label, over in BRANCHES:
+        t0 = time.perf_counter()
+        out["cases"][label] = bucket_cases(f"{label} ", states, dyns,
+                                           n_sub_raw, cfg.replace(**over),
+                                           hk, tangent_of)[0]
+        print(f"  {label} cases done in {time.perf_counter() - t0:.1f}s",
+              flush=True)
+    cfg_r = cfg.replace(eps_grad_mode="reference")
+    st3, dy3 = pop3["states"], pop3["dyns"]
+    low3 = torch.as_tensor(pop3["low"], device=dev)
+    taken3, near3 = fallback_lanes(st3.take(low3), dy3.take(low3))
+    print(f"  reference 3-D lowest bucket: the fallback takes "
+          f"{int(taken3.sum())} of {len(taken3)} systems at t = 0, "
+          f"{int(near3.sum())} at the threshold in float64")
+    out["cases"]["reference d=3"] = bucket_cases(
+        "reference 3-D ", st3, dy3, pop3["n_sub_raw"], cfg_r, hk, tangent_of,
+        which=("lowest",))[0]
+
+    # row 3: the "reference" gradient under both policies on the bench's
+    # systems; d = 3 at N = 8 on the 3-D lowest bucket
+    taken_b, near_b = fallback_lanes(st_h, dy_h)
+    print(f"  multi-step reference: the fallback takes {int(taken_b.sum())} "
+          f"of {len(taken_b)} bench systems at t = 0, {int(near_b.sum())} at "
+          f"the threshold in float64")
+    for policy in ("soft", "reflection"):
+        out[f"multistep reference {policy}"] = compare_multistep(
+            cfg_hs.replace(use_soft_barrier=(policy == "soft")), st_h, dy_h,
+            policy, hk, "reference")
+    out["multistep d=3"] = compare_multistep(
+        cfg, st3.take(low3), dy3.take(low3), "soft", hk, steps=20)
+
+    # row 4: the fallback under both clamps, and its two layouts
+    first = torch.arange(B_CMP, device=dev)
+    for clamp in (True, False):
+        out[f"eps bench clamp={clamp}"] = compare_eps(
+            "bench", st_h, dy_h, clamp, ek, use_fallback=True)
+        out[f"eps dataset clamp={clamp}"] = compare_eps(
+            "dataset", states.take(first), dyns.take(first), clamp, ek,
+            use_fallback=True)
+    eps_layouts_agree(states, dyns, ek, use_fallback=True)
+
+    # row 6 at d = 3
+    out["whfast d=3"] = compare_whfast_3d(dev, wk)
+    torch.cuda.empty_cache()
+
+    # the runs at full width: the three branches on the dataset rows
+    for label, over in BRANCHES:
+        out[f"run {label}"] = branch_run(
+            label, cfg_off.replace(**over), pop, states, dyns, n_sub_raw,
+            df_off, hk, share_ds if label == "reference" else None, 2, dev)
+        del out[f"run {label}"]["df"]
+    # the 3-D rows with use_fused_metrics=False (row 3 at d = 3)
+    cfg_c = cfg_off.replace(use_fused_metrics=False)
+    kinds = (hk.hamsoft_analysis_multistep, hk.hamsoft_megno_multistep,
+             hk.hamsoft_multistep)
+    reset_counts(*kinds)
+    (m3, q3, v3, k3) = pop3["raw"]
+    t0 = time.perf_counter()
+    df_c = analyze_population(m3, q3, v3, k3, cfg_c, G=pop3["G"],
+                              softening=pop3["soft"],
+                              min_softening=pop3["min_soft"], dt=DT,
+                              n_steps=N_STEPS, mode="full",
+                              show_progress=False)
+    t_c = time.perf_counter() - t0
+    la = {f.__name__: f.launches for f in kinds}
+    ref3 = pop3["df_off"]
+    agree = float((df_c["is_stable"].to_numpy(bool)
+                   == ref3["is_stable"].to_numpy(bool)).mean())
+    print(f"  3-D use_fused_metrics=False: {t_c:.3f}s = {B_MAIN / t_c:.1f} "
+          f"systems/s (tail off), launches {la}; non-finite rows "
+          f"{nonfinite_rows(df_c)} (the fused way {nonfinite_rows(ref3)}); "
+          f"is_stable agrees with the fused way on {agree:.4f}", flush=True)
+    if la["hamsoft_multistep"] == 0 or la["hamsoft_analysis_multistep"]:
+        raise SystemExit("3-D use_fused_metrics=False did not run the "
+                         "multi-step kernel alone")
+    rows_c, nsm_c, _ = dispatch_plan(pop3["n_sub_raw"], cfg_off)
+    lanes_c = torch.as_tensor(rows_c, device=dev)
+    z1, z2 = population_normals(0, B_MAIN, (N_SLOTS, 3), torch.float32)
+    dr0, dv0 = init_tangent(z1.to(dev), z2.to(dev), st3)
+    tms = TimedEach(hk.hamsoft_multistep)
+    analyze_batch_fused(st3.take(lanes_c), dy3.take(lanes_c), cfg_c,
+                        N_STEPS, DT, "full", nsm_c, min(50, N_STEPS // 2),
+                        tangent=(dr0[lanes_c], dv0[lanes_c]),
+                        multistep_fn=tms)
+    calls = tms.times()
+    ns_c = dy3.n_sub[lanes_c].cpu().numpy()
+    full = [ms for n, ms in calls if n == calls[-2][0]]
+    full_b = bound_multistep(ns_c, nsm_c, calls[-2][0], N_SLOTS, 3)
+    out["chunked d=3"] = dict(run_s=t_c, launches=la["hamsoft_multistep"],
+                              kernel_ms=sum(ms for _, ms in calls),
+                              launch_ms=float(np.median(full)),
+                              launch_steps=calls[-2][0], launch_bound=full_b)
+    print(f"    the multi-step kernel at d = 3 (replayed): {len(calls)} "
+          f"launches, {out['chunked d=3']['kernel_ms']:.1f} ms in all; a "
+          f"{calls[-2][0]}-step launch {float(np.median(full)):.3f} ms "
+          f"(bound {full_b[0]:.4f} ms, {full_b[1]})", flush=True)
+    print("  3-D one step, use_fused_metrics=False against the fused way:")
+    chunked_parity_horizon(st3.take(lanes_c), dy3.take(lanes_c), cfg_off,
+                           nsm_c, analyze_batch_fused, horizons=(1,))
+
+    # row 4's fallback through the ham_soft scan and row 3's through the
+    # fused leg, at the width of bench.py's ham_soft leg; row 6 at d = 3
+    # at the width of its fused leg
+    counted = (ek.eps_star_and_grad_fused, hk.hamsoft_multistep,
+               wk.whfast_multistep)
+    cfg_hr = cfg_hs.replace(eps_grad_mode="reference")
+    nsm = int(dy_h.n_sub.max())
+    o, cold, med, la = run_leg(
+        f"ham_soft scan reference (integrate_batch, n_sub_max {nsm})",
+        lambda: integrate_batch(st_h, dy_h, cfg_hr, DT, HS_STEPS, nsm),
+        B_HS, HS_STEPS, counted, reps=1)
+    print(f"    non-finite systems {nonfinite(o.pos)}")
+    out["scan reference"] = (cold, med, la["eps_star_and_grad_fused"])
+    kwr = multistep_kw(cfg_hr, dy_h, HS_STEPS, "soft", "reference")
+    o, cold, med, la = run_leg(
+        "ham_soft fused reference (hamsoft_multistep)",
+        lambda: hk.hamsoft_multistep(st_h.pos, st_h.vel, st_h.mass, st_h.eps,
+                                     st_h.pi, **kwr),
+        B_HS, HS_STEPS, counted, reps=1)
+    # the fallback's share counted over the compare case's 2 steps on
+    # the same systems
+    share_c = out["multistep reference soft"]["share"]
+    print(f"    non-finite systems {nonfinite(o[0])}; bound "
+          f"{bound_multistep(dy_h.n_sub.cpu().numpy(), nsm, HS_STEPS, 3, 2, share_c)[0]:.3f} ms "
+          f"(the fallback's share {share_c:.4f}, counted in the compare case)")
+    out["fused reference"] = (cold, med, la["hamsoft_multistep"])
+    del st_h, dy_h, o
+    torch.cuda.empty_cache()
+    m, q, v, eps2 = out["whfast d=3"].pop("ics")
+    o, cold, med, la = run_leg(
+        "whfast fused d=3 (whfast_multistep)",
+        lambda: wk.whfast_multistep(q, v, m, eps2, h=DT, G=1.0,
+                                    n_steps=WH_FUSED_STEPS, iters=WH_ITERS),
+        B_WH_FUSED, WH_FUSED_STEPS, counted, reps=1)
+    print(f"    non-finite systems {nonfinite(o[0])}")
+    out["whfast leg d=3"] = (cold, med, la["whfast_multistep"])
+    for key, launches in (("scan reference", out["scan reference"][2]),
+                          ("fused reference", out["fused reference"][2]),
+                          ("whfast leg d=3", out["whfast leg d=3"][2])):
+        if not launches:
+            raise SystemExit(f"{key}: its kernel was not launched")
+    del m, q, v, eps2, o
+    torch.cuda.empty_cache()
+    out["s"] = time.perf_counter() - t_phase
+    print(f"  the branches' phase {out['s']:.1f}s, its builds in phase 2")
     return out
 
 
@@ -2682,17 +3578,19 @@ def main():
     # shapes among them
     built = cuda_build.build(hk.build_jobs() + ek.build_jobs()
                              + bk.build_jobs(COMPOSITION_SHAPES)
-                             + wk.build_jobs() + fk.build_jobs())
-    for (src, n, d), (path, secs, report) in sorted(built.items()):
-        print(f"  {src} N={n} d={d}: {os.path.basename(path)} in "
+                             + wk.build_jobs() + fk.build_jobs()
+                             + list(BRANCH_JOBS))
+    for job, (path, secs, report) in sorted(built.items()):
+        print(f"  {cuda_build.job_name(job)}: {os.path.basename(path)} in "
               f"{secs:.1f}s")
         for line in report.splitlines():
             print(f"    {line.strip()}")
     print(f"  build wall {time.perf_counter() - t0:.1f}s")
     # the analysis and MEGNO kernels at N = 8 (d = 2 and 3), the
-    # multi-step kernel's two policies' instances at every N, the eps
-    # kernel at N = 3 and 8 (d = 2 and 3), the
-    # WHFast kernel and its Stumpff probe, the force kernel and its slice sum
+    # multi-step kernel's two policies' instances at every N (d = 2 and
+    # 3), the eps kernel at N = 3 and 8 (d = 2 and 3), the WHFast kernel
+    # and its Stumpff probe (d = 2 and 3), the force kernel and its slice
+    # sum; the branch variants' builds are reported by their phase
     for job, n_kernels in ([(("hamsoft.cu", N_SLOTS, 2), 2),
                             (("hamsoft.cu", N_SLOTS, 3), 2)]
                            + [(j, 2) for j in hk.build_jobs()
@@ -2970,6 +3868,15 @@ def main():
     p3 = phase_3d(cfg, cfg_off, hk, ek, dev, tangent_of)
     torch.cuda.empty_cache()
 
+    phase("the fused engine's remaining branches: the reflection and "
+          "no-barrier policies, the reference gradient, rows 3 and 6 at "
+          "d = 3")
+    branches = phase_branches(
+        cfg, cfg_off, hk, ek, wk, dev, tangent_of,
+        ((mass, pos, vel, mask), G, soft, min_soft), states, dyns, n_sub_raw,
+        df_off, p3, built)
+    torch.cuda.empty_cache()
+
     phase("generators: diverse_population on the card")
     gen_out = generators_phase(dev)
     phase("bench population: analyze_population on bench.py's population, "
@@ -3009,7 +3916,7 @@ def main():
     for kind, replaces in (
             ("analysis", "nbodysimproject_tpu/ops/pallas_hamsoft.py:565"),
             ("megno", "nbodysimproject_tpu/ops/pallas_hamsoft.py:770")):
-        ms, plain_ms, err, ns, steps, msteps, nsm = cases[1][kind]
+        ms, plain_ms, err, ns, steps, msteps, nsm, _sh = cases[1][kind]
         b_ms, b_by = bound(kind, ns, nsm, steps, msteps, N_SLOTS, 2)
         entries.append({
             "name": f"hamsoft_{kind}_multistep",
@@ -3057,7 +3964,8 @@ def main():
     for kind, replaces in (
             ("analysis", "nbodysimproject_tpu/ops/pallas_hamsoft.py:565"),
             ("megno", "nbodysimproject_tpu/ops/pallas_hamsoft.py:770")):
-        ms, plain_ms, err, ns, steps, msteps, nsm = p3["cases"][1][kind]
+        ms, plain_ms, err, ns, steps, msteps, nsm, _sh = \
+            p3["cases"][1][kind]
         b_ms, b_by = bound(kind, ns, nsm, steps, msteps, N_SLOTS, 3)
         entries.append({
             "name": f"hamsoft_{kind}_multistep d=3",
@@ -3098,6 +4006,85 @@ def main():
         v = p3["serve"][kind]
         print(f"  3-D serving {kind}: with ic_feature_frame {v['both']:.1f} "
               f"systems/s, card against CPU max |dprob| {v['d_prob']:.3e}")
+    for label, _over in BRANCHES:
+        run = branches[f"run {label}"]
+        cases_b = branches["cases"][label]
+        for kind, replaces in (
+                ("analysis", "nbodysimproject_tpu/ops/pallas_hamsoft.py:565"),
+                ("megno", "nbodysimproject_tpu/ops/pallas_hamsoft.py:770")):
+            # a case's bound counts the fallback's firings in its plain
+            # run; the full-width run's, the share at t = 0
+            ms, plain_ms, err, ns, steps, msteps, nsm, sh = cases_b[1][kind]
+            b_ms, b_by = bound(kind, ns, nsm, steps, msteps, N_SLOTS, 2, sh)
+            entries.append({
+                "name": f"hamsoft_{kind}_multistep {label}", "route": "cuda",
+                "source": "nbodysimproject_tpu_torch/csrc/hamsoft.cu",
+                "replaces": replaces,
+                "launches": run["launches"][f"hamsoft_{kind}_multistep"],
+                "max_abs_err": max(err, cases_b[0][kind][2]),
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                "bound_by": b_by, "library_ms": None})
+            r_ms, (rb, rby) = run["times"][kind]
+            print(f"  {kind} {label}: top-bucket case kernel {ms:.3f} ms, "
+                  f"plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}"
+                  + (f"; the fallback's counted share {sh:.4f}" if sh
+                     is not None else "") + "); "
+                  f"lowest-bucket case kernel {cases_b[0][kind][0]:.3f} ms, "
+                  f"plain {cases_b[0][kind][1]:.3f} ms; its full-width run's "
+                  f"launch {r_ms:.1f} ms, bound {rb:.3f} ms ({rby})")
+        print(f"  {label} run (tail off): {run['s']:.3f}s = "
+              f"{B_MAIN / run['s']:.1f} systems/s, fused call "
+              f"{run['fused_ms']:.1f} ms, is_stable against soft/exact "
+              f"{run['agree']:.4f}")
+    for kind in ("analysis", "megno"):
+        ms, plain_ms, err, ns, steps, msteps, nsm, sh = \
+            branches["cases"]["reference d=3"][0][kind]
+        b_ms, b_by = bound(kind, ns, nsm, steps, msteps, N_SLOTS, 3, sh)
+        print(f"  {kind} reference d=3: lowest-bucket case kernel {ms:.3f} "
+              f"ms, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}; "
+              f"the fallback's counted share {sh:.4f}), largest |kernel - "
+              f"plain| {err:.3e}")
+    for name, src, replaces, case, launches, errs in (
+            ("hamsoft_multistep reference", "hamsoft_multistep.cu",
+             "nbodysimproject_tpu/ops/pallas_hamsoft.py:508",
+             "multistep reference soft", branches["fused reference"][2],
+             ("multistep reference soft", "multistep reference reflection")),
+            ("hamsoft_multistep d=3", "hamsoft_multistep.cu",
+             "nbodysimproject_tpu/ops/pallas_hamsoft.py:508",
+             "multistep d=3", branches["chunked d=3"]["launches"],
+             ("multistep d=3",)),
+            ("eps_star_and_grad_fused fallback", "eps_grad.cu",
+             "nbodysimproject_tpu/ops/pallas_eps.py:50",
+             "eps bench clamp=True", branches["scan reference"][2],
+             tuple(f"eps {w} clamp={c}" for w in ("bench", "dataset")
+                   for c in (True, False))),
+            ("whfast_multistep d=3", "whfast.cu",
+             "nbodysimproject_tpu/ops/pallas_whfast.py:162", "whfast d=3",
+             branches["whfast leg d=3"][2], ("whfast d=3",))):
+        c = branches[case]
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": f"nbodysimproject_tpu_torch/csrc/{src}",
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max(branches[k]["err"] for k in errs),
+            "ms": c["ms"], "plain_ms": c["plain_ms"],
+            "bound_ms": c["bound"][0], "bound_by": c["bound"][1],
+            "library_ms": None})
+        print(f"  {name}: {case} case kernel {c['ms']:.3f} ms, plain "
+              f"{c['plain_ms']:.3f} ms, bound {c['bound'][0]:.4f} ms "
+              f"({c['bound'][1]}); launches on its path {launches}")
+    for key in ("scan reference", "fused reference", "whfast leg d=3"):
+        cold, med, launches = branches[key]
+        print(f"  leg {key}: cold {cold:.1f} ms, warm {med:.3f} ms, "
+              f"launches {launches}")
+    cd3 = branches["chunked d=3"]
+    print(f"  hamsoft_multistep N=8 d=3 (the 3-D use_fused_metrics=False "
+          f"analysis): run {cd3['run_s']:.3f}s, {cd3['launches']} launches, "
+          f"{cd3['kernel_ms']:.1f} ms in all, {cd3['launch_ms']:.3f} ms a "
+          f"{cd3['launch_steps']}-step launch (bound "
+          f"{cd3['launch_bound'][0]:.4f} ms)")
+    print(f"  the branches' phase {branches['s']:.1f}s; the fallback's share "
+          f"at t = 0 {branches['shares']}")
     c = force_cmp["N=1e5"]
     main_roll = ln_rolls[("direct_pallas", 100_000)]
     entries.append({

@@ -298,9 +298,9 @@ def analyze_population(mass, pos, vel, mask, cfg, *, G=1.0, softening=0.05,
     if not fused_config_covered(cfg, mode, dtype):
         raise NotImplementedError(
             "analyze_population: only the fused engine's configurations "
-            "are ported (ham_soft, float32, exact gradient, core/full mode, "
-            "use_fused_analysis; soft barrier unless use_fused_metrics=False "
-            "in core mode)")
+            "are ported (ham_soft, float32, the production eps* with the "
+            "exact or reference gradient, core/full mode, "
+            "use_fused_analysis, use_fused_megno in full mode)")
     g_np = np.asarray(_as_np(G), np.float64)
     if not (g_np.size == 1 or bool((g_np == g_np.flat[0]).all())):
         raise NotImplementedError(

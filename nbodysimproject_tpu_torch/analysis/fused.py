@@ -19,9 +19,10 @@ continuation in its own kernel.
 
 The JAX package falls back to its scan engine on the CPU
 (``fused_path_applicable``); here the engine runs wherever the
-configuration is covered (``fused_config_covered``), and on the CPU the
-kernel wrappers run their plain versions because the tensors lie there.
-``use_fused_megno=False`` and the "reference" gradient raise.  At d = 3
+configuration is covered (``fused_config_covered``: every barrier policy
+and both eps* gradient modes, as the JAX fused engine), and on the CPU
+the kernel wrappers run their plain versions because the tensors lie
+there.  ``use_fused_megno=False`` raises (it needs the MEGNO scan).  At d = 3
 L0 is the (B, 3) L vector, ``angular_momentum_drift`` the relative drift
 of |L| and cos_theta the tilt of L against L0 (the JAX package's
 analysis/fused.py:98-108, :172-182).
@@ -95,7 +96,8 @@ def analyze_batch_fused(states, dyns, cfg, n_steps: int, dt, mode: str,
                 n_sub=n_sub, n_sub_max=n_sub_max, G=g_static,
                 k_wall=float(cfg.k_wall), eta=float(cfg.eta),
                 jcap=float(cfg.j_max_cap), bexp=int(cfg.barrier_exponent),
-                policy=_kernel_policy(cfg), grad_mode=str(cfg.eps_grad_mode))
+                policy=_kernel_policy(cfg), grad_mode=str(cfg.eps_grad_mode),
+                lam_align=float(cfg.lambda_softening))
 
     H0 = E.extended_hamiltonian(states, dyns, cfg)
     L0 = _angular_momentum(states)
@@ -203,21 +205,19 @@ def _chunked_samples(states, dyns, cfg, L0, n_steps: int,
 
 
 def fused_config_covered(cfg, mode: str, dtype) -> bool:
-    """The configurations the fused engine covers: the ham_soft
-    production eps* in float32 with the exact gradient, core or full
-    mode.  The analysis and MEGNO kernels take the soft barrier policy
-    only; with ``use_fused_metrics=False`` core mode also takes the
-    reflection and no-barrier policies (the multi-step kernel's)."""
-    soft = _kernel_policy(cfg) == "soft"
-    fused_metrics = bool(getattr(cfg, "use_fused_metrics", False))
+    """The configurations the fused engine covers: the conditions of the
+    JAX package's ``fused_path_applicable`` but its device and lane
+    tests (the ham_soft production eps* in float32, core or full mode,
+    any barrier policy, the "exact" or "reference" gradient, d = 2 or 3,
+    either ``use_fused_metrics``), with the MEGNO kernel
+    (``use_fused_megno``) in full mode."""
     return (bool(getattr(cfg, "use_fused_analysis", False))
             and cfg.integrator_mode == "ham_soft"
             and mode in ("core", "full")
             and dtype == torch.float32
             and not cfg.use_legacy_eps_star
             and not cfg.fixed_eps_star
-            and (soft or not fused_metrics)
-            and (mode != "full" or (soft and bool(cfg.use_fused_megno)))
-            and cfg.eps_grad_mode == "exact"
+            and cfg.eps_grad_mode in ("exact", "reference")
+            and (mode != "full" or bool(cfg.use_fused_megno))
             and not cfg.freeze_s_subsystem
             and not cfg._validate_S_only)

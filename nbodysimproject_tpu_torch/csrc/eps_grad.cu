@@ -7,10 +7,14 @@
 // softmin eps* and the hand-written reverse sweep for its exact gradient,
 // then (clamp) the soft policy's value clamp to
 // [min(eps_min, eps_max), max(eps_min, eps_max)] with the gradient zeroed
-// where the clamp saturates.  The "reference"
-// gradient fallback is not ported; the wrapper refuses it.  A slot whose
-// mask is off takes mass 0 and drops out of every sum and of the softmin;
-// its gradient is 0.
+// where the clamp saturates, and then, in the build variant HS_REF
+// (use_fallback, the "reference" gradient mode), the degeneracy fallback:
+// where the gradient's largest row norm is <= 1e-12 or <= 1e-9 times the
+// median pair distance, the Omega gradient on the final iterate, its sign
+// aligned against the legacy gradient's (hamsoft_physics.cuh's
+// reference_switch; in the lane layout below, the same terms and sums).
+// A slot whose mask is off takes mass 0 and drops out of every sum and of
+// the softmin; its gradient is 0.
 //
 // What bounds it: operations.  Per system it reads N (D + 1) + 4 floats
 // and N mask bytes and writes N D + 1 floats, while the forward solve and
@@ -54,6 +58,9 @@
 #ifndef HS_D
 #define HS_D 2
 #endif
+#ifndef HS_REF
+#define HS_REF 0
+#endif
 
 namespace {
 
@@ -83,15 +90,181 @@ __device__ __forceinline__ Bounds bounds_of(const Rows& rows, int b) {
   return {minf(emin, emax), maxf(emin, emax)};
 }
 
+// The "reference" fallback in the lane layout: lane i of a system holds
+// body i's (final iterate h, softmin weight w, exact gradient g) and every
+// body's positions (qa) and validity; the terms are the one-thread
+// reference_switch's, and every sum is taken in its order (the Omega
+// gradient's pair terms published by rotation, as in the reverse sweep;
+// the legacy gradient's, whose pair loop runs over i < j only, formed
+// by each lane for its own body; the median's distances and the other
+// sums read by shuffle).
+template <int N, int D>
+__device__ __forceinline__ void reference_switch_lane(
+    int i, int base, const bool (&valid)[N], bool valid_i, float mval_i,
+    const float (&ms)[N - 1], const float (&qa)[N * D], const float (&qi)[D],
+    const float (&qs)[N - 1][D], const float (&r2)[N - 1], float h, float w,
+    float flo, float lam, float* g) {
+  constexpr int NS = N - 1;
+  constexpr int NP = N * (N - 1) / 2;
+  constexpr unsigned kAll = 0xffffffffu;
+  float g2 = 0.f;
+#pragma unroll
+  for (int a = 0; a < D; ++a) g2 = g2 + g[a] * g[a];
+  const float gn = valid_i ? sqrtf(g2) : 0.f;
+  float gmax = 0.f;
+#pragma unroll
+  for (int b = 0; b < N; ++b) gmax = maxf(gmax, __shfl_sync(kAll, gn, base + b));
+  // slot t holds pair (i, t + (t >= i)); its distance is the one-thread
+  // pair's (dx^2 is even in dx)
+  float rm = 0.f;
+#pragma unroll
+  for (int t = 0; t < NS; ++t) {
+    const int j = t + (t >= i);
+    rm = (valid_i && valid[j]) ? maxf(rm, r2[t]) : rm;
+  }
+  float rmax = rm;
+#pragma unroll
+  for (int b = 0; b < N; ++b) rmax = maxf(rmax, __shfl_sync(kAll, rm, base + b));
+  rmax = sqrtf(rmax);
+  // degenerate_grad's test, with the median taken by every lane of the
+  // warp where any system needs it: the warp's systems share its shuffles
+  const bool need = !(gmax <= 1e-12f) && !(gmax > 1e-9f * rmax);
+  float med = 0.f;
+  if (__any_sync(kAll, need)) {
+    float rv[NP], cnt = 0.f;
+#pragma unroll
+    for (int a = 0; a < N; ++a)
+#pragma unroll
+      for (int b = a + 1; b < N; ++b) {
+        // pair (a, b) is slot b - 1 of lane a
+        const float r2p = __shfl_sync(kAll, r2[b - 1], base + a);
+        const bool v = valid[a] && valid[b];
+        rv[pidx<N>(a, b)] = v ? sqrtf(r2p) : 3e38f;
+        cnt = cnt + (v ? 1.f : 0.f);
+      }
+    med = rank_median<NP>(rv, cnt);
+  }
+  const bool degenerate = gmax <= 1e-12f || (need && gmax <= 1e-9f * med);
+  // every lane of a warp runs the shuffles below; a system that does not
+  // degenerate keeps its gradient
+  if (!__any_sync(kAll, degenerate)) return;
+
+  // the Omega gradient on the final iterate
+  const float h_floor = maxf(1e-12f, 0.1f * maxf(flo, 1e-12f));
+  const float hj = maxf(h, h_floor);
+  const float ih2 = 1.f / maxf(hj * hj, 1e-24f);
+  const float hs = maxf(hj, 1e-12f);
+  float W[NS];
+  float S = 0.f, Sd = 0.f;
+#pragma unroll
+  for (int t = 0; t < NS; ++t) {
+    const float wt = kInvPi * ih2 * expf(-r2[t] * ih2);
+    W[t] = wt;
+    S = S + ms[t] * wt;
+    Sd = Sd + ms[t] * wt * (-2.f + 2.f * r2[t] * ih2) / hs;
+  }
+  const float Ssafe = maxf(S, 1e-30f);
+  float Om = 1.f + hj * Sd / (2.f * Ssafe);
+  Om = (finitef(Om) && Om != 0.f) ? Om : 1.f;
+  const float P = -hj / (2.f * Ssafe * Om);
+  const float si = -w * P;
+  float coeff[NS];
+#pragma unroll
+  for (int t = 0; t < NS; ++t) coeff[t] = si * ms[t] * W[t] * (-2.f * ih2);
+  float recv[NS];
+#pragma unroll
+  for (int r = 1; r < N; ++r) {
+    const int slot = (i + r < N) ? i + r - 1 : i + r - N;
+    float send = coeff[0];
+#pragma unroll
+    for (int t = 1; t < NS; ++t) send = (t == slot) ? coeff[t] : send;
+    recv[r - 1] = __shfl_sync(kAll, send, base + (i - r + N) % N);
+  }
+  float fb[D];
+#pragma unroll
+  for (int a = 0; a < D; ++a) fb[a] = 0.f;
+#pragma unroll
+  for (int src = 0; src < N; ++src) {
+    if (src == i) {
+#pragma unroll
+      for (int t = 0; t < NS; ++t)
+#pragma unroll
+        for (int a = 0; a < D; ++a)
+          fb[a] = fb[a] + coeff[t] * (qi[a] - qs[t][a]);
+    } else {
+      const int r = (i - src + N) % N;
+      float cf = recv[0];
+#pragma unroll
+      for (int q = 2; q < N; ++q) cf = (q == r) ? recv[q - 1] : cf;
+#pragma unroll
+      for (int a = 0; a < D; ++a) fb[a] = fb[a] - cf * (qa[src * D + a] - qi[a]);
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < D; ++a) fb[a] = (valid_i && finitef(fb[a])) ? fb[a] : 0.f;
+
+  // the legacy gradient: D over the pairs i < j in order, from the lane
+  // of each pair's first body
+  float inv[NS];
+#pragma unroll
+  for (int t = 0; t < NS; ++t) {
+    const int j = t + (t >= i);
+    inv[t] = (valid_i && valid[j]) ? 1.f / (sqrtf(r2[t]) + 1e-12f) : 0.f;
+  }
+  float Dsum = 0.f, M = 0.f;
+#pragma unroll
+  for (int a = 0; a < N; ++a)
+#pragma unroll
+    for (int b = a + 1; b < N; ++b)
+      Dsum = Dsum + __shfl_sync(kAll, inv[b - 1], base + a);
+#pragma unroll
+  for (int b = 0; b < N; ++b) M = M + (valid[b] ? 1.f : 0.f);
+  const float Dsafe = maxf(Dsum, 1e-30f);
+  const float c_pref = lam * M / (Dsafe * Dsafe);
+  const bool good = finitef(Dsum) && Dsum > 0.f;
+  // body i's terms in the pair loop's order: +c A (q_j - q_i) from the
+  // pairs (j, i), j < i, then -c A (q_i - q_j) from the pairs (i, j)
+  float gl[D];
+#pragma unroll
+  for (int a = 0; a < D; ++a) gl[a] = 0.f;
+#pragma unroll
+  for (int t = 0; t < NS; ++t) {
+    const int j = t + (t >= i);
+    const float r_safe = maxf(sqrtf(r2[t]), 1e-15f);
+    const float den = r_safe + 1e-12f;
+    const float A = (valid_i && valid[j]) ? 1.f / (r_safe * den * den) : 0.f;
+#pragma unroll
+    for (int a = 0; a < D; ++a) {
+      if (j < i)
+        gl[a] = gl[a] + c_pref * A * (qs[t][a] - qi[a]);
+      else
+        gl[a] = gl[a] - c_pref * A * (qi[a] - qs[t][a]);
+    }
+  }
+  float prod[D];
+#pragma unroll
+  for (int a = 0; a < D; ++a)
+    prod[a] = fb[a] * ((good && finitef(gl[a])) ? gl[a] : 0.f);
+  float dot = 0.f;
+#pragma unroll
+  for (int b = 0; b < N; ++b)
+#pragma unroll
+    for (int a = 0; a < D; ++a) dot = dot + __shfl_sync(kAll, prod[a], base + b);
+  const bool flip = finitef(dot) && dot < 0.f;
+  if (!degenerate) return;
+#pragma unroll
+  for (int a = 0; a < D; ++a) g[a] = flip ? -fb[a] : fb[a];
+}
+
 // One lane per body: lane l of a warp works for body i = l % N of system
 // warp * SPW + l / N; the last 32 - SPW N lanes idle (they run along, so
 // every shuffle has all 32 lanes, and store nothing).
-template <int N, int D>
+template <int N, int D, bool REF>
 __global__ void __launch_bounds__(kBlock) eps_grad_lane(
     const float* __restrict__ pos, const float* __restrict__ mass,
     const unsigned char* __restrict__ mask, Rows rows,
     float* __restrict__ out_es, float* __restrict__ out_grad, int B,
-    float eta, int clamp) {
+    float eta, float lam, int clamp) {
   static_assert(N >= 2 && N <= 32, "a system's lanes fit in one warp");
   constexpr int SPW = 32 / N;  // systems per warp
   constexpr int NS = N - 1;    // neighbour slots
@@ -204,6 +377,7 @@ __global__ void __launch_bounds__(kBlock) eps_grad_lane(
   for (int j = 0; j < N; ++j) ssum = ssum + __shfl_sync(kAll, e, base + j);
   float es = -alpha * (tmax + logf(ssum));
   float u = e / ssum;
+  const float w_fin = u;
 
   // reverse sweep: the cotangent on h stays per body
   float g[D];
@@ -260,6 +434,9 @@ __global__ void __launch_bounds__(kBlock) eps_grad_lane(
     for (int a = 0; a < D; ++a) g[a] = open ? g[a] : 0.f;
     es = clipf(es, bd.lo, bd.hi);
   }
+  if constexpr (REF)
+    reference_switch_lane<N, D>(i, base, valid, valid_i, mval_i, ms, qa, qi,
+                                qs, r2, h, w_fin, flo, lam, g);
   if (!live) return;
   if (i == 0) out_es[b] = es;
 #pragma unroll
@@ -267,12 +444,12 @@ __global__ void __launch_bounds__(kBlock) eps_grad_lane(
 }
 
 // One thread per system (hamsoft_physics.cuh's eps_star_and_grad).
-template <int N, int D>
+template <int N, int D, bool REF>
 __global__ void __launch_bounds__(kBlock) eps_grad_thread(
     const float* __restrict__ pos, const float* __restrict__ mass,
     const unsigned char* __restrict__ mask, Rows rows,
     float* __restrict__ out_es, float* __restrict__ out_grad, int B,
-    float eta, int clamp) {
+    float eta, float lam, int clamp) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   Sys<N> s;
@@ -291,31 +468,33 @@ __global__ void __launch_bounds__(kBlock) eps_grad_thread(
   s.alpha = row_at(rows, 1, b);
   s.eps_seed = row_at(rows, 0, b);
   s.eta = eta;
+  s.lam = lam;
 
-  float es;
-  eps_star_and_grad<N, D>(s, q, es, g);
+  float es, h[N], w[N];
+  eps_star_and_grad<N, D, REF>(s, q, es, g, h, w);
   if (clamp) {
     const bool open = (es >= bd.lo) && (es <= bd.hi);
 #pragma unroll
     for (int k = 0; k < N * D; ++k) g[k] = open ? g[k] : 0.f;
     es = clipf(es, bd.lo, bd.hi);
   }
+  if constexpr (REF) reference_switch<N, D>(s, q, h, w, g);
   out_es[b] = es;
 #pragma unroll
   for (int k = 0; k < N * D; ++k) out_grad[(size_t)b * (N * D) + k] = g[k];
 }
 
-template <int N, int D>
+template <int N, int D, bool REF>
 int launch(const float* pos, const float* mass, const unsigned char* mask,
            const Rows& rows, float* out_es, float* out_grad, int B, float eta,
-           int clamp, cudaStream_t st) {
+           float lam, int clamp, cudaStream_t st) {
   if constexpr (kLaneLayout) {
     constexpr int per = (kBlock / 32) * (32 / N);  // systems per block
-    eps_grad_lane<N, D><<<(B + per - 1) / per, kBlock, 0, st>>>(
-        pos, mass, mask, rows, out_es, out_grad, B, eta, clamp);
+    eps_grad_lane<N, D, REF><<<(B + per - 1) / per, kBlock, 0, st>>>(
+        pos, mass, mask, rows, out_es, out_grad, B, eta, lam, clamp);
   } else {
-    eps_grad_thread<N, D><<<(B + kBlock - 1) / kBlock, kBlock, 0, st>>>(
-        pos, mass, mask, rows, out_es, out_grad, B, eta, clamp);
+    eps_grad_thread<N, D, REF><<<(B + kBlock - 1) / kBlock, kBlock, 0, st>>>(
+        pos, mass, mask, rows, out_es, out_grad, B, eta, lam, clamp);
   }
   return (int)cudaGetLastError();
 }
@@ -327,8 +506,8 @@ extern "C" {
 int hs_eps_grad(const float* pos, const float* mass,
                 const unsigned char* mask, const void* const* row_ptr,
                 const long long* row_stride, const float* row_value,
-                float* out_es, float* out_grad, int B, float eta, int clamp,
-                void* stream) {
+                float* out_es, float* out_grad, int B, float eta, float lam,
+                int clamp, void* stream) {
   if (B <= 0) return 0;
   Rows rows;
   for (int k = 0; k < 4; ++k) {
@@ -336,8 +515,9 @@ int hs_eps_grad(const float* pos, const float* mass,
     rows.stride[k] = row_stride[k];
     rows.value[k] = row_value[k];
   }
-  return launch<HS_N, HS_D>(pos, mass, mask, rows, out_es, out_grad, B, eta,
-                            clamp, (cudaStream_t)stream);
+  return launch<HS_N, HS_D, HS_REF != 0>(pos, mass, mask, rows, out_es,
+                                         out_grad, B, eta, lam, clamp,
+                                         (cudaStream_t)stream);
 }
 
 const char* hs_error_string(int code) {

@@ -4,9 +4,13 @@
 //   hamsoft_analysis_multistep (_hamsoft_analysis_kernel, :565) -> hs_analysis
 //   hamsoft_megno_multistep    (_hamsoft_megno_kernel,    :770) -> hs_megno
 // on the cooperative physics of hamsoft_physics_warp.cuh, at d = 2 and 3
-// (HS_D).  Covered configuration: the soft barrier policy and the exact
-// eps* gradient (the dataset pipeline's); the wrappers in
-// ops/hamsoft_kernels.py refuse the others.
+// (HS_D).  All three barrier policies and both eps* gradient modes: the
+// policy and the mode are template arguments (REFL, REF), and each build
+// variant instantiates one pair of them (HS_REFL, HS_REF: the reflection
+// fold, the "reference" gradient's fallback), so the default build, the
+// soft and no-barrier policies with the exact gradient (the dataset
+// pipeline's), holds neither branch.  The soft policy's wall kicks are a
+// runtime flag (barrier_on), off for "none".
 //
 // What bounds it: operations, not bytes, and on the main path the serial
 // chain of the deepest systems (n_sub 256 over 1000 steps: 256,000
@@ -44,6 +48,12 @@
 #endif
 #ifndef HS_D
 #define HS_D 2
+#endif
+#ifndef HS_REFL
+#define HS_REFL 0
+#endif
+#ifndef HS_REF
+#define HS_REF 0
 #endif
 
 namespace {
@@ -188,7 +198,7 @@ __device__ __forceinline__ void metrics_w(const Lane<N, D>& s,
   out[3] = s.G * 2.f * tr;  // i != j double-counts the i < j sum
 }
 
-template <int N, int D>
+template <int N, int D, bool REFL, bool REF>
 __global__ void __launch_bounds__(kBlock) analysis_kernel(
     const float* __restrict__ pos, const float* __restrict__ vel,
     const float* __restrict__ mass, const float* __restrict__ eps_in,
@@ -201,8 +211,8 @@ __global__ void __launch_bounds__(kBlock) analysis_kernel(
     float* __restrict__ out_eps, float* __restrict__ out_pi,
     float* __restrict__ out_acc, float* __restrict__ out_es,
     float* __restrict__ out_ps, int B, int n_steps, int n_sub_max,
-    int interval, float G, float k_wall, float eta, float jcap, int bexp,
-    int barrier_on) {
+    int interval, float G, float k_wall, float eta, float jcap, float lam,
+    int bexp, int barrier_on) {
   using GE = Geo<N, D>;
   __shared__ __align__(16) float rows[GE::PER_BLOCK]
                                      [GradRows<N, D>::SIZE];
@@ -217,8 +227,8 @@ __global__ void __launch_bounds__(kBlock) analysis_kernel(
   float qi[D], vi[D], gi[D], qj[Lay<N>::SPL * D];
   const float h = h_in[b];
   load_lane<N, D>(b, B, lane, pos, vel, mass, k_s, mu, alpha, flo, cap,
-                       eps_in, h, G, k_wall, eta, jcap, bexp, barrier_on, s,
-                       qi, vi);
+                       eps_in, h, G, k_wall, eta, jcap, lam, bexp, barrier_on,
+                       s, qi, vi);
   gather_slots(s, qi, qj);
   float eps = eps_in[b], pi = pi_in[b];
   const int ns = min(max(nsub_in[b], 1), n_sub_max);
@@ -229,7 +239,7 @@ __global__ void __launch_bounds__(kBlock) analysis_kernel(
   nb = maxf(nb, 1.f);
 
   float es;
-  eps_star_and_grad_w(s, qi, qj, es, gi, rw);
+  eps_star_and_grad_w<N, D, REF>(s, qi, qj, es, gi, rw);
 
   // row r = l + a * SYS of the accumulators: 0 the count, then
   // (sum, sumsq, max, min) per metric
@@ -243,7 +253,7 @@ __global__ void __launch_bounds__(kBlock) analysis_kernel(
 
   for (int step = 0; step < n_steps; ++step) {
     for (int sub = 0; sub < ns; ++sub)
-      strang_trip_w(s, qi, qj, vi, eps, pi, es, gi, h, rw);
+      strang_trip_w<N, D, REFL, REF>(s, qi, qj, vi, eps, pi, es, gi, h, rw);
     if (step % interval == 0) {  // the scan path's sampling predicate
       float met[kAccMetrics];
       metrics_w(s, qi, qj, vi, eps, L0, nb, met);
@@ -293,7 +303,7 @@ __global__ void __launch_bounds__(kBlock) analysis_kernel(
 // One resident block a multiprocessor is all the bound asks: without it
 // ptxas holds the kernel to 128 registers (eight blocks) and spills at
 // N = 8.
-template <int N, int D>
+template <int N, int D, bool REFL, bool REF>
 __global__ void __launch_bounds__(kBlock, 1) megno_kernel(
     const float* __restrict__ pos, const float* __restrict__ vel,
     const float* __restrict__ mass, const float* __restrict__ eps_in,
@@ -307,7 +317,8 @@ __global__ void __launch_bounds__(kBlock, 1) megno_kernel(
     float* __restrict__ out_eps, float* __restrict__ out_pi,
     float* __restrict__ out_accum, float* __restrict__ out_t,
     float* __restrict__ out_ys, int B, int n_steps, int n_sub_max, float G,
-    float k_wall, float eta, float jcap, int bexp, int barrier_on) {
+    float k_wall, float eta, float jcap, float lam, int bexp,
+    int barrier_on) {
   using GE = Geo<N, D>;
   constexpr int SPL = Lay<N>::SPL;
   __shared__ __align__(16) float rows[GE::PER_BLOCK]
@@ -323,8 +334,8 @@ __global__ void __launch_bounds__(kBlock, 1) megno_kernel(
   float qi[D], vi[D], gi[D], qj[SPL * D], dri[D], dvi[D], drj[SPL * D];
   const float h = h_in[b];
   load_lane<N, D>(b, B, lane, pos, vel, mass, k_s, mu, alpha, flo, cap,
-                       eps_in, h, G, k_wall, eta, jcap, bexp, barrier_on, s,
-                       qi, vi);
+                       eps_in, h, G, k_wall, eta, jcap, lam, bexp, barrier_on,
+                       s, qi, vi);
   gather_slots(s, qi, qj);
 #pragma unroll
   for (int a = 0; a < D; ++a) {
@@ -336,12 +347,12 @@ __global__ void __launch_bounds__(kBlock, 1) megno_kernel(
   const int ns = min(max(nsub_in[b], 1), n_sub_max);
 
   float es;
-  eps_star_and_grad_w(s, qi, qj, es, gi, rw);
+  eps_star_and_grad_w<N, D, REF>(s, qi, qj, es, gi, rw);
   float accum = 0.f, tt = 0.f;
 
   for (int step = 0; step < n_steps; ++step) {
     for (int sub = 0; sub < ns; ++sub)
-      strang_trip_w(s, qi, qj, vi, eps, pi, es, gi, h, rw);
+      strang_trip_w<N, D, REFL, REF>(s, qi, qj, vi, eps, pi, es, gi, h, rw);
     // MEGNO update on the macro-step boundary (diagnostics/megno.py:73-87)
 #pragma unroll
     for (int a = 0; a < D; ++a) dri[a] = dri[a] + dvi[a] * dt;
@@ -407,14 +418,14 @@ int hs_analysis(const float* pos, const float* vel, const float* mass,
                 float* out_vel, float* out_eps, float* out_pi,
                 float* out_acc, float* out_es, float* out_ps, int B,
                 int n_steps, int n_sub_max, int interval, float G,
-                float k_wall, float eta, float jcap, int bexp,
+                float k_wall, float eta, float jcap, float lam, int bexp,
                 int barrier_on, void* stream) {
   if (B <= 0) return 0;
-  analysis_kernel<HS_N, HS_D>
+  analysis_kernel<HS_N, HS_D, HS_REFL != 0, HS_REF != 0>
       <<<grid_of<HS_N, HS_D>(B), kBlock, 0, (cudaStream_t)stream>>>(
           pos, vel, mass, eps, pi, k_s, mu, alpha, flo, cap, h, nsub, order,
           L0, out_pos, out_vel, out_eps, out_pi, out_acc, out_es, out_ps, B,
-          n_steps, n_sub_max, interval, G, k_wall, eta, jcap, bexp,
+          n_steps, n_sub_max, interval, G, k_wall, eta, jcap, lam, bexp,
           barrier_on);
   return (int)cudaGetLastError();
 }
@@ -427,14 +438,14 @@ int hs_megno(const float* pos, const float* vel, const float* mass,
              const float* dv, float* out_pos, float* out_vel,
              float* out_eps, float* out_pi, float* out_accum, float* out_t,
              float* out_ys, int B, int n_steps, int n_sub_max, float G,
-             float k_wall, float eta, float jcap, int bexp, int barrier_on,
-             void* stream) {
+             float k_wall, float eta, float jcap, float lam, int bexp,
+             int barrier_on, void* stream) {
   if (B <= 0) return 0;
-  megno_kernel<HS_N, HS_D>
+  megno_kernel<HS_N, HS_D, HS_REFL != 0, HS_REF != 0>
       <<<grid_of<HS_N, HS_D>(B), kBlock, 0, (cudaStream_t)stream>>>(
           pos, vel, mass, eps, pi, k_s, mu, alpha, flo, cap, h, nsub, order,
           dt, dr, dv, out_pos, out_vel, out_eps, out_pi, out_accum, out_t,
-          out_ys, B, n_steps, n_sub_max, G, k_wall, eta, jcap, bexp,
+          out_ys, B, n_steps, n_sub_max, G, k_wall, eta, jcap, lam, bexp,
           barrier_on);
   return (int)cudaGetLastError();
 }

@@ -3,9 +3,12 @@
 // Replaces the TPU kernel of nbodysimproject_tpu/ops/pallas_hamsoft.py:
 //   hamsoft_multistep (_hamsoft_multistep_kernel, :508) -> hs_multistep
 // n_steps macro steps, each system running its own n_sub Strang trips of
-// size h, no sampling.  All three barrier policies: "soft" (wall kicks on
-// pi), "reflection" (closed-form folds of (eps, pi) around each flow) and
-// "none"; the exact eps* gradient.
+// size h, no sampling, at d = 2 and 3 (HS_D).  All three barrier
+// policies: "soft" (wall kicks on pi), "reflection" (closed-form folds of
+// (eps, pi) around each flow) and "none", each build holding both folds;
+// the eps* gradient mode is a template argument (REF), instantiated by
+// the build variant HS_REF ("reference": the degeneracy fallback), so
+// the default build holds only the exact gradient.
 //
 // What bounds it: operations.  A trip spends about 10^3 FP32 operations
 // at N = 3 and 10^4 at N = 8 (the 8 SPH iterations and the reverse
@@ -46,6 +49,9 @@
 #ifndef HS_D
 #define HS_D 2
 #endif
+#ifndef HS_REF
+#define HS_REF 0
+#endif
 
 namespace {
 
@@ -56,7 +62,7 @@ constexpr int kWarpBlock = 64;
 
 // ptxas keeps the N = 3 trip, kept terms included, in ~220 registers
 // without spilling (two blocks an SM)
-template <int N, int D, bool REFL>
+template <int N, int D, bool REFL, bool REF>
 __global__ void __launch_bounds__(kThreadBlock, 2) multistep_thread(
     const float* __restrict__ pos, const float* __restrict__ vel,
     const float* __restrict__ mass, const float* __restrict__ eps_in,
@@ -67,23 +73,24 @@ __global__ void __launch_bounds__(kThreadBlock, 2) multistep_thread(
     const int* __restrict__ order, float* __restrict__ out_pos,
     float* __restrict__ out_vel, float* __restrict__ out_eps,
     float* __restrict__ out_pi, int B, int n_steps, int n_sub_max, float G,
-    float k_wall, float eta, float jcap, int bexp, int barrier_on) {
+    float k_wall, float eta, float jcap, float lam, int bexp,
+    int barrier_on) {
   const int w = blockIdx.x * blockDim.x + threadIdx.x;
   if (w >= B) return;
   const int b = order[w];
   Sys<N> s;
   float q[N * D], v[N * D], grad[N * D];
   load_system<N, D>(b, B, pos, vel, mass, k_s, mu, alpha, flo, cap, eps_in, G,
-                    k_wall, eta, jcap, bexp, barrier_on, s, q, v);
+                    k_wall, eta, jcap, lam, bexp, barrier_on, s, q, v);
   float eps = eps_in[b], pi = pi_in[b];
   const float h = h_in[b];
   const int ns = min(max(nsub_in[b], 1), n_sub_max);
 
   float es;
-  eps_star_and_grad<N, D>(s, q, es, grad);
+  eps_star_and_grad_mode<N, D, REF>(s, q, es, grad);
   for (int step = 0; step < n_steps; ++step)
     for (int sub = 0; sub < ns; ++sub)
-      strang_trip<N, D, REFL>(s, q, v, eps, pi, es, grad, h);
+      strang_trip<N, D, REFL, REF>(s, q, v, eps, pi, es, grad, h);
 
 #pragma unroll
   for (int k = 0; k < N * D; ++k) {
@@ -94,7 +101,7 @@ __global__ void __launch_bounds__(kThreadBlock, 2) multistep_thread(
   out_pi[b] = pi;
 }
 
-template <int N, int D, bool REFL>
+template <int N, int D, bool REFL, bool REF>
 __global__ void __launch_bounds__(kWarpBlock) multistep_warp(
     const float* __restrict__ pos, const float* __restrict__ vel,
     const float* __restrict__ mass, const float* __restrict__ eps_in,
@@ -105,7 +112,8 @@ __global__ void __launch_bounds__(kWarpBlock) multistep_warp(
     const int* __restrict__ order, float* __restrict__ out_pos,
     float* __restrict__ out_vel, float* __restrict__ out_eps,
     float* __restrict__ out_pi, int B, int n_steps, int n_sub_max, float G,
-    float k_wall, float eta, float jcap, int bexp, int barrier_on) {
+    float k_wall, float eta, float jcap, float lam, int bexp,
+    int barrier_on) {
   constexpr int SYS = Lay<N>::SYS;
   __shared__ __align__(16) float rows[kWarpBlock / SYS]
                                      [GradRows<N, D>::SIZE];
@@ -119,17 +127,17 @@ __global__ void __launch_bounds__(kWarpBlock) multistep_warp(
   float qi[D], vi[D], gi[D], qj[Lay<N>::SPL * D];
   const float h = h_in[b];
   load_lane<N, D>(b, B, lane, pos, vel, mass, k_s, mu, alpha, flo, cap,
-                  eps_in, h, G, k_wall, eta, jcap, bexp, barrier_on, s, qi,
-                  vi);
+                  eps_in, h, G, k_wall, eta, jcap, lam, bexp, barrier_on, s,
+                  qi, vi);
   gather_slots(s, qi, qj);
   float eps = eps_in[b], pi = pi_in[b];
   const int ns = min(max(nsub_in[b], 1), n_sub_max);
 
   float es;
-  eps_star_and_grad_w(s, qi, qj, es, gi, rw);
+  eps_star_and_grad_w<N, D, REF>(s, qi, qj, es, gi, rw);
   for (int step = 0; step < n_steps; ++step)
     for (int sub = 0; sub < ns; ++sub)
-      strang_trip_w<N, D, REFL>(s, qi, qj, vi, eps, pi, es, gi, h, rw);
+      strang_trip_w<N, D, REFL, REF>(s, qi, qj, vi, eps, pi, es, gi, h, rw);
 
   if (s.body && s.sub == 0) {
 #pragma unroll
@@ -151,21 +159,22 @@ int launch(const float* pos, const float* vel, const float* mass,
            const float* cap, const float* h, const int* nsub,
            const int* order, float* out_pos, float* out_vel, float* out_eps,
            float* out_pi, int B, int n_steps, int n_sub_max, float G,
-           float k_wall, float eta, float jcap, int bexp, int barrier_on,
-           cudaStream_t st) {
+           float k_wall, float eta, float jcap, float lam, int bexp,
+           int barrier_on, cudaStream_t st) {
+  constexpr bool REF = HS_REF != 0;
   if constexpr (kWarpLayout) {
     constexpr int per = kWarpBlock / Lay<HS_N>::SYS;  // systems per block
-    multistep_warp<HS_N, HS_D, REFL>
+    multistep_warp<HS_N, HS_D, REFL, REF>
         <<<(B + per - 1) / per, kWarpBlock, 0, st>>>(
             pos, vel, mass, eps, pi, k_s, mu, alpha, flo, cap, h, nsub,
             order, out_pos, out_vel, out_eps, out_pi, B, n_steps, n_sub_max,
-            G, k_wall, eta, jcap, bexp, barrier_on);
+            G, k_wall, eta, jcap, lam, bexp, barrier_on);
   } else {
-    multistep_thread<HS_N, HS_D, REFL>
+    multistep_thread<HS_N, HS_D, REFL, REF>
         <<<(B + kThreadBlock - 1) / kThreadBlock, kThreadBlock, 0, st>>>(
             pos, vel, mass, eps, pi, k_s, mu, alpha, flo, cap, h, nsub,
             order, out_pos, out_vel, out_eps, out_pi, B, n_steps, n_sub_max,
-            G, k_wall, eta, jcap, bexp, barrier_on);
+            G, k_wall, eta, jcap, lam, bexp, barrier_on);
   }
   return (int)cudaGetLastError();
 }
@@ -181,18 +190,19 @@ int hs_multistep(const float* pos, const float* vel, const float* mass,
                  const int* order, float* out_pos, float* out_vel,
                  float* out_eps, float* out_pi, int B, int n_steps,
                  int n_sub_max, float G, float k_wall, float eta, float jcap,
-                 int bexp, int barrier_on, int reflection, void* stream) {
+                 float lam, int bexp, int barrier_on, int reflection,
+                 void* stream) {
   if (B <= 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
   return reflection
              ? launch<true>(pos, vel, mass, eps, pi, k_s, mu, alpha, flo, cap,
                             h, nsub, order, out_pos, out_vel, out_eps,
                             out_pi, B, n_steps, n_sub_max, G, k_wall, eta,
-                            jcap, bexp, barrier_on, st)
+                            jcap, lam, bexp, barrier_on, st)
              : launch<false>(pos, vel, mass, eps, pi, k_s, mu, alpha, flo,
                              cap, h, nsub, order, out_pos, out_vel, out_eps,
                              out_pi, B, n_steps, n_sub_max, G, k_wall, eta,
-                             jcap, bexp, barrier_on, st);
+                             jcap, lam, bexp, barrier_on, st);
 }
 
 const char* hs_error_string(int code) {

@@ -4,7 +4,9 @@
 // (:44-489): pair distances, the 8 clipped SPH iterations with the softmin
 // eps* and the hand-written reverse sweep for its exact gradient, the
 // soft-wall force, the reflection fold, the spring half-flow S(h/2), the
-// gravity half-kick V(h/2) and the Strang trip, one thread per system.
+// gravity half-kick V(h/2) and the Strang trip, one thread per system;
+// and the "reference" gradient's degeneracy fallback (reference_switch,
+// compiled only where a kernel's REF template argument asks for it).
 // Included by hamsoft_multistep.cu (its one-thread layout, N = 3) and
 // eps_grad.cu, and through hamsoft_physics_warp.cuh by hamsoft.cu and
 // hamsoft_multistep.cu's warp layout (N = 4 and 8), so the kernels share
@@ -49,6 +51,7 @@ struct Sys {
   bool valid[N];
   float k_s, mu, alpha, flo, cap, eps_seed;
   float G, k_wall, eta, jcap;
+  float lam;  // the legacy gradient's strength (the "reference" fallback)
   int bexp;
   bool barrier_on;
 };
@@ -77,11 +80,15 @@ __device__ __forceinline__ void pair_r2(const float* pos, float* r2) {
 // the clip gate and -2 / h^2: the reverse sweep then runs no expf, no
 // square root and no division, and since each kept term is the
 // expression a recomputing sweep would evaluate on the same operands,
-// the gradient has the same bits.
-template <int N, int D>
+// the gradient has the same bits.  REF also hands out the final iterate
+// h_i and the softmin's weights d es / d h_i, which the "reference"
+// fallback (reference_switch) reads.
+template <int N, int D, bool REF = false>
 __device__ __forceinline__ void eps_star_and_grad(const Sys<N>& s,
                                                   const float* pos,
-                                                  float& es, float* g) {
+                                                  float& es, float* g,
+                                                  float* h_fin = nullptr,
+                                                  float* w_fin = nullptr) {
   constexpr int NP = N * (N - 1) / 2;
   constexpr int NJ = N > 1 ? N - 1 : 1;  // slot of j != i: j - (j > i)
   float r2[NP > 0 ? NP : 1];
@@ -145,6 +152,13 @@ __device__ __forceinline__ void eps_star_and_grad(const Sys<N>& s,
   es = -s.alpha * (tmax + logf(ssum));
 #pragma unroll
   for (int i = 0; i < N; ++i) u[i] = expf(t[i] - tmax) / ssum;
+  if constexpr (REF) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      h_fin[i] = h[i];
+      w_fin[i] = u[i];
+    }
+  }
 
   // reverse sweep: h_k = clip(G_i(h_{k-1})) has a diagonal Jacobian, so
   // the cotangent on h stays per body
@@ -176,6 +190,200 @@ __device__ __forceinline__ void eps_star_and_grad(const Sys<N>& s,
 #pragma unroll
   for (int a = 0; a < N * D; ++a)
     g[a] = (s.valid[a / D] && finitef(g[a])) ? g[a] : 0.f;
+}
+
+// ---- the "reference" gradient's fallback (_build_physics :179-307) ----
+//
+// Where the exact gradient degenerates (its largest valid row norm
+// <= 1e-12, or <= 1e-9 times the median pair distance), the Omega-
+// corrected SPH gradient on the final iterate takes its place, its sign
+// aligned against the legacy harmonic-mean gradient's.  Every sum is
+// taken in the order of the TPU kernel's loops, which the lane layouts
+// (hamsoft_physics_warp.cuh, eps_grad.cu) follow bit for bit.
+
+// rmax: the largest valid pair distance, a bound on the median that
+// decides most systems without it (the median lies between the smallest
+// and the largest distance, and 1e-9 x rounds monotonically)
+template <int N>
+__device__ __forceinline__ float pair_r_max(const Sys<N>& s,
+                                            const float* r2) {
+  float m = 0.f;
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = i + 1; j < N; ++j)
+      m = (s.valid[i] && s.valid[j]) ? maxf(m, r2[pidx<N>(i, j)]) : m;
+  return sqrtf(m);
+}
+
+// The masked median of the pair distances by rank selection, ties broken
+// by pair index (numpy's nanmedian: the mean of the two middle order
+// statistics), 0 without a valid pair (_pair_r_median).  rv: each pair's
+// distance, 3e38 where a member is masked; cnt: the valid pairs.
+template <int NP>
+__device__ __forceinline__ float rank_median(const float (&rv)[NP],
+                                             float cnt) {
+  const float lo = floorf(maxf(cnt - 1.f, 0.f) * 0.5f);
+  float hi = floorf(cnt * 0.5f);
+  hi = cnt > 0.f ? minf(hi, cnt - 1.f) : 0.f;
+  float med_lo = 0.f, med_hi = 0.f;
+#pragma unroll
+  for (int k = 0; k < NP; ++k) {
+    float rank = 0.f;
+#pragma unroll
+    for (int k2 = 0; k2 < NP; ++k2) {
+      const bool lt = (rv[k2] < rv[k]) || ((rv[k2] == rv[k]) && (k2 < k));
+      rank = rank + (lt ? 1.f : 0.f);
+    }
+    med_lo = med_lo + (rank == lo ? rv[k] : 0.f);
+    med_hi = med_hi + (rank == hi ? rv[k] : 0.f);
+  }
+  float med = 0.5f * (med_lo + med_hi);
+  med = cnt > 0.f ? med : 0.f;
+  return finitef(med) ? med : 0.f;
+}
+
+// the degeneracy test: gmax <= 1e-12, or gmax <= 1e-9 r_median, the
+// median taken only where the bound rmax cannot decide
+template <typename Median>
+__device__ __forceinline__ bool degenerate_grad(float gmax, float rmax,
+                                                Median median) {
+  if (gmax <= 1e-12f) return true;
+  if (gmax > 1e-9f * rmax) return false;
+  return gmax <= 1e-9f * median();
+}
+
+template <int N, int D>
+__device__ __forceinline__ void reference_switch(const Sys<N>& s,
+                                                 const float* pos,
+                                                 const float* h,
+                                                 const float* w,
+                                                 float* g) {
+  constexpr int NP = N * (N - 1) / 2 > 0 ? N * (N - 1) / 2 : 1;
+  float r2[NP];
+  pair_r2<N, D>(pos, r2);
+  float gmax = 0.f;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    float g2 = 0.f;
+#pragma unroll
+    for (int a = 0; a < D; ++a) g2 = g2 + g[i * D + a] * g[i * D + a];
+    gmax = maxf(gmax, s.valid[i] ? sqrtf(g2) : 0.f);
+  }
+  const bool degenerate =
+      degenerate_grad(gmax, pair_r_max<N>(s, r2), [&]() {
+        float rv[NP], cnt = 0.f;
+#pragma unroll
+        for (int i = 0; i < N; ++i)
+#pragma unroll
+          for (int j = i + 1; j < N; ++j) {
+            const bool vp = s.valid[i] && s.valid[j];
+            rv[pidx<N>(i, j)] = vp ? sqrtf(r2[pidx<N>(i, j)]) : 3e38f;
+            cnt = cnt + (vp ? 1.f : 0.f);
+          }
+        return rank_median<NP>(rv, cnt);
+      });
+  if (!degenerate) return;
+
+  // the Omega gradient on the final iterate (_omega_grad)
+  float fb[N * D];
+#pragma unroll
+  for (int k = 0; k < N * D; ++k) fb[k] = 0.f;
+  const float h_floor = maxf(1e-12f, 0.1f * maxf(s.flo, 1e-12f));
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const float hj = maxf(h[i], h_floor);
+    const float ih2 = 1.f / maxf(hj * hj, 1e-24f);
+    const float hs = maxf(hj, 1e-12f);
+    float W[N > 1 ? N - 1 : 1];
+    float S = 0.f, Sd = 0.f;
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      if (j == i) continue;
+      const float r = r2[i < j ? pidx<N>(i, j) : pidx<N>(j, i)];
+      const float wj = kInvPi * ih2 * expf(-r * ih2);
+      W[j - (j > i)] = wj;
+      S = S + s.mval[j] * wj;
+      Sd = Sd + s.mval[j] * wj * (-2.f + 2.f * r * ih2) / hs;
+    }
+    const float Ssafe = maxf(S, 1e-30f);
+    float Om = 1.f + hj * Sd / (2.f * Ssafe);
+    Om = (finitef(Om) && Om != 0.f) ? Om : 1.f;
+    const float P = -hj / (2.f * Ssafe * Om);
+    const float si = -w[i] * P;
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      if (j == i) continue;
+      const float coeff = si * s.mval[j] * W[j - (j > i)] * (-2.f * ih2);
+#pragma unroll
+      for (int a = 0; a < D; ++a) {
+        const float d = pos[i * D + a] - pos[j * D + a];
+        fb[i * D + a] = fb[i * D + a] + coeff * d;
+        fb[j * D + a] = fb[j * D + a] - coeff * d;
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < N * D; ++k)
+    fb[k] = (s.valid[k / D] && finitef(fb[k])) ? fb[k] : 0.f;
+
+  // the legacy gradient (_legacy_grad), for the sign alignment
+  float Dsum = 0.f, M = 0.f;
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = i + 1; j < N; ++j) {
+      const bool vp = s.valid[i] && s.valid[j];
+      Dsum = Dsum + (vp ? 1.f / (sqrtf(r2[pidx<N>(i, j)]) + 1e-12f) : 0.f);
+    }
+#pragma unroll
+  for (int i = 0; i < N; ++i) M = M + (s.valid[i] ? 1.f : 0.f);
+  const float Dsafe = maxf(Dsum, 1e-30f);
+  const float c_pref = s.lam * M / (Dsafe * Dsafe);
+  const bool good = finitef(Dsum) && Dsum > 0.f;
+  float gl[N * D];
+#pragma unroll
+  for (int k = 0; k < N * D; ++k) gl[k] = 0.f;
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = i + 1; j < N; ++j) {
+      const bool vp = s.valid[i] && s.valid[j];
+      const float r_safe = maxf(sqrtf(r2[pidx<N>(i, j)]), 1e-15f);
+      const float den = r_safe + 1e-12f;
+      const float A = vp ? 1.f / (r_safe * den * den) : 0.f;
+#pragma unroll
+      for (int a = 0; a < D; ++a) {
+        const float d = pos[i * D + a] - pos[j * D + a];
+        gl[i * D + a] = gl[i * D + a] - c_pref * A * d;
+        gl[j * D + a] = gl[j * D + a] + c_pref * A * d;
+      }
+    }
+  float dot = 0.f;
+#pragma unroll
+  for (int k = 0; k < N * D; ++k) {
+    const float gk = (good && finitef(gl[k])) ? gl[k] : 0.f;
+    dot = dot + fb[k] * gk;
+  }
+  const bool flip = finitef(dot) && dot < 0.f;
+#pragma unroll
+  for (int k = 0; k < N * D; ++k) g[k] = flip ? -fb[k] : fb[k];
+}
+
+// (eps*, grad) in the kernel's gradient mode: REF runs the fallback
+// after the exact gradient (the analysis, MEGNO and multi-step kernels
+// clamp nothing in between)
+template <int N, int D, bool REF>
+__device__ __forceinline__ void eps_star_and_grad_mode(const Sys<N>& s,
+                                                       const float* pos,
+                                                       float& es, float* g) {
+  if constexpr (REF) {
+    float h[N], w[N];
+    eps_star_and_grad<N, D, true>(s, pos, es, g, h, w);
+    reference_switch<N, D>(s, pos, h, w, g);
+  } else {
+    eps_star_and_grad<N, D>(s, pos, es, g);
+  }
 }
 
 // soft-wall force on eps (ops/barrier.py)
@@ -310,8 +518,9 @@ __device__ __forceinline__ void v_half_kick(const Sys<N>& s, const float* pos,
 
 // One Strang substep S V T V S; the (eps*, grad) cache carries across the
 // trailing-S/leading-S boundary (identical q).  REFL (the reflection
-// policy) folds (eps, pi) around the substep as well as around each S.
-template <int N, int D, bool REFL = false>
+// policy) folds (eps, pi) around the substep as well as around each S;
+// REF takes the "reference" gradient.
+template <int N, int D, bool REFL = false, bool REF = false>
 __device__ __forceinline__ void strang_trip(const Sys<N>& s, float* pos,
                                             float* vel, float& eps, float& pi,
                                             float& es, float* grad, float h) {
@@ -321,7 +530,7 @@ __device__ __forceinline__ void strang_trip(const Sys<N>& s, float* pos,
 #pragma unroll
   for (int k = 0; k < N * D; ++k) pos[k] = pos[k] + h * vel[k];
   v_half_kick<N, D>(s, pos, vel, eps, pi, h);
-  eps_star_and_grad<N, D>(s, pos, es, grad);
+  eps_star_and_grad_mode<N, D, REF>(s, pos, es, grad);
   s_half<N, D, REFL>(s, vel, eps, pi, es, grad, h);
   if (REFL) fold_eps(s.flo, s.cap, eps, pi);
 }
@@ -331,7 +540,8 @@ __device__ __forceinline__ void load_system(
     int b, int B, const float* pos, const float* vel, const float* mass,
     const float* k_s, const float* mu, const float* alpha, const float* flo,
     const float* cap, const float* eps, float G, float k_wall, float eta,
-    float jcap, int bexp, int barrier_on, Sys<N>& s, float* q, float* v) {
+    float jcap, float lam, int bexp, int barrier_on, Sys<N>& s, float* q,
+    float* v) {
 #pragma unroll
   for (int k = 0; k < N * D; ++k) {
     q[k] = pos[k * B + b];
@@ -355,6 +565,7 @@ __device__ __forceinline__ void load_system(
   s.k_wall = k_wall;
   s.eta = eta;
   s.jcap = jcap;
+  s.lam = lam;
   s.bexp = bexp;
   s.barrier_on = barrier_on != 0;
 }

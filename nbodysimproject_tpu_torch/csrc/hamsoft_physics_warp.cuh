@@ -43,6 +43,12 @@
 // Where every lane of a body's group would compute the same independent
 // quotients or roots, each lane computes one and shuffles it to the
 // others (group_div): the same operations on the same operands.
+//
+// The "reference" gradient's fallback (reference_switch_w, compiled where
+// the REF template argument asks for it) follows the one-thread
+// reference_switch bit for bit the same way: its per-body terms are the
+// lane's, its pair terms go through the reverse sweep's table, and its
+// sums and its median read every term by shuffle in the one-thread order.
 
 #pragma once
 
@@ -119,6 +125,7 @@ struct Lane {
   float mass_i, mval_i, inv_m_i;
   bool valid_i;
   float k_s, mu, alpha, flo, cap, eps_seed, G, k_wall, eta, jcap;
+  float lam;  // the legacy gradient's strength (the "reference" fallback)
   int bexp;
   bool barrier_on;
   // the spring half-flow's constants (the h of the system is fixed)
@@ -212,11 +219,160 @@ struct SphStore {
   unsigned gate;     // bit k: flo < G_raw < cap at iterate k
 };
 
+// Body b's gradient row from per-slot coefficients c_t: the one-thread
+// loops add c_ij (q_i - q_j) to g_i and subtract it from g_j for every
+// ordered pair; the lane of (i, j) writes both into the reverse sweep's
+// table (its iterate-0 rows), and lane a of body b's group adds b's row
+// in the one-thread order.  A slot whose term the one-thread loop does not
+// add writes a zero, which changes no bit of the sum.
+template <int N, int D>
+__device__ __forceinline__ void pair_rows_w(const Lane<N, D>& s,
+                                            const float* qi, const float* qj,
+                                            const float (&c)[Lay<N>::SPL],
+                                            float* rows, float* g) {
+  using GR = GradRows<N, D>;
+  __syncwarp(s.mask);  // the table's last readers are done
+#pragma unroll
+  for (int t = 0; t < Lay<N>::SPL; ++t) {
+    if (!s.real[t]) continue;
+    const int j = s.j[t];
+    const int out = s.i + (j < s.i ? j : j - 1);
+    const int in = s.i < j ? s.i : s.i + N - 2;
+#pragma unroll
+    for (int a = 0; a < D; ++a) {
+      const float term = c[t] * (qi[a] - qj[t * D + a]);
+      rows[(s.i * D + a) * GR::GROW + out] = term;
+      rows[(j * D + a) * GR::GROW + in] = -term;
+    }
+  }
+  __syncwarp(s.mask);
+  float ga = 0.f;
+  if (s.body && s.sub < D) {
+    const float* row = rows + (s.i * D + s.sub) * GR::GROW;
+#pragma unroll
+    for (int p = 0; p < GR::LEN; ++p) ga = ga + row[p];
+  }
+  __syncwarp(s.mask);
+#pragma unroll
+  for (int a = 0; a < D; ++a) g[a] = __shfl_sync(s.mask, ga, s.group + a);
+}
+
+// The "reference" fallback (hamsoft_physics.cuh's reference_switch) on
+// the lane's body: r2 the lane's slots' squared distances, h and w its
+// body's final iterate and softmin weight; g its exact gradient, replaced
+// by the sign-aligned Omega gradient where the system's gradient
+// degenerates (the same in every lane of the system).
+template <int N, int D>
+__device__ __forceinline__ void reference_switch_w(
+    const Lane<N, D>& s, const float* qi, const float* qj,
+    const float (&r2)[Lay<N>::SPL], float h, float w, float* g,
+    float* rows) {
+  constexpr int SPL = Lay<N>::SPL;
+  constexpr int SYS = Lay<N>::SYS;
+  constexpr int NP = N * (N - 1) / 2;
+  float g2 = 0.f;
+#pragma unroll
+  for (int a = 0; a < D; ++a) g2 = g2 + g[a] * g[a];
+  const float gmax =
+      xmax<kLPB, SYS>((s.body && s.valid_i) ? sqrtf(g2) : 0.f, s.mask);
+  bool vp[SPL];  // the slot's pair is valid
+  float rm = 0.f;
+#pragma unroll
+  for (int t = 0; t < SPL; ++t) {
+    vp[t] = s.real[t] && s.valid_i && s.mval_j[t] > 0.f;
+    rm = vp[t] ? maxf(rm, r2[t]) : rm;
+  }
+  const float rmax = sqrtf(xmax<1, SYS>(rm, s.mask));
+  float vb[N];  // each body's validity, from its group
+#pragma unroll
+  for (int b = 0; b < N; ++b)
+    vb[b] = body_val(s, s.valid_i ? 1.f : 0.f, b);
+  const bool degenerate = degenerate_grad(gmax, rmax, [&]() {
+    float rv[NP], cnt = 0.f;
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+#pragma unroll
+      for (int j = i + 1; j < N; ++j) {
+        const float r2p = __shfl_sync(s.mask, r2[j % SPL],
+                                      s.base + i * kLPB + j / SPL);
+        const bool v = vb[i] > 0.f && vb[j] > 0.f;
+        rv[pidx<N>(i, j)] = v ? sqrtf(r2p) : 3e38f;
+        cnt = cnt + (v ? 1.f : 0.f);
+      }
+    return rank_median<NP>(rv, cnt);
+  });
+  if (!degenerate) return;
+
+  // the Omega gradient on the final iterate
+  const float h_floor = maxf(1e-12f, 0.1f * maxf(s.flo, 1e-12f));
+  const float hj = maxf(h, h_floor);
+  const float ih2 = 1.f / maxf(hj * hj, 1e-24f);
+  const float hs = maxf(hj, 1e-12f);
+  float W[SPL], tS[SPL], tSd[SPL];
+#pragma unroll
+  for (int t = 0; t < SPL; ++t) {
+    float wt = kInvPi * ih2 * expf(-r2[t] * ih2);
+    wt = s.real[t] ? wt : 0.f;
+    W[t] = wt;
+    tS[t] = s.mval_j[t] * wt;
+    tSd[t] = s.mval_j[t] * wt * (-2.f + 2.f * r2[t] * ih2) / hs;
+  }
+  const float S = slot_sum(s, tS);
+  const float Sd = slot_sum(s, tSd);
+  const float Ssafe = maxf(S, 1e-30f);
+  float Om = 1.f + hj * Sd / (2.f * Ssafe);
+  Om = (finitef(Om) && Om != 0.f) ? Om : 1.f;
+  const float P = -hj / (2.f * Ssafe * Om);
+  const float si = -w * P;
+  float c[SPL];
+#pragma unroll
+  for (int t = 0; t < SPL; ++t) c[t] = si * s.mval_j[t] * W[t] * (-2.f * ih2);
+  float fb[D];
+  pair_rows_w(s, qi, qj, c, rows, fb);
+#pragma unroll
+  for (int a = 0; a < D; ++a) fb[a] = (s.valid_i && finitef(fb[a])) ? fb[a] : 0.f;
+
+  // the legacy gradient, for the sign alignment: its pair loop runs over
+  // i < j only, so the slots of j < i add zero terms
+  float inv[SPL];
+#pragma unroll
+  for (int t = 0; t < SPL; ++t)
+    inv[t] = vp[t] ? 1.f / (sqrtf(r2[t]) + 1e-12f) : 0.f;
+  const float Dsum = pair_sum(s, inv);
+  float M = 0.f;
+#pragma unroll
+  for (int b = 0; b < N; ++b) M = M + vb[b];
+  const float Dsafe = maxf(Dsum, 1e-30f);
+  const float c_pref = s.lam * M / (Dsafe * Dsafe);
+  const bool good = finitef(Dsum) && Dsum > 0.f;
+#pragma unroll
+  for (int t = 0; t < SPL; ++t) {
+    const float r_safe = maxf(sqrtf(r2[t]), 1e-15f);
+    const float den = r_safe + 1e-12f;
+    const float A = vp[t] ? 1.f / (r_safe * den * den) : 0.f;
+    c[t] = s.i < s.j[t] ? -(c_pref * A) : 0.f;
+  }
+  float gl[D];
+  pair_rows_w(s, qi, qj, c, rows, gl);
+  float prod[D];
+#pragma unroll
+  for (int a = 0; a < D; ++a)
+    prod[a] = fb[a] * ((good && finitef(gl[a])) ? gl[a] : 0.f);
+  float dot = 0.f;
+#pragma unroll
+  for (int b = 0; b < N; ++b)
+#pragma unroll
+    for (int a = 0; a < D; ++a) dot = dot + body_val(s, prod[a], b);
+  const bool flip = finitef(dot) && dot < 0.f;
+#pragma unroll
+  for (int a = 0; a < D; ++a) g[a] = flip ? -fb[a] : fb[a];
+}
+
 // eps* and its exact gradient for body i (the lane's g, d = D): the 8
 // clipped SPH iterations from the kernel-entry eps, the softmin, and the
 // reverse sweep on the stored terms.  rows: the system's GradRows table
-// in shared memory.
-template <int N, int D>
+// in shared memory.  REF then runs the "reference" fallback.
+template <int N, int D, bool REF = false>
 __device__ __forceinline__ void eps_star_and_grad_w(
     const Lane<N, D>& s, const float* qi, const float* qj, float& es,
     float* g, float* rows) {
@@ -288,6 +444,7 @@ __device__ __forceinline__ void eps_star_and_grad_w(
   for (int b = 0; b < N; ++b) ssum = ssum + body_val(s, e, b);
   es = -s.alpha * (tmax + logf(ssum));
   float u = e / ssum;
+  const float w_fin = u;
 
   // reverse sweep: the cotangent on h stays per body (diagonal
   // Jacobian); each pair term goes into the rows of both of its bodies
@@ -338,6 +495,7 @@ __device__ __forceinline__ void eps_star_and_grad_w(
     const float gb = __shfl_sync(s.mask, ga, s.group + a);
     g[a] = (s.valid_i && finitef(gb)) ? gb : 0.f;
   }
+  if constexpr (REF) reference_switch_w(s, qi, qj, r2, h, w_fin, g, rows);
 }
 
 // S(h/2): exact spring rotation of (eps - eps*, pi) with the J-capped
@@ -435,8 +593,8 @@ __device__ __forceinline__ void v_half_kick_w(const Lane<N, D>& s,
 // One Strang substep S V T V S of the lane's body; qj are refreshed
 // after the drift.  The (eps*, grad) cache carries across trips.  REFL
 // (the reflection policy) folds (eps, pi) around the substep as well as
-// around each S.
-template <int N, int D, bool REFL = false>
+// around each S; REF takes the "reference" gradient.
+template <int N, int D, bool REFL = false, bool REF = false>
 __device__ __forceinline__ void strang_trip_w(const Lane<N, D>& s,
                                               float* qi, float* qj,
                                               float* vi, float& eps,
@@ -450,7 +608,7 @@ __device__ __forceinline__ void strang_trip_w(const Lane<N, D>& s,
   for (int a = 0; a < D; ++a) qi[a] = qi[a] + h * vi[a];
   gather_slots(s, qi, qj);
   v_half_kick_w(s, qi, qj, vi, eps, pi, h);
-  eps_star_and_grad_w(s, qi, qj, es, gi, rows);
+  eps_star_and_grad_w<N, D, REF>(s, qi, qj, es, gi, rows);
   s_half_w<N, D, REFL>(s, vi, eps, pi, es, gi);
   if (REFL) fold_eps(s.flo, s.cap, eps, pi);
 }
@@ -463,7 +621,8 @@ __device__ __forceinline__ void load_lane(
     const float* mass, const float* k_s, const float* mu,
     const float* alpha, const float* flo, const float* cap,
     const float* eps, float h, float G, float k_wall, float eta, float jcap,
-    int bexp, int barrier_on, Lane<N, D>& s, float* qi, float* vi) {
+    float lam, int bexp, int barrier_on, Lane<N, D>& s, float* qi,
+    float* vi) {
   using L = Lay<N>;
   const int l = lane_in_warp % L::SYS;
   s.base = lane_in_warp - l;
@@ -502,6 +661,7 @@ __device__ __forceinline__ void load_lane(
   s.k_wall = k_wall;
   s.eta = eta;
   s.jcap = jcap;
+  s.lam = lam;
   s.bexp = bexp;
   s.barrier_on = barrier_on != 0;
 

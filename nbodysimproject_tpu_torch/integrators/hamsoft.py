@@ -94,8 +94,8 @@ def uses_eps_kernel(q, cfg) -> bool:
 def eps_star_and_grad(state, dyn, cfg, q=None):
     """(eps*, grad) for the spring flow: the production target
     unconditionally, as the reference's ``EpsilonModel.eps_star_and_grad``
-    (hamsoft_eps_model.py:94-234) does.  The "reference" gradient mode's
-    fallback is not ported and raises on both routes."""
+    (hamsoft_eps_model.py:94-234) does.  The "reference" gradient mode
+    takes the degeneracy fallback on both routes."""
     q = state.pos if q is None else q
     kwargs = dict(eta=cfg.eta, clamp=policy_is_soft(cfg),
                   lam_align=cfg.lambda_softening,
@@ -114,15 +114,10 @@ def grad_eps_target(state, dyn, cfg, q=None):
     """HSI._grad_eps_target (HSI:665-745): the Omega-corrected SPH
     gradient, sign-aligned against the legacy gradient."""
     q = state.pos if q is None else q
-    g = epsmod.production_grad_omega(
+    return epsmod.aligned_omega_grad(
         q, state.mass, h0=state.eps, alpha=dyn.alpha_run,
         eps_min=dyn.min_softening, eps_max=dyn.max_softening, eta=cfg.eta,
-        mask=state.mask)
-    g_ref = legacy_soft.grad_eps_target(q, lam=cfg.lambda_softening,
-                                        mask=state.mask)
-    dot = (g * g_ref).sum((-2, -1))
-    flip = (torch.isfinite(dot) & (dot < 0.0))[..., None, None]
-    return torch.where(flip, -g, g)
+        lam_align=cfg.lambda_softening, mask=state.mask)
 
 
 def _bar_force(cfg, dyn, eps):

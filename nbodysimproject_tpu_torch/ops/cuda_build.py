@@ -2,7 +2,10 @@
 
 Each kernel family is one source in ``csrc/`` with a plain C interface,
 compiled by plain ``nvcc`` for ``sm_90a`` into a shared object per
-(source, body-slot count N, dimension d) and loaded with ``ctypes``.
+(source, body-slot count N, dimension d, build variant) and loaded with
+``ctypes``.  A build variant turns on compile-time branches of a source
+(``VARIANT_FLAGS``; "" is the default build, which holds none of them),
+so a branch that a path does not take adds nothing to its build.
 Builds land in the git-ignored ``_build/`` directory at first use (never
 at import), keyed by a hash of the source, the shared headers and the
 flags, so an edited source is rebuilt and an unchanged one is not.
@@ -32,6 +35,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v")
 
 
+#: the parts of a build variant name ("_"-joined) and the macro each sets
+#: to 1: the reflection fold of the analysis and MEGNO kernels, and the
+#: "reference" eps* gradient's fallback
+VARIANT_FLAGS = {"refl": "HS_REFL", "ref": "HS_REF"}
+
+
+def _defines(variant: str):
+    return [f"-D{VARIANT_FLAGS[part]}=1" for part in variant.split("_")
+            if part]
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -44,17 +58,19 @@ def source_path(name: str) -> str:
     return os.path.join(CSRC, name)
 
 
-def lib_path(source: str, n: int, d: int) -> str:
+def lib_path(source: str, n: int, d: int, variant: str = "") -> str:
     """Where the library of ``source`` (a file name in ``csrc/``) for
-    (n, d) is built."""
+    (n, d) in build ``variant`` is built."""
+    _defines(variant)  # an unknown variant raises here
     h = hashlib.sha256(repr(NVCC_FLAGS).encode())
     for path in [source_path(source)] + sorted(
             glob.glob(os.path.join(CSRC, "*.cuh"))):
         with open(path, "rb") as fh:
             h.update(fh.read())
     stem = os.path.splitext(source)[0]
+    var = f"_{variant}" if variant else ""
     return os.path.join(BUILD_DIR,
-                        f"lib{stem}_n{n}_d{d}_{h.hexdigest()[:12]}.so")
+                        f"lib{stem}_n{n}_d{d}{var}_{h.hexdigest()[:12]}.so")
 
 
 def _read(path: str) -> str:
@@ -64,23 +80,30 @@ def _read(path: str) -> str:
         return fh.read()
 
 
+def job_name(job) -> str:
+    """A job's name in reports: "source N=n d=d [variant]"."""
+    source, n, d, *var = job
+    return f"{source} N={n} d={d}" + (f" {var[0]}" if var and var[0] else "")
+
+
 def build(jobs) -> dict:
-    """Build each (source, n, d) of ``jobs``, one ``nvcc`` per job, all
-    started together.  Returns {(source, n, d): (path, seconds, ptxas
-    report)}; a job already built from the same sources is not rebuilt
-    (0 seconds, the report kept from its build).  Raises if any build
-    fails."""
+    """Build each job of ``jobs``, (source, n, d) or (source, n, d,
+    variant), one ``nvcc`` per job, all started together.  Returns
+    {job: (path, seconds, ptxas report)}; a job already built from the
+    same sources is not rebuilt (0 seconds, the report kept from its
+    build).  Raises if any build fails."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     procs, out = {}, {}
     for job in jobs:
-        source, n, d = job
-        path = lib_path(source, n, d)
+        source, n, d, *var = job
+        variant = var[0] if var else ""
+        path = lib_path(source, n, d, variant)
         if os.path.exists(path):
             out[job] = (path, 0.0, _read(f"{path}.ptxas"))
             continue
         tmp = f"{path}.tmp{os.getpid()}"
         cmd = [_nvcc(), *NVCC_FLAGS, f"-DHS_N={n}", f"-DHS_D={d}",
-               "-o", tmp, source_path(source)]
+               *_defines(variant), "-o", tmp, source_path(source)]
         procs[job] = (path, tmp, time.perf_counter(), subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     failed = []
@@ -102,10 +125,12 @@ def build(jobs) -> dict:
 
 
 @functools.lru_cache(maxsize=None)
-def load(source: str, n: int, d: int):
-    """The ``ctypes`` library of ``source`` for (n, d), built on first
-    use; ``hs_error_string`` is bound, the caller binds its entry."""
-    lib = ctypes.CDLL(build([(source, n, d)])[(source, n, d)][0])
+def load(source: str, n: int, d: int, variant: str = ""):
+    """The ``ctypes`` library of ``source`` for (n, d) in build
+    ``variant``, built on first use; ``hs_error_string`` is bound, the
+    caller binds its entry."""
+    job = (source, n, d, variant)
+    lib = ctypes.CDLL(build([job])[job][0])
     lib.hs_error_string.argtypes = [ctypes.c_int]
     lib.hs_error_string.restype = ctypes.c_char_p
     return lib

@@ -19,10 +19,14 @@ iterations).  There is no fallback from one to the other.
 Semantics are the TPU kernel's: the 8 SPH iterations seeded from ``h0``
 with no convergence freeze (a <= 1e-6 relative eps* difference from the
 autograd evaluation, which keeps the freeze), the exact gradient of the
-truncated map, and with ``clamp`` the soft policy's value clamp with the
-gradient zeroed where it saturates.  Masked slots carry mass 0.  The
-"reference" degeneracy fallback (``use_fallback=True``) is not ported and
-raises ``NotImplementedError`` on both routes.
+truncated map, with ``clamp`` the soft policy's value clamp with the
+gradient zeroed where it saturates, and then, with ``use_fallback`` (the
+"reference" gradient mode), the degeneracy fallback: where the gradient's
+largest row norm is <= 1e-12 or <= 1e-9 times the median pair distance,
+the Omega gradient on the final SPH iterate, sign-aligned against the
+legacy gradient of strength ``lam_align``.  Masked slots carry mass 0.
+The fallback is a build variant of the kernel (``"ref"``), so the exact
+build holds none of it.
 """
 
 from __future__ import annotations
@@ -54,19 +58,20 @@ def build_jobs(slots=BUILD_SLOTS):
     return [(SOURCE, n, d) for d in DIMS for n in slots]
 
 
+def variant(use_fallback: bool) -> str:
+    """The build variant (``cuda_build.VARIANT_FLAGS``) of ``use_fallback``."""
+    return "ref" if use_fallback else ""
+
+
 @functools.lru_cache(maxsize=None)
-def _library(n: int, d: int):
-    lib = cuda_build.load(SOURCE, n, d)
-    lib.hs_eps_grad.argtypes = [_P] * 8 + [_I, _F, _I, _P]
+def _library(n: int, d: int, var: str = ""):
+    lib = cuda_build.load(SOURCE, n, d, var)
+    lib.hs_eps_grad.argtypes = [_P] * 8 + [_I, _F, _F, _I, _P]
     lib.hs_eps_grad.restype = _I
     return lib
 
 
-def _check(q, use_fallback: bool) -> None:
-    if use_fallback:
-        raise NotImplementedError(
-            "eps_star_and_grad_fused: the 'reference' gradient fallback is "
-            "not ported")
+def _check(q) -> None:
     if q.dim() != 3 or q.shape[-1] not in DIMS:
         raise NotImplementedError(
             f"eps_star_and_grad_fused: ported for (B, N, d), d in {DIMS}; "
@@ -100,11 +105,11 @@ def _row_arg(x, B: int, device):
 
 def eps_star_and_grad_fused_plain(q, m, h0, alpha, eps_min, eps_max, mask, *,
                                   eta: float = 1.35, clamp: bool = False,
-                                  use_fallback: bool = False,
+                                  use_fallback: bool = True,
                                   lam_align: float = 0.3):
     """The plain PyTorch version of ``eps_star_and_grad_fused`` (same
     arguments, same outputs), on any device."""
-    _check(q, use_fallback)
+    _check(q)
     maskf = mask.to(q.dtype)
     m_eff = m.to(q.dtype) * maskf
     h0, alpha, emin, emax = (_rows(x, q) for x in (h0, alpha, eps_min,
@@ -115,18 +120,17 @@ def eps_star_and_grad_fused_plain(q, m, h0, alpha, eps_min, eps_max, mask, *,
     cap = torch.maximum(flo, b)
     one = torch.ones_like(h0)
     ph = _Physics(m_eff, h0, one, one, alpha, flo, cap, G=1.0, k_wall=0.0,
-                  eta=float(eta), jcap=0.02, bexp=5)
+                  eta=float(eta), jcap=0.02, bexp=5,
+                  grad_mode="reference" if use_fallback else "exact",
+                  lam_align=float(lam_align),
+                  clamp_bounds=(a, b) if clamp else None)
     es, g = ph.eps_star_and_grad(q)
-    if clamp:
-        gate = (es >= a) & (es <= b)
-        g = torch.where(gate[:, None, None], g, torch.zeros_like(g))
-        es = torch.minimum(torch.maximum(es, a), b)
     return es, g * maskf[..., None]
 
 
 def eps_star_and_grad_fused(q, m, h0, alpha, eps_min, eps_max, mask, *,
                             eta: float = 1.35, clamp: bool = False,
-                            use_fallback: bool = False,
+                            use_fallback: bool = True,
                             lam_align: float = 0.3):
     """Batched (eps*, grad) on a (B, N, d) float32 population, d = 2 or
     3: the CUDA kernel for CUDA tensors, the plain version for CPU
@@ -135,10 +139,11 @@ def eps_star_and_grad_fused(q, m, h0, alpha, eps_min, eps_max, mask, *,
     Per-system h0 (the SPH seed; the scan passes state.eps), alpha,
     eps_min, eps_max: (B,) tensors or scalars (on the card: float32
     tensors of shape (B,), (1,) or (), or Python numbers); m (B, N)
-    (float32 on the card); mask (B, N) bool.
-    ``lam_align`` feeds only the fallback and is accepted for the JAX
-    signature.  Any B is taken (the TPU kernel's B % 8 tiling has no
-    counterpart here).  Returns (es (B,), grad (B, N, d))."""
+    (float32 on the card); mask (B, N) bool.  ``use_fallback`` (the JAX
+    signature's default, True) takes the "reference" fallback, whose
+    sign alignment uses ``lam_align``.  Any B is taken (the TPU kernel's
+    B % 8 tiling has no counterpart here).  Returns (es (B,), grad
+    (B, N, d))."""
     args = dict(eta=eta, clamp=clamp, use_fallback=use_fallback,
                 lam_align=lam_align)
     if q.device.type == "cpu":
@@ -146,7 +151,7 @@ def eps_star_and_grad_fused(q, m, h0, alpha, eps_min, eps_max, mask, *,
                                              eps_max, mask, **args)
     if q.device.type != "cuda":
         raise RuntimeError(f"eps kernel: unsupported device {q.device}")
-    _check(q, use_fallback)
+    _check(q)
     B, n, d = q.shape
     if n > MAX_SLOTS:
         raise NotImplementedError(
@@ -159,7 +164,7 @@ def eps_star_and_grad_fused(q, m, h0, alpha, eps_min, eps_max, mask, *,
         raise TypeError("eps kernel: m must be float32 and mask bool")
     q, m, mask = q.contiguous(), m.contiguous(), mask.contiguous()
     rows = [_row_arg(x, B, q.device) for x in (h0, alpha, eps_min, eps_max)]
-    lib = _library(n, d)
+    lib = _library(n, d, variant(use_fallback))
     es = torch.empty((B,), dtype=q.dtype, device=q.device)
     grad = torch.empty_like(q)
     code = lib.hs_eps_grad(
@@ -167,7 +172,8 @@ def eps_star_and_grad_fused(q, m, h0, alpha, eps_min, eps_max, mask, *,
         (_P * 4)(*(r[0] for r in rows)), (_LL * 4)(*(r[1] for r in rows)),
         (_F * 4)(*(r[2] for r in rows)),
         *cuda_build.pointers(es, grad),
-        B, float(eta), int(bool(clamp)), cuda_build.stream_of(q))
+        B, float(eta), float(lam_align), int(bool(clamp)),
+        cuda_build.stream_of(q))
     cuda_build.check_launch(lib, code, "eps_star_and_grad_fused")
     eps_star_and_grad_fused.launches += 1
     # the kernel zeroes the gradient of every slot whose mask is off

@@ -11,9 +11,11 @@ Counterpart of ``nbodysimproject_tpu/ops/eps_model.py`` (parity:
   eps* = -alpha * logsumexp(-h_i / alpha).
 
 This module holds the value of eps*, the calibration, and
-``eps_star_and_grad``: the value with its autograd gradient, the
-counterpart of the JAX package's XLA evaluation, which the ham_soft scan
-uses wherever the eps kernel (``ops/eps_kernels.py``) does not apply.
+``eps_star_and_grad``: the value with its autograd gradient and, in the
+"reference" gradient mode, the reference's degeneracy fallback (the
+sign-aligned Omega gradient), the counterpart of the JAX package's XLA
+evaluation, which the ham_soft scan uses wherever the eps kernel
+(``ops/eps_kernels.py``) does not apply.
 The kernels' own gradient is the hand-written reverse sweep in
 ``csrc/hamsoft_physics.cuh`` (autograd through the 8 iterations in their
 plain versions, ``ops/hamsoft_kernels.py``).
@@ -25,7 +27,8 @@ import math
 
 import torch
 
-from .geometry import pair_diff, pair_mask
+from . import softening as legacy_soft
+from .geometry import pair_diff, pair_mask, triu_pairs
 
 _SOLVE_HI_MAX_ITER = 8
 _SOLVE_HI_TOL = 1.0e-6
@@ -140,20 +143,57 @@ def calibrate_from_initial_conditions(q0, m, *, eps0, eps_min0, eps_max,
     return alpha_run, eps_min_new, eps_new
 
 
+def _row_norm_max(g, mask=None):
+    """max over the valid bodies of |g_i|, (B,)."""
+    r = torch.sqrt((g * g).sum(-1))
+    if mask is not None:
+        r = torch.where(mask, r, torch.zeros_like(r))
+    return r.amax(-1)
+
+
+def pair_distance_median(q, mask=None):
+    """Median of the valid pair distances r_ij, i < j, per system, in
+    numpy's ``nanmedian`` convention (the mean of the two middle order
+    statistics); 0 where a system has no valid pair or the median is not
+    finite (ops/eps_model.py:336-341 of the JAX package)."""
+    n = q.shape[-2]
+    if n < 2:
+        return torch.zeros(q.shape[:-2], dtype=q.dtype, device=q.device)
+    i, j = triu_pairs(n, q.device)
+    diff = q[..., i, :] - q[..., j, :]
+    r = torch.sqrt((diff * diff).sum(-1))
+    valid = (pair_mask(n, mask, q.device)[..., i, j] & ~torch.isnan(r)) \
+        .expand(r.shape)
+    med = masked_median(r, valid)
+    ok = valid.any(-1) & torch.isfinite(med)
+    return torch.where(ok, med, torch.zeros_like(med))
+
+
+def degenerate_grad(g, q, mask=None):
+    """The "reference" gradient mode's degeneracy test of the gradient
+    ``g`` at positions ``q``: (degenerate, gmax, threshold), (B,) each.
+    gmax is the largest valid row norm, threshold 1e-9 times the median
+    pair distance, and a system degenerates where gmax <= 1e-12 or gmax
+    <= threshold (ops/eps_model.py:334-345 of the JAX package)."""
+    gmax = _row_norm_max(g, mask)
+    thr = 1.0e-9 * pair_distance_median(q, mask)
+    return (gmax <= 1.0e-12) | (gmax <= thr), gmax, thr
+
+
 def eps_star_and_grad(q, m, *, h0, alpha, eps_min, eps_max,
                       eta: float = 1.35, clamp: bool = False, mask=None,
-                      lam_align: float = 0.3, use_fallback: bool = False):
+                      lam_align: float = 0.3, use_fallback: bool = True):
     """(eps*, d eps*/dq) of ``eps_target_production`` on (B, N, d)
-    positions: the value and its autograd gradient through the 8 SPH
-    iterations (convergence freeze included), non-finite entries zeroed
-    and masked rows zeroed (ops/eps_model.py:308-358 of the JAX package,
-    its XLA evaluation).  ``use_fallback`` (the "reference" gradient
-    mode's degeneracy fallback) is not ported and raises;
-    ``lam_align`` feeds only the fallback."""
-    if use_fallback:
-        raise NotImplementedError(
-            "eps_star_and_grad: the 'reference' gradient fallback is not "
-            "ported")
+    positions, with the reference's fallback semantics
+    (ops/eps_model.py:308-358 of the JAX package, its XLA evaluation).
+
+    The gradient is autograd through the 8 SPH iterations (convergence
+    freeze included), non-finite entries zeroed and masked rows zeroed.
+    With ``use_fallback`` (the "reference" gradient mode), a system whose
+    gradient degenerates (largest valid row norm <= 1e-12, or <= 1e-9
+    times the median pair distance) takes the Omega-corrected SPH
+    gradient instead, sign-aligned against the legacy gradient of
+    strength ``lam_align`` (``aligned_omega_grad``)."""
     with torch.enable_grad():
         qg = q.detach().requires_grad_(True)
         es = eps_target_production(qg, m, h0=h0, alpha=alpha,
@@ -163,7 +203,27 @@ def eps_star_and_grad(q, m, *, h0, alpha, eps_min, eps_max,
     g = torch.where(torch.isfinite(g), g, torch.zeros_like(g))
     if mask is not None:
         g = g * mask[..., None].to(g.dtype)
-    return es.detach(), g
+    if not use_fallback:
+        return es.detach(), g
+    degenerate = degenerate_grad(g, q, mask)[0]
+    g_fb = aligned_omega_grad(q, m, h0=h0, alpha=alpha, eps_min=eps_min,
+                              eps_max=eps_max, eta=eta, lam_align=lam_align,
+                              mask=mask)
+    return es.detach(), torch.where(degenerate[..., None, None], g_fb, g)
+
+
+def aligned_omega_grad(q, m, *, h0, alpha, eps_min, eps_max,
+                       eta: float = 1.35, lam_align: float = 0.3, mask=None):
+    """``production_grad_omega`` with its sign flipped where its dot
+    product with the legacy gradient (``ops/softening.py``, the
+    reference's sign convention) is negative (hamsoft_eps_model.py:
+    218-227): the reference's fallback gradient."""
+    g = production_grad_omega(q, m, h0=h0, alpha=alpha, eps_min=eps_min,
+                              eps_max=eps_max, eta=eta, mask=mask)
+    g_ref = legacy_soft.grad_eps_target(q, lam=lam_align, mask=mask)
+    dot = (g * g_ref).sum((-2, -1))
+    flip = (torch.isfinite(dot) & (dot < 0.0))[..., None, None]
+    return torch.where(flip, -g, g)
 
 
 def production_grad_omega(q, m, *, h0, alpha, eps_min, eps_max,

@@ -23,22 +23,26 @@ terms kept there too; see the source notes for what bounds them and
 what their design does about that); on a CPU tensor it runs the plain
 PyTorch version beside it, which loops over the macro steps and
 ``n_sub_max`` masked trips on ``(B, N, d)`` tensors and takes the exact
-eps* gradient by autograd through the 8 SPH iterations.  There is no fallback from one to the
-other.  The wrappers hand their kernel the systems deepest first
+eps* gradient by autograd through the 8 SPH iterations (``_Physics``).
+There is no fallback from one to the other.  The wrappers hand their kernel the systems deepest first
 (``deepest_first``); each output comes back at the system's own index.
 
-Covered configuration: ``grad_mode="exact"``; the analysis and MEGNO
-kernels take ``policy="soft"`` (the dataset pipeline's) at d = 2 and 3,
-the multi-step kernel also ``"reflection"`` and ``"none"``, at d = 2
-(its d = 3 is not ported).  The "reference" gradient
-and the analysis/MEGNO kernels' reflection policy raise
-``NotImplementedError`` on both routes.  As in the TPU kernels, all 8
-SPH iterations always run (no convergence freeze: a <= 1e-6 relative
-eps* perturbation, below float32 resolution).
+Every kernel takes the three barrier policies (``"soft"``, the dataset
+pipeline's wall kicks; ``"reflection"``, closed-form folds of (eps, pi);
+``"none"``) and both eps* gradient modes (``"exact"``; ``"reference"``,
+the reference's degeneracy fallback: where the exact gradient's largest
+row norm is <= 1e-12 or <= 1e-9 times the median pair distance, the
+Omega gradient on the final SPH iterate, sign-aligned against the
+legacy gradient), at d = 2 and 3.  As in the TPU kernels, all 8 SPH
+iterations always run (no convergence freeze: a <= 1e-6 relative eps*
+perturbation, below float32 resolution), and the fallback takes the
+final clipped iterate, not the XLA path's frozen one.
 
 The libraries are built with plain ``nvcc`` into ``_build/``
-(git-ignored), one shared object per source and body-slot count, and
-loaded with ``ctypes`` (``ops/cuda_build.py``).
+(git-ignored), one shared object per source, body-slot count, dimension
+and build variant (``variant``: the reflection fold and the "reference"
+gradient are compile-time branches, so the default builds hold neither),
+and loaded with ``ctypes`` (``ops/cuda_build.py``).
 """
 
 from __future__ import annotations
@@ -50,6 +54,8 @@ import math
 import torch
 
 from . import cuda_build
+from . import eps_model as epsmod
+from . import softening as legacy_soft
 
 #: metric order of the analysis kernel's accumulator rows (count, then
 #: sum, sumsq, max, min per metric)
@@ -63,18 +69,32 @@ _ITERS = 8
 BUILD_SLOTS = (3, 4, 8)
 #: the analysis and MEGNO kernels, and the plain multi-step kernel
 SOURCES = ("hamsoft.cu", "hamsoft_multistep.cu")
-#: the dimensions each source is built for
-SOURCE_DIMS = {"hamsoft.cu": (2, 3), "hamsoft_multistep.cu": (2,)}
-#: the policies the multi-step kernel takes (the analysis and MEGNO
-#: kernels take "soft" only)
-MULTISTEP_POLICIES = ("soft", "reflection", "none")
+#: the dimensions every source is built for
+DIMS = (2, 3)
+#: the barrier policies and eps* gradient modes the kernels take
+POLICIES = ("soft", "reflection", "none")
+GRAD_MODES = ("exact", "reference")
 
 
 def build_jobs(slots=BUILD_SLOTS):
-    """(source, n, d) of every library of this module: the analysis and
-    MEGNO kernels at d = 2 and 3, the multi-step kernel at d = 2."""
-    return [(src, n, d) for src in SOURCES for d in SOURCE_DIMS[src]
-            for n in slots]
+    """(source, n, d) of the default libraries of this module (the soft
+    and no-barrier policies, and for the multi-step kernel the
+    reflection policy too, with the exact gradient) at d = 2 and 3."""
+    return [(src, n, d) for src in SOURCES for d in DIMS for n in slots]
+
+
+def variant(source: str, policy: str, grad_mode: str) -> str:
+    """The build variant of ``source`` (``cuda_build.VARIANT_FLAGS``) that
+    runs ``policy`` and ``grad_mode``: "" for the default build; "refl"
+    for the analysis and MEGNO kernels' reflection fold (the multi-step
+    kernel holds both folds in every build); "ref" for the "reference"
+    gradient."""
+    parts = []
+    if policy == "reflection" and source == SOURCES[0]:
+        parts.append("refl")
+    if grad_mode == "reference":
+        parts.append("ref")
+    return "_".join(parts)
 
 
 _P = ctypes.c_void_p
@@ -83,49 +103,60 @@ _F = ctypes.c_float
 
 
 def _check_slots(source: str, n: int, d: int) -> None:
-    dims = SOURCE_DIMS[source]
-    if d not in dims or n not in BUILD_SLOTS:
+    if d not in DIMS or n not in BUILD_SLOTS:
         raise NotImplementedError(
-            f"{source} is built for d in {dims} and N in {BUILD_SLOTS}; "
+            f"{source} is built for d in {DIMS} and N in {BUILD_SLOTS}; "
             f"got N = {n}, d = {d}")
 
 
 @functools.lru_cache(maxsize=None)
-def _library(n: int, d: int):
-    """The bound analysis/MEGNO library for (n, d), built on first use."""
+def _library(n: int, d: int, var: str = ""):
+    """The bound analysis/MEGNO library for (n, d) in build variant
+    ``var``, built on first use."""
     _check_slots(SOURCES[0], n, d)
-    lib = cuda_build.load(SOURCES[0], n, d)
-    lib.hs_analysis.argtypes = [_P] * 21 + [_I] * 4 + [_F] * 4 + [_I, _I, _P]
+    lib = cuda_build.load(SOURCES[0], n, d, var)
+    lib.hs_analysis.argtypes = [_P] * 21 + [_I] * 4 + [_F] * 5 + [_I, _I, _P]
     lib.hs_analysis.restype = _I
-    lib.hs_megno.argtypes = [_P] * 23 + [_I] * 3 + [_F] * 4 + [_I, _I, _P]
+    lib.hs_megno.argtypes = [_P] * 23 + [_I] * 3 + [_F] * 5 + [_I, _I, _P]
     lib.hs_megno.restype = _I
     return lib
 
 
 @functools.lru_cache(maxsize=None)
-def _multistep_library(n: int, d: int):
-    """The bound multi-step library for (n, d), built on first use."""
+def _multistep_library(n: int, d: int, var: str = ""):
+    """The bound multi-step library for (n, d) in build variant ``var``,
+    built on first use."""
     _check_slots(SOURCES[1], n, d)
-    lib = cuda_build.load(SOURCES[1], n, d)
-    lib.hs_multistep.argtypes = [_P] * 17 + [_I] * 3 + [_F] * 4 \
+    lib = cuda_build.load(SOURCES[1], n, d, var)
+    lib.hs_multistep.argtypes = [_P] * 17 + [_I] * 3 + [_F] * 5 \
         + [_I, _I, _I, _P]
     lib.hs_multistep.restype = _I
     return lib
 
 
-def _check_config(policy: str, grad_mode: str, policies=("soft",)) -> None:
-    if policy not in policies:
+def _check_config(policy: str, grad_mode: str) -> None:
+    if policy not in POLICIES:
         raise NotImplementedError(
-            f"hamsoft kernels: barrier policy {policy!r} is not ported "
-            f"(only {policies})")
-    if grad_mode != "exact":
+            f"hamsoft kernels: barrier policy {policy!r} is not one of "
+            f"{POLICIES}")
+    if grad_mode not in GRAD_MODES:
         raise NotImplementedError(
-            f"hamsoft kernels: eps_grad_mode {grad_mode!r} is not ported "
-            "(only 'exact')")
+            f"hamsoft kernels: eps_grad_mode {grad_mode!r} is not one of "
+            f"{GRAD_MODES}")
 
 
 def _barrier_on(k_wall: float, bexp: int) -> bool:
     return k_wall > 0.0 and bexp >= 2
+
+
+def _wall_kicks(kw) -> bool:
+    """Whether the kernel kicks pi off the soft walls (the soft policy)."""
+    return kw["policy"] == "soft" and _barrier_on(kw["k_wall"], kw["bexp"])
+
+
+def _launch_floats(kw):
+    """G, k_wall, eta, jcap and lam_align, as the kernels take them."""
+    return kw["G"], kw["k_wall"], kw["eta"], kw["jcap"], kw["lam_align"]
 
 
 # --------------------------------------------------------------------------
@@ -142,7 +173,8 @@ class _Physics:
     bodies instead of unrolled."""
 
     def __init__(self, mass, eps_seed, k_s, mu, alpha, flo, cap, *, G,
-                 k_wall, eta, jcap, bexp, policy="soft"):
+                 k_wall, eta, jcap, bexp, policy="soft", grad_mode="exact",
+                 lam_align=0.3, clamp_bounds=None):
         self.mass = mass
         self.valid = mass > 0.0
         zero = torch.zeros_like(mass)
@@ -161,15 +193,34 @@ class _Physics:
         # wall kicks under the soft policy, folds under the reflection one
         self.barrier_on = policy == "soft" and _barrier_on(k_wall, bexp)
         self.refl = policy == "reflection"
+        self.ref = grad_mode == "reference"
+        self.lam_align = lam_align
+        self.clamp_bounds = clamp_bounds
 
-    # ---------------- eps* and its exact gradient -----------------------
+    # ---------------- eps* and its gradient -----------------------------
     def eps_star_and_grad(self, pos):
-        """(eps*, d eps*/dq): the 8 clipped SPH iterations from the
-        entry eps, the softmin, and autograd back through them.  The
-        backward zeroes non-finite cotangents on Sigma (the float32
-        backward overflows on saturated lanes, where the true gradient
-        is zero) and passes the clip only strictly inside its bounds,
-        as the kernel's reverse sweep does."""
+        """(eps*, d eps*/dq): the exact gradient (``exact_eps_grad``);
+        with ``clamp_bounds`` (a, b) eps* clipped to [a, b] and the
+        gradient zeroed where the clip saturates; then, in the
+        "reference" gradient mode, the degeneracy switch
+        (``reference_switch``), as in ``_build_physics``."""
+        es, g, h_fin = self.exact_eps_grad(pos)
+        if self.clamp_bounds is not None:
+            lo, hi = self.clamp_bounds
+            gate = (es >= lo) & (es <= hi)
+            g = torch.where(gate[:, None, None], g, torch.zeros_like(g))
+            es = torch.minimum(torch.maximum(es, lo), hi)
+        if self.ref:
+            g = self.reference_switch(pos, h_fin, g)
+        return es, g
+
+    def exact_eps_grad(self, pos):
+        """(eps*, d eps*/dq, final iterate h): the 8 clipped SPH
+        iterations from the entry eps, the softmin, and autograd back
+        through them.  The backward zeroes non-finite cotangents on Sigma
+        (the float32 backward overflows on saturated lanes, where the
+        true gradient is zero) and passes the clip only strictly inside
+        its bounds, as the kernel's reverse sweep does."""
         flo, cap = self.flo[:, None], self.cap[:, None]
         with torch.enable_grad():
             q = pos.detach().requires_grad_(True)
@@ -200,7 +251,59 @@ class _Physics:
             es = -self.alpha * (tmax[:, 0] + torch.log(s))
             (g,) = torch.autograd.grad(es.sum(), q)
         ok = self.valid[..., None] & torch.isfinite(g)
-        return es.detach(), torch.where(ok, g, torch.zeros_like(g))
+        return es.detach(), torch.where(ok, g, torch.zeros_like(g)), \
+            h.detach()
+
+    # ---------- the "reference" gradient's fallback (_build_physics) ----
+    def reference_switch(self, pos, h_fin, g):
+        """Where the gradient ``g`` degenerates (its largest valid row
+        norm <= 1e-12, or <= 1e-9 times the median pair distance), the
+        Omega gradient on the final iterate ``h_fin``, its sign aligned
+        against the legacy gradient's; ``g`` elsewhere."""
+        degenerate = epsmod.degenerate_grad(g, pos, self.valid)[0]
+        g_fb = self.omega_grad(pos, h_fin)
+        g_ref = legacy_soft.grad_eps_target(pos, lam=self.lam_align,
+                                            mask=self.valid)
+        dot = (g_fb * g_ref).sum((-2, -1))
+        flip = torch.isfinite(dot) & (dot < 0.0)
+        g_fb = torch.where(flip[:, None, None], -g_fb, g_fb)
+        return torch.where(degenerate[:, None, None], g_fb, g)
+
+    def omega_grad(self, pos, h_fin):
+        """The Omega-corrected SPH gradient (ops/eps_model.py:237-298 of
+        the JAX package) on the final iterate, with the softmin's weights
+        and the h floor max(1e-12, 0.1 max(flo, 1e-12)), in the kernels'
+        expressions: Omega cancels to O(r^2 / h^2) on clustered systems,
+        so ``eps_model.production_grad_omega``'s algebraically equal ones
+        would round a float32 run apart from the kernels'."""
+        d = pos[:, :, None, :] - pos[:, None, :, :]  # q_i - q_j
+        r2 = (d * d).sum(-1)
+        t = torch.where(self.valid, -h_fin / self.alpha[:, None],
+                        torch.full_like(h_fin, -1e30))
+        e = torch.exp(t - t.amax(-1, keepdim=True))
+        omega = e / e.sum(-1, keepdim=True)
+        floor = torch.clamp_min(0.1 * torch.clamp_min(self.flo, 1e-12), 1e-12)
+        hj = torch.maximum(h_fin, floor[:, None])
+        ih2 = 1.0 / torch.clamp_min(hj * hj, 1e-24)
+        w = (_INV_PI * ih2)[..., None] * torch.exp(-r2 * ih2[..., None])
+        mw = torch.where(self.off, self.mval[:, None, :] * w,
+                         torch.zeros_like(w))
+        S = mw.sum(-1)
+        # each term divided by h, as the kernels do: Omega = 1 + h Sd /
+        # (2 S) cancels to O(r^2 / h^2) on clustered systems, so it
+        # magnifies every rounding of Sd
+        Sd = (mw * (-2.0 + 2.0 * r2 * ih2[..., None])
+              / torch.clamp_min(hj, 1e-12)[..., None]).sum(-1)
+        Ssafe = torch.clamp_min(S, 1e-30)
+        Om = 1.0 + hj * Sd / (2.0 * Ssafe)
+        Om = torch.where(torch.isfinite(Om) & (Om != 0.0), Om,
+                         torch.ones_like(Om))
+        P = -hj / (2.0 * Ssafe * Om)
+        coeff = (-omega * P)[..., None] * mw * (-2.0 * ih2)[..., None]
+        term = coeff[..., None] * d
+        g = term.sum(-2) - term.sum(-3)
+        ok = self.valid[..., None] & torch.isfinite(g)
+        return torch.where(ok, g, torch.zeros_like(g))
 
     def bar_force(self, e):
         left = torch.clamp_min(self.flo - e, 0.0)
@@ -384,10 +487,12 @@ def _n_trips(n_sub, n_sub_max: int) -> int:
 
 def _analysis_loop(pos, vel, mass, eps, pi, L0, *, k_soft, mu, alpha,
                    eps_min, eps_max, h, n_sub, n_steps: int, n_sub_max: int,
-                   interval: int, G, k_wall, eta, jcap, bexp):
+                   interval: int, G, k_wall, eta, jcap, bexp, policy,
+                   grad_mode, lam_align):
     """The analysis kernel's loop on (B, N, d) tensors."""
     ph = _Physics(mass, eps, k_soft, mu, alpha, eps_min, eps_max, G=G,
-                  k_wall=k_wall, eta=eta, jcap=jcap, bexp=bexp)
+                  k_wall=k_wall, eta=eta, jcap=jcap, bexp=bexp, policy=policy,
+                  grad_mode=grad_mode, lam_align=lam_align)
     nsub = torch.clamp_min(n_sub, 1)
     trips = _n_trips(n_sub, n_sub_max)
     nb = torch.clamp_min(ph.valid.to(pos.dtype).sum(-1), 1.0)
@@ -419,11 +524,12 @@ def _analysis_loop(pos, vel, mass, eps, pi, L0, *, k_soft, mu, alpha,
 
 def _megno_loop(pos, vel, mass, eps, pi, dr, dv, *, k_soft, mu, alpha,
                 eps_min, eps_max, h, n_sub, dt, n_steps: int, n_sub_max: int,
-                G, k_wall, eta, jcap, bexp):
+                G, k_wall, eta, jcap, bexp, policy, grad_mode, lam_align):
     """The MEGNO kernel's loop on (B, N, d) tensors: returns
     (pos, vel, eps, pi, accum, t, ys)."""
     ph = _Physics(mass, eps, k_soft, mu, alpha, eps_min, eps_max, G=G,
-                  k_wall=k_wall, eta=eta, jcap=jcap, bexp=bexp)
+                  k_wall=k_wall, eta=eta, jcap=jcap, bexp=bexp, policy=policy,
+                  grad_mode=grad_mode, lam_align=lam_align)
     nsub = torch.clamp_min(n_sub, 1)
     trips = _n_trips(n_sub, n_sub_max)
     es, grad = ph.eps_star_and_grad(pos)
@@ -515,15 +621,28 @@ def _l0_rows(L0, pos):
                               (B, 3)).contiguous()
 
 
-def _analysis_args(pos, n_sub, L0, scalars, n_steps, n_sub_max, interval,
-                   G, k_wall, eta, jcap, bexp, policy, grad_mode):
+def _physics_kw(G, k_wall, eta, jcap, bexp, policy, grad_mode, lam_align):
+    """The checked configuration shared by the three kernels."""
     _check_config(policy, grad_mode)
-    if pos.shape[-1] not in (2, 3):
-        raise NotImplementedError("the analysis kernel takes d = 2 or 3")
+    return dict(G=float(G), k_wall=float(k_wall), eta=float(eta),
+                jcap=float(jcap), bexp=int(bexp), policy=policy,
+                grad_mode=grad_mode, lam_align=float(lam_align))
+
+
+def _check_dim(pos, what):
+    if pos.shape[-1] not in DIMS:
+        raise NotImplementedError(f"the {what} kernel takes d in {DIMS}; "
+                                  f"got d = {pos.shape[-1]}")
+
+
+def _analysis_args(pos, n_sub, L0, scalars, n_steps, n_sub_max, interval,
+                   G, k_wall, eta, jcap, bexp, policy, grad_mode, lam_align):
+    kw = _physics_kw(G, k_wall, eta, jcap, bexp, policy, grad_mode,
+                     lam_align)
+    _check_dim(pos, "analysis")
     vals, ns = _kernel_scalars(pos.shape[0], pos, n_sub, *scalars)
-    kw = dict(n_sub=ns, n_steps=int(n_steps), n_sub_max=int(n_sub_max),
-              interval=int(interval), G=float(G), k_wall=float(k_wall),
-              eta=float(eta), jcap=float(jcap), bexp=int(bexp))
+    kw.update(n_sub=ns, n_steps=int(n_steps), n_sub_max=int(n_sub_max),
+              interval=int(interval))
     return _l0_rows(L0, pos), vals, kw
 
 
@@ -540,14 +659,15 @@ def hamsoft_analysis_multistep_plain(pos, vel, mass, eps, pi, L0, *, k_soft,
                                      k_wall: float = 1e9, eta: float = 1.35,
                                      jcap: float = 0.02, bexp: int = 5,
                                      policy: str = "soft",
-                                     grad_mode: str = "exact"):
+                                     grad_mode: str = "exact",
+                                     lam_align: float = 0.3):
     """The plain PyTorch version of ``hamsoft_analysis_multistep`` (same
     arguments, same outputs), on any device."""
     L0, (eps, pi, k_soft, mu, alpha, eps_min, eps_max, h), kw = \
         _analysis_args(pos, n_sub, L0, (eps, pi, k_soft, mu, alpha, eps_min,
                                         eps_max, h), n_steps, n_sub_max,
                        interval, G, k_wall, eta, jcap, bexp, policy,
-                       grad_mode)
+                       grad_mode, lam_align)
     return _analysis_loop(pos, vel, mass, eps, pi, L0, k_soft=k_soft, mu=mu,
                           alpha=alpha, eps_min=eps_min, eps_max=eps_max,
                           h=h, **kw)
@@ -570,7 +690,8 @@ def hamsoft_analysis_multistep(pos, vel, mass, eps, pi, L0, *, k_soft, mu,
                                G: float = 1.0, k_wall: float = 1e9,
                                eta: float = 1.35, jcap: float = 0.02,
                                bexp: int = 5, policy: str = "soft",
-                               grad_mode: str = "exact"):
+                               grad_mode: str = "exact",
+                               lam_align: float = 0.3):
     """Advance a (B, N, d) float32 ham_soft batch ``n_steps`` macro steps
     with the analysis metric sampling fused in: the CUDA kernel for CUDA
     tensors, the plain version for CPU tensors.
@@ -578,6 +699,9 @@ def hamsoft_analysis_multistep(pos, vel, mass, eps, pi, L0, *, k_soft, mu,
     Per-system (B,) inputs: eps, pi, k_soft, mu, alpha, eps_min,
     eps_max, h, n_sub (each system runs min(n_sub, n_sub_max) trips per
     step); L0 is L_z (B,) at d = 2 and the L vector (B, 3) at d = 3.
+    ``policy`` is "soft" (wall kicks), "reflection" (folds) or "none";
+    ``grad_mode`` "exact" or "reference" (the degeneracy fallback, its
+    legacy gradient of strength ``lam_align``).
     Returns (pos, vel, eps, pi, accs, eps_samples, pi_samples): ``accs``
     maps each of ``ACC_METRICS`` to a (count, sum, sumsq, max, min)
     tuple of (B,) tensors and the sample tensors are (n_samples, B),
@@ -586,7 +710,7 @@ def hamsoft_analysis_multistep(pos, vel, mass, eps, pi, L0, *, k_soft, mu,
                 eps_max=eps_max, h=h, n_sub=n_sub, n_steps=n_steps,
                 n_sub_max=n_sub_max, interval=interval, G=G, k_wall=k_wall,
                 eta=eta, jcap=jcap, bexp=bexp, policy=policy,
-                grad_mode=grad_mode)
+                grad_mode=grad_mode, lam_align=lam_align)
     if pos.device.type == "cpu":
         return hamsoft_analysis_multistep_plain(pos, vel, mass, eps, pi, L0,
                                                 **args)
@@ -596,7 +720,7 @@ def hamsoft_analysis_multistep(pos, vel, mass, eps, pi, L0, *, k_soft, mu,
         _analysis_args(pos, n_sub, L0, (eps, pi, k_soft, mu, alpha, eps_min,
                                         eps_max, h), n_steps, n_sub_max,
                        interval, G, k_wall, eta, jcap, bexp, policy,
-                       grad_mode)
+                       grad_mode, lam_align)
     B, n, d = pos.shape
     ns = kw["n_sub"]
     _check_cuda_inputs(pos, mass, dict(vel=vel), dict(
@@ -613,16 +737,14 @@ def hamsoft_analysis_multistep(pos, vel, mass, eps, pi, L0, *, k_soft, mu,
     out_eps, out_pi = new(B), new(B)
     out_acc = new(_ACC_ROWS, B)
     out_es, out_ps = new(n_samples, B), new(n_samples, B)
-    lib = _library(n, d)
+    lib = _library(n, d, variant(SOURCES[0], policy, grad_mode))
     code = lib.hs_analysis(
         *cuda_build.pointers(
             pos_c, vel_c, mass_c, eps, pi, k_soft, mu, alpha, eps_min,
             eps_max, h, ns, order, L0_c, out_pos, out_vel, out_eps, out_pi,
             out_acc, out_es, out_ps),
-        B, kw["n_steps"], kw["n_sub_max"], kw["interval"], kw["G"],
-        kw["k_wall"], kw["eta"], kw["jcap"], kw["bexp"],
-        int(_barrier_on(kw["k_wall"], kw["bexp"])),
-        cuda_build.stream_of(pos))
+        B, kw["n_steps"], kw["n_sub_max"], kw["interval"], *_launch_floats(kw),
+        kw["bexp"], int(_wall_kicks(kw)), cuda_build.stream_of(pos))
     cuda_build.check_launch(lib, code, "hamsoft_analysis_multistep")
     hamsoft_analysis_multistep.launches += 1
     return (_from_coord_major(out_pos, B, n, d),
@@ -654,12 +776,12 @@ def _megno_summary(accum, tt, ys, dt: float):
 
 
 def _megno_args(pos, n_sub, scalars, n_steps, n_sub_max, G, k_wall, eta,
-                jcap, bexp, policy, grad_mode):
-    _check_config(policy, grad_mode)
+                jcap, bexp, policy, grad_mode, lam_align):
+    kw = _physics_kw(G, k_wall, eta, jcap, bexp, policy, grad_mode,
+                     lam_align)
+    _check_dim(pos, "MEGNO")
     vals, ns = _kernel_scalars(pos.shape[0], pos, n_sub, *scalars)
-    kw = dict(n_sub=ns, n_steps=int(n_steps), n_sub_max=int(n_sub_max),
-              G=float(G), k_wall=float(k_wall), eta=float(eta),
-              jcap=float(jcap), bexp=int(bexp))
+    kw.update(n_sub=ns, n_steps=int(n_steps), n_sub_max=int(n_sub_max))
     return vals, kw
 
 
@@ -669,13 +791,14 @@ def hamsoft_megno_multistep_plain(pos, vel, mass, eps, pi, dr, dv, *, k_soft,
                                   G: float = 1.0, k_wall: float = 1e9,
                                   eta: float = 1.35, jcap: float = 0.02,
                                   bexp: int = 5, policy: str = "soft",
-                                  grad_mode: str = "exact"):
+                                  grad_mode: str = "exact",
+                                  lam_align: float = 0.3):
     """The plain PyTorch version of ``hamsoft_megno_multistep`` (same
     arguments, same outputs), on any device."""
     (eps, pi, k_soft, mu, alpha, eps_min, eps_max, h, dt_b), kw = \
         _megno_args(pos, n_sub, (eps, pi, k_soft, mu, alpha, eps_min,
                                  eps_max, h, dt), n_steps, n_sub_max, G,
-                    k_wall, eta, jcap, bexp, policy, grad_mode)
+                    k_wall, eta, jcap, bexp, policy, grad_mode, lam_align)
     po, vo, eo, pio, accum, tt, ys = _megno_loop(
         pos, vel, mass, eps, pi, dr, dv, k_soft=k_soft, mu=mu, alpha=alpha,
         eps_min=eps_min, eps_max=eps_max, h=h, dt=dt_b, **kw)
@@ -687,16 +810,19 @@ def hamsoft_megno_multistep(pos, vel, mass, eps, pi, dr, dv, *, k_soft, mu,
                             n_steps: int, n_sub_max: int, G: float = 1.0,
                             k_wall: float = 1e9, eta: float = 1.35,
                             jcap: float = 0.02, bexp: int = 5,
-                            policy: str = "soft", grad_mode: str = "exact"):
+                            policy: str = "soft", grad_mode: str = "exact",
+                            lam_align: float = 0.3):
     """MEGNO continuation: advance the batch ``n_steps`` macro steps with
     the tangent map fused in: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors.  ``dr``/``dv`` are the (B, N, d) initial
-    tangent vectors, ``dt`` the macro step (a float).  Returns
+    tangent vectors, ``dt`` the macro step (a float); the configuration
+    arguments as ``hamsoft_analysis_multistep``'s.  Returns
     (pos, vel, eps, pi, megno, lyapunov_time, slope_med)."""
     args = dict(k_soft=k_soft, mu=mu, alpha=alpha, eps_min=eps_min,
                 eps_max=eps_max, h=h, n_sub=n_sub, dt=dt, n_steps=n_steps,
                 n_sub_max=n_sub_max, G=G, k_wall=k_wall, eta=eta, jcap=jcap,
-                bexp=bexp, policy=policy, grad_mode=grad_mode)
+                bexp=bexp, policy=policy, grad_mode=grad_mode,
+                lam_align=lam_align)
     if pos.device.type == "cpu":
         return hamsoft_megno_multistep_plain(pos, vel, mass, eps, pi, dr, dv,
                                              **args)
@@ -705,7 +831,7 @@ def hamsoft_megno_multistep(pos, vel, mass, eps, pi, dr, dv, *, k_soft, mu,
     (eps, pi, k_soft, mu, alpha, eps_min, eps_max, h, dt_b), kw = \
         _megno_args(pos, n_sub, (eps, pi, k_soft, mu, alpha, eps_min,
                                  eps_max, h, dt), n_steps, n_sub_max, G,
-                    k_wall, eta, jcap, bexp, policy, grad_mode)
+                    k_wall, eta, jcap, bexp, policy, grad_mode, lam_align)
     B, n, d = pos.shape
     ns = kw["n_sub"]
     _check_cuda_inputs(pos, mass, dict(vel=vel, dr=dr, dv=dv), dict(
@@ -719,15 +845,14 @@ def hamsoft_megno_multistep(pos, vel, mass, eps, pi, dr, dv, *, k_soft, mu,
     out_pos, out_vel = new(n * d, B), new(n * d, B)
     out_eps, out_pi, out_accum, out_t = new(B), new(B), new(B), new(B)
     out_ys = new(kw["n_steps"], B)
-    lib = _library(n, d)
+    lib = _library(n, d, variant(SOURCES[0], policy, grad_mode))
     code = lib.hs_megno(
         *cuda_build.pointers(
             pos_c, vel_c, mass_c, eps, pi, k_soft, mu, alpha, eps_min,
             eps_max, h, ns, order, dt_b, dr_c, dv_c, out_pos, out_vel,
             out_eps, out_pi, out_accum, out_t, out_ys),
-        B, kw["n_steps"], kw["n_sub_max"], kw["G"], kw["k_wall"], kw["eta"],
-        kw["jcap"], kw["bexp"], int(_barrier_on(kw["k_wall"], kw["bexp"])),
-        cuda_build.stream_of(pos))
+        B, kw["n_steps"], kw["n_sub_max"], *_launch_floats(kw), kw["bexp"],
+        int(_wall_kicks(kw)), cuda_build.stream_of(pos))
     cuda_build.check_launch(lib, code, "hamsoft_megno_multistep")
     hamsoft_megno_multistep.launches += 1
     return (_from_coord_major(out_pos, B, n, d),
@@ -740,10 +865,11 @@ hamsoft_megno_multistep.launches = 0
 
 def _multistep_loop(pos, vel, mass, eps, pi, *, k_soft, mu, alpha, eps_min,
                     eps_max, h, n_sub, n_steps: int, n_sub_max: int, G,
-                    k_wall, eta, jcap, bexp, policy):
+                    k_wall, eta, jcap, bexp, policy, grad_mode, lam_align):
     """The multi-step kernel's loop on (B, N, d) tensors."""
     ph = _Physics(mass, eps, k_soft, mu, alpha, eps_min, eps_max, G=G,
-                  k_wall=k_wall, eta=eta, jcap=jcap, bexp=bexp, policy=policy)
+                  k_wall=k_wall, eta=eta, jcap=jcap, bexp=bexp, policy=policy,
+                  grad_mode=grad_mode, lam_align=lam_align)
     nsub = torch.clamp_min(n_sub, 1)
     trips = _n_trips(n_sub, n_sub_max)
     es, grad = ph.eps_star_and_grad(pos)
@@ -755,15 +881,12 @@ def _multistep_loop(pos, vel, mass, eps, pi, *, k_soft, mu, alpha, eps_min,
 
 
 def _multistep_args(pos, n_sub, scalars, n_steps, n_sub_max, G, k_wall, eta,
-                    jcap, bexp, policy, grad_mode):
-    _check_config(policy, grad_mode, MULTISTEP_POLICIES)
-    if pos.shape[-1] != 2:
-        raise NotImplementedError(
-            "the multi-step kernel is ported for d = 2; d = 3 is not ported")
+                    jcap, bexp, policy, grad_mode, lam_align):
+    kw = _physics_kw(G, k_wall, eta, jcap, bexp, policy, grad_mode,
+                     lam_align)
+    _check_dim(pos, "multi-step")
     vals, ns = _kernel_scalars(pos.shape[0], pos, n_sub, *scalars)
-    kw = dict(n_sub=ns, n_steps=int(n_steps), n_sub_max=int(n_sub_max),
-              G=float(G), k_wall=float(k_wall), eta=float(eta),
-              jcap=float(jcap), bexp=int(bexp), policy=policy)
+    kw.update(n_sub=ns, n_steps=int(n_steps), n_sub_max=int(n_sub_max))
     return vals, kw
 
 
@@ -772,12 +895,14 @@ def hamsoft_multistep_plain(pos, vel, mass, eps, pi, *, k_soft, mu, alpha,
                             n_sub_max: int, G: float = 1.0,
                             k_wall: float = 1e9, eta: float = 1.35,
                             jcap: float = 0.02, bexp: int = 5,
-                            policy: str = "soft", grad_mode: str = "exact"):
+                            policy: str = "soft", grad_mode: str = "exact",
+                            lam_align: float = 0.3):
     """The plain PyTorch version of ``hamsoft_multistep`` (same arguments,
     same outputs), on any device."""
     (eps, pi, k_soft, mu, alpha, eps_min, eps_max, h), kw = _multistep_args(
         pos, n_sub, (eps, pi, k_soft, mu, alpha, eps_min, eps_max, h),
-        n_steps, n_sub_max, G, k_wall, eta, jcap, bexp, policy, grad_mode)
+        n_steps, n_sub_max, G, k_wall, eta, jcap, bexp, policy, grad_mode,
+        lam_align)
     return _multistep_loop(pos, vel, mass, eps, pi, k_soft=k_soft, mu=mu,
                            alpha=alpha, eps_min=eps_min, eps_max=eps_max,
                            h=h, **kw)
@@ -787,46 +912,48 @@ def hamsoft_multistep(pos, vel, mass, eps, pi, *, k_soft, mu, alpha, eps_min,
                       eps_max, h, n_sub, n_steps: int, n_sub_max: int,
                       G: float = 1.0, k_wall: float = 1e9, eta: float = 1.35,
                       jcap: float = 0.02, bexp: int = 5, policy: str = "soft",
-                      grad_mode: str = "exact"):
+                      grad_mode: str = "exact", lam_align: float = 0.3):
     """Advance a (B, N, d) float32 ham_soft batch ``n_steps`` macro steps,
     each system running min(n_sub, n_sub_max) Strang substeps of size
     ``h``, with no sampling: the CUDA kernel (``csrc/hamsoft_multistep.cu``)
     for CUDA tensors, the plain version for CPU tensors.
 
     Per-system (B,) inputs: eps, pi, k_soft, mu, alpha, eps_min, eps_max,
-    h, n_sub.  ``policy`` is "soft" (wall kicks), "reflection" (folds) or
-    "none"; the SPH solve is seeded from the entry eps for the whole call,
-    as in the TPU kernel.  Returns (pos, vel, eps, pi)."""
+    h, n_sub; d = 2 or 3; the configuration arguments as
+    ``hamsoft_analysis_multistep``'s.  The SPH solve is seeded from the
+    entry eps for the whole call, as in the TPU kernel.  Returns
+    (pos, vel, eps, pi)."""
     args = dict(k_soft=k_soft, mu=mu, alpha=alpha, eps_min=eps_min,
                 eps_max=eps_max, h=h, n_sub=n_sub, n_steps=n_steps,
                 n_sub_max=n_sub_max, G=G, k_wall=k_wall, eta=eta, jcap=jcap,
-                bexp=bexp, policy=policy, grad_mode=grad_mode)
+                bexp=bexp, policy=policy, grad_mode=grad_mode,
+                lam_align=lam_align)
     if pos.device.type == "cpu":
         return hamsoft_multistep_plain(pos, vel, mass, eps, pi, **args)
     if pos.device.type != "cuda":
         raise RuntimeError(f"hamsoft kernels: unsupported device {pos.device}")
     (eps, pi, k_soft, mu, alpha, eps_min, eps_max, h), kw = _multistep_args(
         pos, n_sub, (eps, pi, k_soft, mu, alpha, eps_min, eps_max, h),
-        n_steps, n_sub_max, G, k_wall, eta, jcap, bexp, policy, grad_mode)
+        n_steps, n_sub_max, G, k_wall, eta, jcap, bexp, policy, grad_mode,
+        lam_align)
     B, n, d = pos.shape
     ns = kw["n_sub"]
     _check_cuda_inputs(pos, mass, dict(vel=vel), dict(
         eps=eps, pi=pi, k_soft=k_soft, mu=mu, alpha=alpha, eps_min=eps_min,
         eps_max=eps_max, h=h, n_sub=ns))
-    lib = _multistep_library(n, d)
+    lib = _multistep_library(n, d, variant(SOURCES[1], policy, grad_mode))
     order = deepest_first(ns, kw["n_sub_max"])
     pos_c, vel_c = _coord_major(pos), _coord_major(vel)
     mass_c = mass.t().contiguous()
     new = lambda *shape: torch.empty(shape, dtype=pos.dtype, device=pos.device)
     out_pos, out_vel, out_eps, out_pi = new(n * d, B), new(n * d, B), \
         new(B), new(B)
-    barrier = policy == "soft" and _barrier_on(kw["k_wall"], kw["bexp"])
     code = lib.hs_multistep(
         *cuda_build.pointers(
             pos_c, vel_c, mass_c, eps, pi, k_soft, mu, alpha, eps_min,
             eps_max, h, ns, order, out_pos, out_vel, out_eps, out_pi),
-        B, kw["n_steps"], kw["n_sub_max"], kw["G"], kw["k_wall"], kw["eta"],
-        kw["jcap"], kw["bexp"], int(barrier), int(policy == "reflection"),
+        B, kw["n_steps"], kw["n_sub_max"], *_launch_floats(kw), kw["bexp"],
+        int(_wall_kicks(kw)), int(policy == "reflection"),
         cuda_build.stream_of(pos))
     cuda_build.check_launch(lib, code, "hamsoft_multistep")
     hamsoft_multistep.launches += 1

@@ -21,7 +21,9 @@ kernel branches to the Stumpff form it takes, sums the series in Horner
 form and contracts its multiply-adds into FMAs, so it rounds apart from
 the plain version by a few ulps a step.  There is no fallback from one
 to the other.  Zero-mass slots are inert (padding);
-the CUDA route takes d = 2 and N <= ``MAX_SLOTS`` body slots.
+the CUDA route takes d = 2 or 3 and N <= ``MAX_SLOTS`` body slots: the
+Jacobi sums, the Kepler drift (r . v and |r| over the d coordinates) and
+the kick are written per coordinate.
 """
 
 from __future__ import annotations
@@ -38,6 +40,8 @@ SOURCE = "whfast.cu"
 #: system); any N <= MAX_SLOTS is built on first use
 BUILD_SLOTS = (3,)
 MAX_SLOTS = 8
+#: the dimensions the kernel takes
+DIMS = (2, 3)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -45,15 +49,15 @@ _F = ctypes.c_float
 
 
 def build_jobs(slots=BUILD_SLOTS):
-    return [(SOURCE, n, 2) for n in slots]
+    return [(SOURCE, n, d) for d in DIMS for n in slots]
 
 
 @functools.lru_cache(maxsize=None)
 def _library(n: int, d: int):
-    if d != 2 or not 2 <= n <= MAX_SLOTS:
+    if d not in DIMS or not 2 <= n <= MAX_SLOTS:
         raise NotImplementedError(
-            f"whfast kernel is built for d = 2 and 2 <= N <= {MAX_SLOTS}; "
-            f"got N = {n}, d = {d}")
+            f"whfast kernel is built for d in {DIMS} and 2 <= N <= "
+            f"{MAX_SLOTS}; got N = {n}, d = {d}")
     lib = cuda_build.load(SOURCE, n, d)
     lib.hs_whfast.argtypes = [_P] * 6 + [_I, _I, _F, _F, _F, _I, _P]
     lib.hs_whfast.restype = _I
@@ -302,8 +306,9 @@ def _check(pos, n_steps: int) -> None:
     if pos.dim() != 3:
         raise ValueError(f"whfast kernel: pos must be (B, N, d), got "
                          f"{tuple(pos.shape)}")
-    if pos.shape[-1] != 2:
-        raise NotImplementedError("whfast kernel: ported for d = 2")
+    if pos.shape[-1] not in DIMS:
+        raise NotImplementedError(f"whfast kernel: takes d in {DIMS}, got "
+                                  f"d = {pos.shape[-1]}")
     if int(n_steps) < 1:
         raise ValueError("whfast kernel: n_steps must be >= 1")
 

@@ -197,15 +197,18 @@ def test_cuda_entry_without_gpu_raises(monkeypatch, device):
     {"fast_float32": False}, {"use_fused_analysis": False},
     {"use_fused_metrics": False}, {"use_fused_megno": False}])
 def test_fused_path_gate(change):
-    """Only the pipeline's configuration is covered, with either way to
-    the metric moments (use_fused_metrics True or False)."""
+    """The pipeline's configuration is covered with either way to the
+    metric moments (use_fused_metrics True or False), and so are the
+    reflection policy and the "reference" gradient (the JAX fused
+    engine's configurations); float64, the scan engine and full mode
+    without the MEGNO kernel are not."""
     from nbodysimproject_tpu_torch.analysis.fused import fused_config_covered
     from nbodysimproject_tpu_torch.core.device import dtype_of
 
     cfg = nt.SimConfig(**{**PIPE, **change})
-    chunked = {"use_fused_metrics": False}
+    outside = ({"fast_float32": False}, {"use_fused_analysis": False})
     covered = fused_config_covered(cfg, "full", dtype_of(cfg))
-    assert covered == (not change or change == chunked)
+    assert covered == (change not in outside + ({"use_fused_megno": False},))
     assert fused_config_covered(cfg, "core", dtype_of(cfg)) == (
-        not change or change in ({"use_fused_megno": False}, chunked))
+        change not in outside)
     assert not fused_config_covered(cfg, "minimal", dtype_of(cfg))

@@ -46,7 +46,14 @@ d = 4 raises.  The multi-step kernel's two layouts (one thread per
 system at N = 3, a warp per system at N = 8) give bitwise equal final
 states on 3-body systems in 3 and in 8 slots, under all three barrier
 policies, and so do the eps kernel's (one thread per system at N = 3,
-one lane per body at N = 8) under both clamps.  ``largen_rollout`` on the
+one lane per body at N = 8) under both clamps.  The kernels' other
+branches (the end of the file): the analysis, MEGNO and multi-step
+kernels under the reflection and no-barrier policies and the "reference"
+gradient, and the multi-step and analysis kernels at d = 3, against
+their plain versions with the tolerances above, their trips equal to the
+multi-step kernel's bit for bit; the eps kernel's fallback against its
+plain version and its two layouts bit for bit under it; the WHFast
+kernel at d = 3 as at d = 2.  ``largen_rollout`` on the
 tiled kernel matches the dense force for 5 steps (rtol 1e-5 / atol
 1e-6).
 """
@@ -472,8 +479,10 @@ def test_eps_kernel_matches_plain(case, clamp, cuda_device):
     args = (st.pos, st.mass, st.eps, dy.alpha_run, dy.min_softening,
             dy.max_softening, st.mask)
     before = ek.eps_star_and_grad_fused.launches
-    es0, g0 = ek.eps_star_and_grad_fused_plain(*args, clamp=clamp)
-    es1, g1 = ek.eps_star_and_grad_fused(*args, clamp=clamp)
+    es0, g0 = ek.eps_star_and_grad_fused_plain(*args, clamp=clamp,
+                                               use_fallback=False)
+    es1, g1 = ek.eps_star_and_grad_fused(*args, clamp=clamp,
+                                         use_fallback=False)
     torch.cuda.synchronize()
     assert ek.eps_star_and_grad_fused.launches == before + 1
     _close(es0, es1, "eps*", rtol=1e-6, atol=0.0)
@@ -505,9 +514,10 @@ def test_eps_layouts_give_the_same_bits(clamp, cuda_device):
     rows = (st.eps, dy.alpha_run, dy.min_softening, dy.max_softening)
     before = ek.eps_star_and_grad_fused.launches
     es3, g3 = ek.eps_star_and_grad_fused(st.pos, st.mass, *rows, st.mask,
-                                         clamp=clamp)
+                                         clamp=clamp, use_fallback=False)
     es8, g8 = ek.eps_star_and_grad_fused(pad(st.pos), pad(st.mass), *rows,
-                                         pad(st.mask), clamp=clamp)
+                                         pad(st.mask), clamp=clamp,
+                                         use_fallback=False)
     torch.cuda.synchronize()
     assert ek.eps_star_and_grad_fused.launches == before + 2
     bits = lambda x: x.contiguous().view(torch.int32)
@@ -792,3 +802,216 @@ def test_largen_rollout_direct_pallas_matches_direct(cuda_device):
     assert qk.device.type == "cuda"
     torch.testing.assert_close(qk, qd, rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(vk, vd, rtol=1e-5, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the branches of rows 1-4 and 6 added with the reflection and no-barrier
+# policies of the analysis and MEGNO kernels, the "reference" gradient and
+# d = 3 of the multi-step and WHFast kernels
+# ---------------------------------------------------------------------------
+
+VARIANTS = [("reflection", "exact"), ("none", "exact"), ("soft", "reference"),
+            ("reflection", "reference")]
+
+
+@pytest.fixture(scope="module")
+def variant_builds():
+    """Every build variant these tests launch, compiled together (one
+    nvcc each) before the first of them runs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from nbodysimproject_tpu_torch.ops import cuda_build
+    from nbodysimproject_tpu_torch.ops import eps_kernels as ek
+
+    jobs = {(src, n, d, hk.variant(src, p, g)) for src in hk.SOURCES
+            for n in hk.BUILD_SLOTS for d in (2, 3) for p, g in VARIANTS}
+    jobs |= {(ek.SOURCE, n, d, ek.variant(True)) for n in (3, 8)
+             for d in (2, 3)}
+    jobs |= {("whfast.cu", 3, 3)}
+    cuda_build.build(sorted(jobs))
+
+
+def _lift(st, dy, cfg, device):
+    """The population with a drawn z column, built again by the port."""
+    rng = np.random.default_rng(21)
+    z = torch.as_tensor(0.05 * rng.normal(size=st.pos.shape[:2] + (1,)),
+                        dtype=torch.float32, device=device)
+    q = torch.cat([st.pos, z], -1)
+    v = torch.cat([st.vel, 0.1 * z], -1)
+    return build_batch(st.mass, q, v, st.mask, cfg, 1.0, 0.05, 0.0, 0.01)
+
+
+@pytest.mark.parametrize("policy,grad_mode", VARIANTS)
+@pytest.mark.parametrize("kernel", ["analysis", "megno", "multistep"])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_kernel_variant_matches_plain(case, kernel, policy, grad_mode,
+                                      cuda_device, variant_builds):
+    """Each kernel in each policy and gradient mode against its plain
+    version, with the tolerances of the soft and exact tests above; the
+    reflection policy's walls narrowed around the entry eps so that the
+    folds act."""
+    cfg, st, dy, tan = _built(case, cuda_device)
+    kw = _kw(cfg, dy, int(dy.n_sub.max()))
+    kw.update(policy=policy, grad_mode=grad_mode)
+    if policy == "reflection":
+        kw.update(eps_min=st.eps * 0.999, eps_max=st.eps * 1.001)
+    if kernel == "multistep":
+        args = (st.pos, st.vel, st.mass, st.eps, st.pi)
+        ref = hk.hamsoft_multistep_plain(*args, n_steps=12, **kw)
+        got = hk.hamsoft_multistep(*args, n_steps=12, **kw)
+    else:
+        fn = {"analysis": (hk.hamsoft_analysis_multistep_plain,
+                           hk.hamsoft_analysis_multistep),
+              "megno": (hk.hamsoft_megno_multistep_plain,
+                        hk.hamsoft_megno_multistep)}[kernel]
+        ref = _call(kernel, fn[0], st, tan, kw, 6)
+        got = _call(kernel, fn[1], st, tan, kw, 6)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("pos", "vel", "eps", "pi"), ref[:4], got[:4]):
+        _close(a, b, f"{kernel} {policy} {grad_mode} {name}")
+    if kernel == "megno":
+        for name, a, b in zip(("MEGNO", "lyapunov_time", "megno_slope_med"),
+                              ref[4:], got[4:]):
+            _close(a, b, name, *TOL[name])
+    if policy == "reflection":
+        assert bool(((got[2] >= kw["eps_min"]) & (got[2] <= kw["eps_max"]))
+                    .all())
+
+
+@pytest.mark.parametrize("policy,grad_mode", VARIANTS)
+@pytest.mark.parametrize("kernel", ["analysis", "megno"])
+def test_kernel_variant_trajectory_is_the_multistep_kernels(
+        kernel, policy, grad_mode, cuda_device, variant_builds):
+    """Under every policy and gradient mode the analysis and MEGNO
+    kernels' trips equal the multi-step kernel's bit for bit (N = 3: the
+    warp physics against the one-thread physics; N = 8: the same warp
+    physics)."""
+    for case in ("n3", "n8_mixed"):
+        cfg, st, dy, tan = _built(case, cuda_device)
+        kw = _kw(cfg, dy, int(dy.n_sub.max()))
+        kw.update(policy=policy, grad_mode=grad_mode)
+        fn = {"analysis": hk.hamsoft_analysis_multistep,
+              "megno": hk.hamsoft_megno_multistep}[kernel]
+        got = _call(kernel, fn, st, tan, kw, 3)
+        ref = hk.hamsoft_multistep(st.pos, st.vel, st.mass, st.eps, st.pi,
+                                   n_steps=3, **kw)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("pos", "vel", "eps", "pi"), ref, got[:4]):
+            assert torch.equal(torch.isnan(a), torch.isnan(b)), name
+            assert torch.equal(torch.nan_to_num(a),
+                               torch.nan_to_num(b)), (case, name)
+
+
+@pytest.mark.parametrize("grad_mode", ["exact", "reference"])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_kernels_at_d3_match_plain(case, grad_mode, cuda_device,
+                                   variant_builds):
+    """The multi-step kernel at d = 3 (both layouts) and the analysis
+    kernel at d = 3 in both gradient modes against their plain versions,
+    and the analysis kernel's trip equal to the multi-step kernel's."""
+    cfg, st, dy, _tan = _built(case, cuda_device)
+    st, dy = _lift(st, dy, cfg, cuda_device)
+    kw = _kw(cfg, dy, int(dy.n_sub.max()))
+    kw.update(grad_mode=grad_mode)
+    args = (st.pos, st.vel, st.mass, st.eps, st.pi)
+    ref = hk.hamsoft_multistep_plain(*args, n_steps=6, **kw)
+    got = hk.hamsoft_multistep(*args, n_steps=6, **kw)
+    L0 = (st.mass[..., None] * torch.linalg.cross(st.pos, st.vel,
+                                                  dim=-1)).sum(1)
+    ana = hk.hamsoft_analysis_multistep(*args, L0, n_steps=6, interval=2,
+                                        **kw)
+    torch.cuda.synchronize()
+    for name, a, b, c in zip(("pos", "vel", "eps", "pi"), ref, got, ana):
+        _close(a, b, f"d3 {grad_mode} {name}")
+        assert torch.equal(torch.nan_to_num(b), torch.nan_to_num(c)), name
+
+
+@pytest.mark.parametrize("d", [2, 3])
+@pytest.mark.parametrize("clamp", [False, True])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_eps_kernel_fallback_matches_plain(case, clamp, d, cuda_device,
+                                           variant_builds):
+    """The eps kernel's "reference" fallback (``use_fallback``) against
+    its plain version, eps* to rtol 1e-6 and the gradient to rtol 1e-5 /
+    atol 1e-5, on the populations above and on the same systems spread
+    out 50 times (the SPH clip saturates there: the fallback fires)."""
+    from nbodysimproject_tpu_torch.ops import eps_kernels as ek
+
+    cfg, st, dy, _tan = _built(case, cuda_device)
+    if d == 3:
+        st, dy = _lift(st, dy, cfg, cuda_device)
+    pos = torch.cat([st.pos, 50.0 * st.pos], 0)
+    rows = (st.eps, dy.alpha_run, dy.min_softening, dy.max_softening)
+    rows = tuple(torch.cat([x, x], 0) for x in rows)
+    args = (pos, torch.cat([st.mass] * 2, 0), *rows,
+            torch.cat([st.mask] * 2, 0))
+    before = ek.eps_star_and_grad_fused.launches
+    es0, g0 = ek.eps_star_and_grad_fused_plain(*args, clamp=clamp,
+                                               use_fallback=True)
+    es1, g1 = ek.eps_star_and_grad_fused(*args, clamp=clamp,
+                                         use_fallback=True)
+    _es, gx = ek.eps_star_and_grad_fused_plain(*args, clamp=clamp,
+                                               use_fallback=False)
+    torch.cuda.synchronize()
+    assert ek.eps_star_and_grad_fused.launches == before + 1
+    _close(es0, es1, "eps*", rtol=1e-6, atol=0.0)
+    _close(g0, g1, "grad", rtol=1e-5, atol=1e-5)
+    assert bool(((g0 - gx).abs().amax((1, 2)) > 0).any())
+
+
+@pytest.mark.parametrize("clamp", [False, True])
+def test_eps_layouts_give_the_same_bits_with_the_fallback(clamp, cuda_device,
+                                                          variant_builds):
+    """The eps kernel's two layouts under ``use_fallback``: 3-body systems
+    in 3 slots and padded to 8 give equal bits, the fallback's median,
+    Omega and legacy gradients included."""
+    from nbodysimproject_tpu_torch.ops import eps_kernels as ek
+
+    rng = np.random.default_rng(3)
+    B = 256
+    f = lambda a: torch.as_tensor(a, dtype=torch.float32, device=cuda_device)
+    scale = np.where(np.arange(B) % 2 == 0, 0.05, 5.0)[:, None, None]
+    st, dy = build_batch(
+        f(rng.uniform(0.2, 1.0, size=(B, 3))),
+        f(scale * rng.normal(size=(B, 3, 2))),
+        f(0.3 * rng.normal(size=(B, 3, 2))),
+        torch.ones((B, 3), dtype=torch.bool, device=cuda_device),
+        nt.SimConfig(fast_float32=True), 1.0, 0.05, 0.0, 0.01)
+    pad = lambda x: torch.cat([x, torch.zeros_like(x[:, :1]).expand(
+        (-1, 5) + tuple(x.shape[2:]))], 1)
+    rows = (st.eps, dy.alpha_run, dy.min_softening, dy.max_softening)
+    es3, g3 = ek.eps_star_and_grad_fused(st.pos, st.mass, *rows, st.mask,
+                                         clamp=clamp, use_fallback=True)
+    es8, g8 = ek.eps_star_and_grad_fused(pad(st.pos), pad(st.mass), *rows,
+                                         pad(st.mask), clamp=clamp,
+                                         use_fallback=True)
+    _e, gx = ek.eps_star_and_grad_fused(st.pos, st.mass, *rows, st.mask,
+                                        clamp=clamp, use_fallback=False)
+    torch.cuda.synchronize()
+    bits = lambda x: x.contiguous().view(torch.int32)
+    assert torch.equal(bits(es3), bits(es8))
+    assert torch.equal(bits(g3), bits(g8[:, :3]))
+    assert bool((g8[:, 3:] == 0).all())
+    assert bool(((g3 - gx).abs().amax((1, 2)) > 0).any())
+
+
+def test_whfast_kernel_d3_matches_plain(cuda_device, variant_builds):
+    """The WHFast kernel at d = 3 on inclined planetary systems (B = 4096,
+    20 steps) against its plain version, rtol 1e-5 / atol 1e-6 as at
+    d = 2."""
+    from nbodysimproject_tpu_torch.ops import whfast_kernels as wk
+
+    q, v, m, e2 = _planets(4096, 3, cuda_device)
+    rng = np.random.default_rng(9)
+    inc = torch.as_tensor(rng.uniform(0.0, 0.1, (4096, 3, 1)),
+                          dtype=torch.float32, device=cuda_device)
+    q = torch.cat([q, q[..., :1] * inc], -1)
+    v = torch.cat([v, v[..., 1:] * inc], -1)
+    kw = dict(h=0.01, G=1.0, n_steps=20, iters=8)
+    before = wk.whfast_multistep.launches
+    k = wk.whfast_multistep(q, v, m, e2, **kw)
+    p = wk.whfast_multistep_plain(q, v, m, e2, **kw)
+    torch.cuda.synchronize()
+    assert wk.whfast_multistep.launches == before + 1
+    for name, a, b in zip(("pos", "vel"), p, k):
+        _close(a, b, name, 1e-5, 1e-6)

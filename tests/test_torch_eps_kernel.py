@@ -13,9 +13,11 @@
   float64, to round-off (rtol 1e-12 / atol 1e-12).
 * ``production_grad_omega``, the legacy gradient and
   ``integrators/hamsoft.py::grad_eps_target`` in float64, to round-off.
-* The "reference" gradient fallback raises ``NotImplementedError`` on
-  both routes; d = 3 at N = 3 against the interpret-mode kernel, with
-  the float32 tolerances above.
+* The "reference" gradient fallback on both routes (the plain kernel
+  against the interpret-mode kernel, the autograd evaluation against the
+  XLA one in float64); d = 3 at N = 3 against the interpret-mode kernel,
+  with the float32 tolerances above.  The other tests pass
+  ``use_fallback=False``, the exact gradient.
 
 Positions are drawn clustered (scale 0.05 against smoothing lengths of
 0.01-5), so the SPH clip does not saturate everywhere and the gradients
@@ -68,7 +70,7 @@ def test_fused_plain_matches_pallas_interpret(case, clamp):
         *(jnp.asarray(a) for a in args), eta=1.35, clamp=clamp,
         use_fallback=False, lanes=2, interpret=True)
     es, g = ek.eps_star_and_grad_fused(*(_t(a) for a in args), eta=1.35,
-                                       clamp=clamp)
+                                       clamp=clamp, use_fallback=False)
     g_ref = np.asarray(g_ref)
     assert np.abs(g_ref).max() > 0.1  # gradients are exercised
     np.testing.assert_allclose(es.numpy(), np.asarray(es_ref), rtol=1e-6)
@@ -98,7 +100,7 @@ def test_autograd_evaluation_matches_xla_float64(case, clamp):
     q, m, h0, alpha, emin, emax, mask = (_t(a) for a in args)
     es, g = tem.eps_star_and_grad(q, m, h0=h0, alpha=alpha, eps_min=emin,
                                   eps_max=emax, eta=1.35, clamp=clamp,
-                                  mask=mask)
+                                  mask=mask, use_fallback=False)
     assert np.abs(g_ref).max() > 0.1
     np.testing.assert_allclose(es.numpy(), es_ref, rtol=1e-12, atol=1e-12)
     np.testing.assert_allclose(g.numpy(), g_ref, rtol=1e-12, atol=1e-12)
@@ -160,28 +162,58 @@ def test_grad_eps_target_matches_float64():
 
 
 def test_reference_fallback_and_d3_raise():
-    """The "reference" fallback raises on both routes; d = 3 (the same
-    inputs with a drawn z column) is ported and held to the JAX Pallas
-    kernel in interpret mode with the tolerances above."""
+    """The "reference" fallback, once refused, on both routes: the plain
+    kernel against the JAX Pallas kernel in interpret mode with the
+    tolerances above, and the autograd evaluation against the JAX XLA
+    evaluation in float64 to round-off, both with ``use_fallback=True``
+    on these clustered inputs (where it fires on some systems); d = 3
+    (the same inputs with a drawn z column) held to the interpret-mode
+    kernel with the tolerances above."""
     import jax.numpy as jnp
 
     from nbodysimproject_tpu.ops.pallas_eps import eps_star_and_grad_fused
 
     args = _inputs(3, 3, False)
-    q, m, h0, alpha, emin, emax, mask = (_t(a) for a in args)
-    with pytest.raises(NotImplementedError):
-        ek.eps_star_and_grad_fused(q, m, h0, alpha, emin, emax, mask,
-                                   use_fallback=True)
-    with pytest.raises(NotImplementedError):
-        tem.eps_star_and_grad(q, m, h0=h0, alpha=alpha, eps_min=emin,
-                              eps_max=emax, mask=mask, use_fallback=True)
+    es_ref, g_ref = eps_star_and_grad_fused(
+        *(jnp.asarray(a) for a in args), eta=1.35, clamp=False,
+        use_fallback=True, lanes=2, interpret=True)
+    es, g = ek.eps_star_and_grad_fused(*(_t(a) for a in args), eta=1.35,
+                                       use_fallback=True)
+    np.testing.assert_allclose(es.numpy(), np.asarray(es_ref), rtol=1e-6)
+    np.testing.assert_allclose(g.numpy(), np.asarray(g_ref), rtol=1e-5,
+                               atol=1e-5)
+    _, g_exact = ek.eps_star_and_grad_fused(*(_t(a) for a in args),
+                                            eta=1.35, use_fallback=False)
+    assert bool(((g - g_exact).abs().amax((1, 2)) > 0).any())
+    args64 = _inputs(3, 3, False, dtype=np.float64)
+    es_x, g_x = _xla_fallback(args64)
+    q, m, h0, alpha, emin, emax, mask = (_t(a) for a in args64)
+    es, g = tem.eps_star_and_grad(q, m, h0=h0, alpha=alpha, eps_min=emin,
+                                  eps_max=emax, eta=1.35, mask=mask,
+                                  use_fallback=True)
+    np.testing.assert_allclose(es.numpy(), es_x, rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(g.numpy(), g_x, rtol=1e-12, atol=1e-12)
     z = 0.05 * np.random.default_rng(11).normal(size=args[0].shape[:2] + (1,))
     args3 = (np.concatenate([args[0], z.astype(np.float32)], -1),) + args[1:]
     es_ref, g_ref = eps_star_and_grad_fused(
         *(jnp.asarray(a) for a in args3), eta=1.35, clamp=False,
         use_fallback=False, lanes=2, interpret=True)
-    es, g = ek.eps_star_and_grad_fused(*(_t(a) for a in args3), eta=1.35)
+    es, g = ek.eps_star_and_grad_fused(*(_t(a) for a in args3), eta=1.35,
+                                       use_fallback=False)
     g_ref = np.asarray(g_ref)
     assert g.shape == args3[0].shape and np.abs(g_ref[..., 2]).max() > 0.1
     np.testing.assert_allclose(es.numpy(), np.asarray(es_ref), rtol=1e-6)
     np.testing.assert_allclose(g.numpy(), g_ref, rtol=1e-5, atol=1e-5)
+
+
+def _xla_fallback(args):
+    import jax
+
+    from nbodysimproject_tpu.ops import eps_model as jem
+
+    q, m, h0, alpha, emin, emax, mask = args
+    f = jax.vmap(lambda q_, m_, h_, a_, lo, hi, mk: jem.eps_star_and_grad(
+        q_, m_, h0=h_, alpha=a_, eps_min=lo, eps_max=hi, eta=1.35,
+        mask=mk, use_fallback=True))
+    es, g = f(q, m, h0, alpha, emin, emax, mask)
+    return np.asarray(es), np.asarray(g)

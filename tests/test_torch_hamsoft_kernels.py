@@ -162,15 +162,45 @@ def test_analysis_plain_matches_pallas_interpret(pop):
 @pytest.mark.parametrize("policy,grad_mode", [("reflection", "exact"),
                                               ("soft", "reference")])
 def test_uncovered_variants_raise(pop, policy, grad_mode):
+    """The analysis and MEGNO kernels' reflection policy and "reference"
+    gradient, which the port once refused, held to the port's scan engine
+    (``integrate_batch`` under the same configuration: the folds around
+    each flow, the XLA path's fallback) over 3 macro steps on the
+    unmasked bodies, as ``tests/test_hamsoft_variants.py`` holds the JAX
+    kernels to the JAX scan, with its ``_assert_parity`` tolerances.  The JAX kernels
+    themselves are held in ``tests/test_torch_kernel_variants*.py``."""
+    import dataclasses
+
+    from nbodysimproject_tpu_torch.core.state import state_from_numpy
+    from nbodysimproject_tpu_torch.parallel.batch_engine import \
+        integrate_batch
+
+    parity = {"pos": (2e-5, 2e-6), "vel": (2e-5, 2e-5), "eps": (1e-5, 1e-6),
+              "pi": (1e-3, 5e-5)}
     cfg, states, dyns, _keys, (dr0, dv0) = pop
     kw = _torch_kw(_kernel_kw(cfg, dyns))
+    T = 3
+    arrays = {f.name: np.asarray(getattr(x, f.name))
+              for x in (states, dyns) for f in dataclasses.fields(x)}
+    st, dy = state_from_numpy(arrays)
+    cfg_t = nt.SimConfig(integrator_mode="ham_soft", fast_float32=True,
+                         use_soft_barrier=policy == "soft",
+                         eps_grad_mode=grad_mode)
+    scan = integrate_batch(st, dy, cfg_t, 0.01, T, kw["n_sub_max"])
     args = (_t(states.pos), _t(states.vel), _t(states.mass), _t(states.eps),
             _t(states.pi))
-    with pytest.raises(NotImplementedError):
-        hk.hamsoft_analysis_multistep(*args, _t(states.eps), n_steps=2,
-                                      interval=1, policy=policy,
-                                      grad_mode=grad_mode, **kw)
-    with pytest.raises(NotImplementedError):
-        hk.hamsoft_megno_multistep(*args, _t(dr0), _t(dv0), dt=0.01,
-                                   n_steps=2, policy=policy,
-                                   grad_mode=grad_mode, **kw)
+    ana = hk.hamsoft_analysis_multistep(*args, _t(_lz(states)), n_steps=T,
+                                        interval=1, policy=policy,
+                                        grad_mode=grad_mode, **kw)
+    meg = hk.hamsoft_megno_multistep(*args, _t(dr0), _t(dv0), dt=0.01,
+                                     n_steps=T, policy=policy,
+                                     grad_mode=grad_mode, **kw)
+    # masked slots are padding, which the kernels drift and the scan
+    # holds: the bodies are compared where the mask is on
+    on = np.asarray(states.mask)
+    for what, out in (("analysis", ana), ("megno", meg)):
+        for name, got in zip(("pos", "vel", "eps", "pi"), out[:4]):
+            ref, got = getattr(scan, name).numpy(), got.numpy()
+            if ref.ndim == 3:
+                ref, got = ref[on], got[on]
+            _close(ref, got, f"{what}.{name}", *parity[name])

@@ -11,7 +11,10 @@ inside the walls).
 
 Tolerance: pos, vel, eps, pi to rtol 1e-4 / atol 1e-5 — float32
 rounding of two reduction orders and of autograd versus the
-hand-written reverse sweep, as for the analysis kernel.
+hand-written reverse sweep, as for the analysis kernel.  The same
+tolerance holds the "reference" gradient and d = 3 (a drawn z column)
+to the interpret-mode kernel; other branches are in
+``tests/test_torch_kernel_variants_multistep.py``.
 """
 
 import numpy as np
@@ -58,14 +61,42 @@ def test_multistep_plain_matches_pallas_interpret(pop, policy):
 
 
 def test_multistep_refusals(pop):
+    """The "reference" gradient and d = 3, once refused, held to the JAX
+    Pallas kernel in interpret mode with the tolerance above (d = 3: the
+    population with a drawn z column, built by the JAX package); an
+    unknown policy still raises."""
+    import jax.numpy as jnp
+
+    from nbodysimproject_tpu.ops.pallas_hamsoft import hamsoft_multistep
+    from nbodysimproject_tpu.parallel.batch_engine import build_batch
+
     cfg, states, dyns, _keys, _tan = pop
-    kw = base._torch_kw(base._kernel_kw(cfg, dyns))
+    kw = base._kernel_kw(cfg, dyns)
+    B = states.pos.shape[0]
     args = (base._t(states.pos), base._t(states.vel), base._t(states.mass),
             base._t(states.eps), base._t(states.pi))
+    ref = hamsoft_multistep(states.pos, states.vel, states.mass, states.eps,
+                            states.pi, n_steps=4, lanes=B // 8,
+                            interpret=True, grad_mode="reference", **kw)
+    got = hk.hamsoft_multistep(*args, n_steps=4, grad_mode="reference",
+                               **base._torch_kw(kw))
+    for name, a, b in zip(("pos", "vel", "eps", "pi"), ref, got):
+        base._close(a, b, f"reference.{name}")
     with pytest.raises(NotImplementedError):
-        hk.hamsoft_multistep(*args, n_steps=1, grad_mode="reference", **kw)
-    with pytest.raises(NotImplementedError):
-        hk.hamsoft_multistep(*args, n_steps=1, policy="bounce", **kw)
-    pos3 = torch.cat([args[0], torch.zeros_like(args[0][..., :1])], -1)
-    with pytest.raises(NotImplementedError):
-        hk.hamsoft_multistep(pos3, *args[1:], n_steps=1, **kw)
+        hk.hamsoft_multistep(*args, n_steps=1, policy="bounce",
+                             **base._torch_kw(kw))
+    z = np.random.default_rng(13).normal(size=states.pos.shape[:2] + (1,))
+    q3 = np.concatenate([np.asarray(states.pos), 0.05 * z], -1)
+    v3 = np.concatenate([np.asarray(states.vel), 0.1 * z], -1)
+    st3, dy3 = build_batch(states.mass, jnp.asarray(q3, jnp.float32),
+                           jnp.asarray(v3, jnp.float32), states.mask, cfg,
+                           1.0, 5e-2, 0.0, 0.01)
+    kw3 = base._kernel_kw(cfg, dy3)
+    ref = hamsoft_multistep(st3.pos, st3.vel, st3.mass, st3.eps, st3.pi,
+                            n_steps=4, lanes=B // 8, interpret=True, **kw3)
+    got = hk.hamsoft_multistep(base._t(st3.pos), base._t(st3.vel),
+                               base._t(st3.mass), base._t(st3.eps),
+                               base._t(st3.pi), n_steps=4,
+                               **base._torch_kw(kw3))
+    for name, a, b in zip(("pos", "vel", "eps", "pi"), ref, got):
+        base._close(a, b, f"d3.{name}")

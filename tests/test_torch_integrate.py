@@ -19,10 +19,11 @@ build their own batch from the same numpy arrays.
   equal the port's own build (classical and ham_soft fields).
 * whfast and kepler_split build and integrate (their parity tests are
   ``test_torch_whfast.py`` and ``test_torch_kepler_split.py``), WHFast
-  also on its large-N force routes; the "reference" gradient raises
-  ``NotImplementedError``.  ``build_batch`` at d = 3 (the same systems
-  with a drawn z column) equals the JAX package's in float64 to
-  round-off, for whfast, kepler_split and ham_soft.
+  also on its large-N force routes; the ham_soft scan under the
+  "reference" gradient in float64 to round-off.  ``build_batch`` at
+  d = 3 (the same systems with a drawn z column) equals the JAX
+  package's in float64 to round-off, for whfast, kepler_split and
+  ham_soft.
 """
 
 import dataclasses
@@ -230,13 +231,25 @@ def test_unported_modes_raise(mode):
 
 
 def test_reference_gradient_and_d3_raise():
-    """The "reference" gradient raises; the ham_soft construction at
-    d = 3 equals the JAX package's."""
-    m, q, v, mask = (torch.as_tensor(a) for a in _bench_ics(B=4))
-    cfg = nt.SimConfig(eps_grad_mode="reference")
-    st, dt = build_batch(m, q, v, mask, nt.SimConfig(), 1.0, 5e-2, 0.0, 0.01)
-    with pytest.raises(NotImplementedError):
-        integrate_batch(st, dt, cfg, 0.01, 1, 1)
+    """The "reference" gradient, once refused: the ham_soft scan under it
+    (its XLA-path fallback) equals the JAX package's over 10 macro steps
+    in float64 to round-off, and the fallback changes the run; the
+    ham_soft construction at d = 3 equals the JAX package's."""
+    import jax.numpy as jnp
+
+    from nbodysimproject_tpu.parallel import integrate_batch as jint
+
+    ics = _bench_ics(B=8)
+    (cj, sj, dj), (ct, st, dt) = _build_both("ham_soft", ics, np.float64)
+    cj = cj.replace(eps_grad_mode="reference")
+    ref_cfg = ct.replace(eps_grad_mode="reference")
+    nsm = int(np.asarray(dj.n_sub).max())
+    out = integrate_batch(st, dt, ref_cfg, 0.01, 10, nsm)
+    _assert_state(jint(sj, dj, cj, jnp.float64(0.01), 10, nsm), out,
+                  STATE_OUT, 1e-10, 1e-12, "ham_soft reference integrate")
+    exact = integrate_batch(st, dt, ct, 0.01, 10, nsm)
+    assert not torch.equal(exact.vel, out.vel)
+    m, q, v, mask = (torch.as_tensor(a) for a in ics)
     q3, v3 = lift_3d(q.numpy(), v.numpy())
     assert_build_3d_matches(dict(integrator_mode="ham_soft"), m.numpy(), q3,
                             v3, mask.numpy(), 5e-2)

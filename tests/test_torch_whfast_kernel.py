@@ -17,7 +17,8 @@ seeded perturbations; eps^2 = 1e-6).
   the kernel's reciprocal masses and exp-based cosh/sinh round apart).
 * A zero-mass padded slot stays inert to 1e-12.
 * On CPU tensors the wrapper runs the plain version (no launch); it
-  refuses d != 2, n_steps < 1 and N > 8.
+  refuses d other than 2 and 3 (d = 3: ``tests/test_torch_d3_variants.py``),
+  n_steps < 1 and N > 8.
 """
 
 import numpy as np
@@ -84,10 +85,9 @@ def test_masked_slots_stay_inert():
 def test_kernel_wrapper_refuses_what_it_was_not_built_for():
     q, v, m, e2 = (torch.as_tensor(a) for a in _kernel_args(np.float32,
                                                              B=4))
-    with pytest.raises(NotImplementedError, match="d = 2"):
-        wk.whfast_multistep(torch.cat([q, q[..., :1]], -1),
-                            torch.cat([v, v[..., :1]], -1), m, e2, h=0.01,
-                            G=1.0, n_steps=1)
+    with pytest.raises(NotImplementedError, match="d = 4"):
+        wk.whfast_multistep(torch.cat([q, q], -1), torch.cat([v, v], -1),
+                            m, e2, h=0.01, G=1.0, n_steps=1)
     with pytest.raises(ValueError, match="n_steps"):
         wk.whfast_multistep(q, v, m, e2, h=0.01, G=1.0, n_steps=0)
     with pytest.raises(NotImplementedError, match="N <= 8"):
