@@ -70,10 +70,11 @@ routes; ``csrc/pairwise_force.cu``).  Phases (each prints its seconds):
    Stumpff evaluations that take the closed form;
 6. main path: ``analyze_population(mode="full", n_steps=1000, dt=0.01)``
    on all 16384 systems under ``_PIPE_CFG`` (tail on), one cold and
-   WARM_REPS warm runs with the tail on its own stream, one with the tail
-   after the fused call; the tail's count and n_tail
-   histogram, the deepest fused lane, the fused call's and the tail's
-   device time; the launch counts read around the cold run;
+   WARM_REPS warm runs with the tail on its own stream (the run with the
+   tail after the fused call is phase 22's, at its horizon); the tail's
+   count and n_tail histogram, the deepest fused lane, the fused call's
+   and the tail's device time; the launch counts read around the cold
+   run; no lane off the tail on the scan engine (gated);
 7. the tail-off run of the same population (one run): non-tail rows
    bitwise equal to the main path's (gated), labels of the tail rows
    beside it and beside the dataset, labels of the other rows beside
@@ -205,12 +206,34 @@ routes; ``csrc/pairwise_force.cu``).  Phases (each prints its seconds):
    error against direct_pallas (p99 gated);
 21. the tiled force kernel alone at its paths' widths (the classical
    route's N = 4096, the 65536-planet kick, 10^5 and 10^6): many
-   launches back to back between CUDA events, with its bound.
+   launches back to back between CUDA events, with its bound;
+22. the scan route: phase 3's rows through ``analyze_population``, one
+   cold run each under ``_PIPE_CFG`` with ``use_fused_analysis=False``,
+   ``fast_float32=False``, verlet, WHFast, ``use_fused_megno=False`` and
+   ``early_exit_probe=0.1``, at the depths of SCAN_ROUTES (the dataset's
+   1000 steps cut for the time limit, the eager scan being bound by its
+   launches; systems/s, ``timing_out``'s phases and lanes per engine);
+   the scan's lanes in one call against one call per ladder bucket;
+   gated: row 4 launched
+   on the float32 ham_soft scan and not on the float64 and classical
+   runs, rows 1 and 2 not on those scan runs, row 1 on the probe and
+   ``use_fused_megno=False`` runs and row 2 not on the latter, the
+   probe's survivors bit for bit a fused run at the same steps without
+   it and its aborted rows' drift non-finite or above 10, that run bit
+   for bit the same with the tail after the fused call on the same
+   stream; then the first 256 rows with n_sub <= 4 at 20 steps under
+   each route, mode "minimal" and per-system G, the card against the
+   same port on the CPU (float64 within F64_TOL with is_stable equal,
+   a row outside it allowed only where the CPU's run on reversed body
+   slots lies outside it too; float32 is_stable gated at LABEL_GATE,
+   rows outside TOL allowed only where the CPU's float32 run lies
+   outside TOL of its float64 run, and on at most MAX_WIDENED others).
 
 It prints a ``{"kernels": [...]}`` line (the seven kernels, rows 1, 2
 and 4 again at d = 3, rows 1 and 2 under each branch of phase 11, row 3
-under the "reference" gradient and at d = 3, row 4's fallback and row 6
-at d = 3) and, last, the device line.  Any
+under the "reference" gradient and at d = 3, row 4's fallback, row 6
+at d = 3, and rows 1 and 4 on the scan route) and, last, the device
+line.  Any
 failed check raises, so the script exits non-zero; without a CUDA
 device it exits non-zero before printing any result.  It writes
 nothing outside the build directory.
@@ -1197,10 +1220,10 @@ BENCH_Q = ((0.0, 0.0), (1.0, 0.0), (0.0, 2.0))
 BENCH_V = ((0.0, 0.0), (0.0, 1.0), (-0.5, 0.0))
 #: the six legs' widths and horizons (bench.py:44-340)
 B_SCAN, SCAN_STEPS = 16384, 1000
-#: the eager WHFast scan leg's depth, cut from 1000 steps and from 200
-#: so the script keeps inside its time limit; its rate is per
-#: system-step
-WH_SCAN_STEPS = 100
+#: the eager WHFast scan leg's depth, cut from 1000 steps, from 200 and
+#: from 100 (to pay for the scan route's phase, 22) so the script keeps
+#: inside its time limit; its rate is per system-step
+WH_SCAN_STEPS = 50
 B_VERLET_FUSED, B_Y4_FUSED, B_HS = 1 << 24, 1 << 22, 1 << 20
 HS_STEPS, HS_NSUB_CAP = 100, 50
 FUSED_EPS2 = 1e-6
@@ -2605,8 +2628,9 @@ MODEL_PREFIX = os.path.join(HERE, "data", "headline_pre_")
 #: the time limit: their Kepler tail runs up to 7 trips a step, eagerly,
 #: which took 99-187 s a 1000-step run on the card; the bench
 #: population's cut from 250 to 125 steps with the fused engine's
-#: branches, and to 60 steps after a slow host's 1,214.5 s
-BENCH_STEPS = 60
+#: branches, to 60 steps after a slow host's 1,214.5 s, and to 30 steps
+#: to pay for the scan route's phase (22)
+BENCH_STEPS = 30
 ENTRY_STEPS = 500
 #: warm runs of the bench population (one cold run before them), cut
 #: from 3 to keep the script inside its time limit once the 3-D phase
@@ -3546,6 +3570,331 @@ def phase_branches(cfg, cfg_off, hk, ek, wk, dev, tangent_of, pop, states,
     return out
 
 
+# ------------------------------------------------------- the scan route
+#: the runs of the scan route on the dataset rows: label, the changes to
+#: _PIPE_CFG, n_steps; each is one cold run.  The dataset's 1000 steps
+#: are cut for the time limit, by route: the eager scan is bound by its
+#: launches, and each macro step runs the deepest lane's 256 trips (on
+#: an H100, ~2.4 s a macro step for the float32 ham_soft scan, ~6.7 s
+#: for the float64 one, whose eps* solve is autograd's, ~8.2 s for
+#: WHFast's adaptive Kepler solver at up to 33 trips); 2 steps is the
+#: least that runs the MEGNO continuation (one step), 20 the least the
+#: probe runs at
+SCAN_ROUTES = (
+    ("use_fused_analysis=False", dict(use_fused_analysis=False), 2),
+    ("float64", dict(fast_float32=False), 2),
+    ("verlet", dict(integrator_mode="verlet"), 100),
+    ("whfast", dict(integrator_mode="whfast"), 2),
+    ("use_fused_megno=False", dict(use_fused_megno=False), 2),
+    ("early-exit probe", dict(early_exit_probe=0.1), 100),
+)
+#: the card against the same port on the CPU: the first SCAN_CPU_ROWS
+#: rows of the population whose frozen n_sub is at most SCAN_CPU_NSUB (on
+#: the CPU the scan is bound by its operations' dispatch too, and the
+#: first 256 rows hold lanes at n_sub 256, whose trips would set every
+#: route's time), at SCAN_CPU_STEPS steps, under each route above (the probe
+#: with early_exit_min_n_sub lowered to SCAN_CPU_PROBE_NSUB, so that
+#: these rows are probed), mode "minimal" and per-system G
+SCAN_CPU_ROWS = 256
+SCAN_CPU_NSUB = 4
+SCAN_CPU_STEPS = 20
+SCAN_CPU_PROBE_NSUB = 2
+#: steps of the grouping measurement: the float32 ham_soft scan's lanes
+#: in one call against one call per n_sub bucket of the ladder
+SCAN_GROUP_STEPS = 1
+#: per-system G of that comparison: a seeded numpy draw in this range
+SCAN_G_RANGE = (0.9, 1.1)
+#: float64 rows, card against CPU: relative 1e-9 and, for the drift
+#: columns (differences of O(1) quantities, O(1e-16) absolute error on
+#: values that may be near 0), absolute 1e-12; a row outside it is
+#: allowed only where the CPU's own run on reversed body slots (every
+#: sum in another order) lies outside it too: a chaotic row amplifies
+#: the card's FMA roundings to ~1e-8 in 30 steps (one of the 256 rows
+#: on an H100), as it does the reordered sums
+F64_TOL = (1e-9, 1e-12)
+
+
+def scan_route_run(label, cfg_r, pop, kw, hk, ek):
+    """One cold run of ``analyze_population`` under ``cfg_r`` on the
+    phase's population: systems/s, ``timing_out``'s phases and lanes
+    per engine, the launches of rows 1, 2 and 4 read around it."""
+    from nbodysimproject_tpu_torch import analyze_population
+
+    counted = (hk.hamsoft_analysis_multistep, hk.hamsoft_megno_multistep,
+               ek.eps_star_and_grad_fused)
+    reset_counts(*counted)
+    tm = {}
+    t0 = time.perf_counter()
+    df = analyze_population(*pop, cfg_r, timing_out=tm, **kw)
+    s = time.perf_counter() - t0
+    launches = {f.__name__: f.launches for f in counted}
+    B = len(df)
+    print(f"  {label}: {s:.3f}s = {B / s:.1f} systems/s; lanes fused "
+          f"{tm['fused_lanes']}, scan {tm['scan_lanes']}, tail "
+          f"{tm['n_tail']}, probed {tm['probe_lanes']}, aborted "
+          f"{tm['n_early_exit']}; device ms fused {tm['fused_ms']:.1f}, "
+          f"scan {tm['scan_ms']:.1f}, tail {tm['tail_ms']:.1f}, probe "
+          f"{tm['probe_ms']:.1f}; launches {launches}; phases "
+          f"{ {k: v for k, v in tm.items() if k.endswith('_s')} }",
+          flush=True)
+    if tm["fused_lanes"] + tm["scan_lanes"] + tm["n_tail"] \
+            + tm["n_early_exit"] != B:
+        raise SystemExit(f"{label}: the lanes do not add up: {tm}")
+    check_output(df, label)
+    return df, dict(s=s, tm=tm, launches=launches)
+
+
+def scan_route_cpu(label, cfg_r, pop, G, soft, min_soft, mode, n_sub_raw):
+    """The first SCAN_CPU_ROWS rows with n_sub <= SCAN_CPU_NSUB at
+    SCAN_CPU_STEPS steps on the card and on the CPU (the kernels' plain
+    versions), the same tangents: float64 within F64_TOL with is_stable
+    equal, a row outside it allowed only where the CPU's run on reversed
+    body slots lies outside it too; float32 is_stable
+    agreement gated at LABEL_GATE and the rows outside TOL counted,
+    allowed only where the CPU's own float32 run lies outside TOL of its
+    float64 run (the row's rounding sensitivity), and on at most
+    MAX_WIDENED others."""
+    from nbodysimproject_tpu_torch import analyze_population
+    from nbodysimproject_tpu_torch.analysis.batch import prepare_population
+    from nbodysimproject_tpu_torch.diagnostics.megno import (
+        init_tangent, population_normals)
+
+    rows = np.nonzero(n_sub_raw <= SCAN_CPU_NSUB)[0][:SCAN_CPU_ROWS]
+    sub = tuple(a[rows] for a in pop)
+    g = G[rows] if np.ndim(G) else G
+    kw = dict(G=g, softening=soft[rows], min_softening=min_soft[rows],
+              dt=DT, n_steps=SCAN_CPU_STEPS, mode=mode, show_progress=False)
+    f64 = not cfg_r.fast_float32
+    dtype = torch.float64 if f64 else torch.float32
+
+    def tangent(dt_):
+        st, _dy, _ns = prepare_population(
+            *sub, cfg_r.replace(fast_float32=dt_ == torch.float32), G=g,
+            softening=soft[rows], min_softening=min_soft[rows], dt=DT,
+            device=torch.device("cpu"))
+        z1, z2 = population_normals(5, len(rows), tuple(sub[1].shape[1:]),
+                                    dt_)
+        return init_tangent(z1, z2, st)
+
+    tan = tangent(dtype)
+    t0 = time.perf_counter()
+    card = analyze_population(*sub, cfg_r, tangent=tan, **kw)
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = analyze_population(*sub, cfg_r, tangent=tan, device="cpu", **kw)
+    t_cpu = time.perf_counter() - t0
+    cols = [c for c in TOL if c in cpu.columns]
+    a_st = card["is_stable"].to_numpy()
+    b_st = cpu["is_stable"].to_numpy()
+    agree = float((a_st == b_st).mean())
+    worst = 0.0
+    if f64:
+        rtol, atol = F64_TOL
+        bad = np.zeros(len(rows), bool)
+        why = {}
+        for c in cols:
+            a, b = cpu[c].to_numpy(float), card[c].to_numpy(float)
+            o = _outside(a, b, rtol, atol)
+            bad |= o
+            if o.any():
+                why[c] = int(o.sum())
+            fin = np.isfinite(a) & np.isfinite(b)
+            worst = max(worst, float(np.abs(a[fin] - b[fin]).max(
+                initial=0.0)))
+        sens = np.zeros(len(rows), bool)
+        if bad.any():
+            # the CPU's own float64 rounding sensitivity: its run on the
+            # body slots reversed (every sum in another order)
+            rev = slice(None, None, -1)
+            cpu_rev = analyze_population(
+                *(a[:, rev] for a in sub), cfg_r, device="cpu",
+                tangent=(tan[0].flip(1), tan[1].flip(1)), **kw)
+            for c in cols:
+                sens |= _outside(cpu[c].to_numpy(float),
+                                 cpu_rev[c].to_numpy(float), rtol, atol)
+        other = int((bad & ~sens).sum())
+        print(f"  card against CPU, {label} (float64, {len(rows)} rows, "
+              f"{SCAN_CPU_STEPS} steps): card {t_card:.2f}s, CPU "
+              f"{t_cpu:.2f}s; rows outside F64_TOL {int(bad.sum())} "
+              f"(by column {why}; n_sub "
+              f"{n_sub_raw[rows][bad].tolist()}), {other} of them where "
+              f"the CPU's run on reversed body slots lies within F64_TOL "
+              f"of it; is_stable agrees on {agree:.4f}, largest "
+              f"|card - CPU| {worst:.3e}", flush=True)
+        if other or agree < 1.0:
+            raise SystemExit(f"scan route {label}: float64 card and CPU "
+                             f"differ on {other} rounding-stable rows, "
+                             f"is_stable {agree:.4f}")
+        return dict(card_s=t_card, cpu_s=t_cpu, outside=int(bad.sum()),
+                    other=other, agree=agree)
+    out = np.zeros(len(rows), bool)
+    for c in cols:
+        rtol, atol = TOL[c]
+        a, b = cpu[c].to_numpy(float), card[c].to_numpy(float)
+        out |= _outside(a, b, rtol, atol)
+        fin = np.isfinite(a) & np.isfinite(b)
+        worst = max(worst, float(np.abs(a[fin] - b[fin]).max(initial=0.0)))
+    sens = np.zeros(len(rows), bool)
+    if out.any():
+        # the CPU's own float32 rounding sensitivity: its float64 run of
+        # the same route and tangents
+        cpu64 = analyze_population(
+            *sub, cfg_r.replace(fast_float32=False), device="cpu",
+            tangent=tangent(torch.float64), **kw)
+        for c in cols:
+            rtol, atol = TOL[c]
+            sens |= _outside(cpu64[c].to_numpy(float), cpu[c].to_numpy(float),
+                             rtol, atol)
+    other = int((out & ~sens).sum())
+    print(f"  card against CPU, {label} (float32, {len(rows)} rows, "
+          f"{SCAN_CPU_STEPS} steps): card {t_card:.2f}s, CPU {t_cpu:.2f}s; "
+          f"rows outside TOL {int(out.sum())}, {other} of them (at most "
+          f"{MAX_WIDENED}) where the CPU's float32 run lies within TOL of "
+          f"its float64 run; is_stable agrees on {agree:.4f} (gated >= "
+          f"{LABEL_GATE}), largest |card - CPU| {worst:.3e}", flush=True)
+    if agree < LABEL_GATE or other > MAX_WIDENED:
+        raise SystemExit(f"scan route {label}: card and CPU disagree "
+                         f"(is_stable {agree:.4f}, {other} rows outside TOL)")
+    return dict(card_s=t_card, cpu_s=t_cpu, outside=int(out.sum()),
+                other=other, agree=agree)
+
+
+def scan_grouping(cfg, states, dyns, n_sub_raw, sel):
+    """The float32 ham_soft scan's lanes (all but the tail's) in one call
+    against one call per n_sub bucket of the ladder (the JAX package's
+    grouping), core mode, SCAN_GROUP_STEPS steps: seconds of each, the
+    host clock around them after a sync."""
+    from nbodysimproject_tpu_torch.analysis.batch import (
+        _bucket_ladder_values, _n_sub_cap)
+    from nbodysimproject_tpu_torch.analysis.stability import analyze_batch
+
+    cfg_u = cfg.replace(use_fused_analysis=False)
+    idx = np.nonzero(~sel)[0]
+    ns = np.minimum(n_sub_raw, _n_sub_cap(cfg))
+    b = _bucket_ladder_values(ns[idx])
+
+    def run(groups):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for g in groups:
+            lanes = torch.as_tensor(g, device=states.pos.device)
+            nsm = int(ns[g].max())
+            analyze_batch(states.take(lanes), dyns.take(lanes), cfg_u,
+                          SCAN_GROUP_STEPS, DT, "core", nsm, 0, trips=nsm)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    one = run([idx])
+    ladder = run([idx[b == v] for v in np.unique(b)])
+    print(f"  grouping of the scan's {len(idx)} lanes ({SCAN_GROUP_STEPS} "
+          f"step, core): one call {one:.3f}s, one call per ladder bucket "
+          f"({len(np.unique(b))} calls) {ladder:.3f}s", flush=True)
+    return one, ladder
+
+
+def phase_scan_route(cfg, hk, ek, pop, G, soft, min_soft, prepared, sel):
+    """Phase 22: analyze_population's scan route on the dataset rows."""
+    from nbodysimproject_tpu_torch import analyze_population
+
+    t_phase = time.perf_counter()
+    states, dyns, n_sub_raw = prepared
+    kw = dict(G=G, softening=soft, min_softening=min_soft, dt=DT,
+              mode="full", show_progress=False)
+    out = {"runs": {}}
+    df_p = None
+    for label, change, steps in SCAN_ROUTES:
+        df, out["runs"][label] = scan_route_run(
+            label, cfg.replace(**change), pop, dict(kw, n_steps=steps), hk,
+            ek)
+        out["runs"][label]["steps"] = steps
+        if label == "early-exit probe":
+            df_p, probe_steps = df, steps
+        del df
+        torch.cuda.empty_cache()
+    runs = out["runs"]
+    la = {k: v["launches"] for k, v in runs.items()}
+    row_1, row_2, row_4 = ("hamsoft_analysis_multistep",
+                           "hamsoft_megno_multistep",
+                           "eps_star_and_grad_fused")
+    scans = ("use_fused_analysis=False", "float64", "verlet", "whfast")
+    gates = {
+        "row 4 on the float32 ham_soft scan":
+            la["use_fused_analysis=False"][row_4] > 0,
+        "row 4 off the float64 and classical runs":
+            all(la[k][row_4] == 0 for k in ("float64", "verlet", "whfast")),
+        "rows 1 and 2 off the scan runs":
+            all(la[k][row_1] == 0 and la[k][row_2] == 0 for k in scans),
+        "the scan runs' lanes on the scan engine":
+            all(runs[k]["tm"]["engine"] == "scan"
+                and runs[k]["tm"]["fused_lanes"] == 0 for k in scans),
+        "row 1 on the probe and use_fused_megno=False runs":
+            la["early-exit probe"][row_1] > 0
+            and la["use_fused_megno=False"][row_1] > 0,
+        "row 2 off the use_fused_megno=False run":
+            la["use_fused_megno=False"][row_2] == 0,
+        "the probe probed": runs["early-exit probe"]["tm"]["probe_lanes"] > 0,
+    }
+    print(f"  gates: {gates}")
+    failed = [k for k, v in gates.items() if not v]
+    if failed:
+        raise SystemExit(f"scan route: {failed}")
+    # the probe's survivors against a fused run at the same steps without
+    # the probe, and that run against the same with the tail after the
+    # fused call on the same stream (the side stream changes no row)
+    kw_p = dict(kw, n_steps=probe_steps)
+    t0 = time.perf_counter()
+    df_f = analyze_population(*pop, cfg, **kw_p)
+    t_fused = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    df_s = analyze_population(*pop, cfg, tail_stream=False, **kw_p)
+    t_serial = time.perf_counter() - t0
+    early = df_p["early_exit"].to_numpy(bool)
+    keep = ~early
+    differ = [c for c in df_f.columns if not np.array_equal(
+        df_f[c].to_numpy()[keep], df_p[c].to_numpy()[keep],
+        equal_nan=df_f[c].dtype.kind == "f")]
+    drift = df_p["energy_drift"].to_numpy(float)[early]
+    with np.errstate(invalid="ignore"):
+        bad_abort = int((np.isfinite(drift) & (np.abs(drift) <= 10.0)).sum())
+    chaos_nan = bool(np.isnan(df_p.loc[early, list(MEGNO_COLS)].to_numpy(
+        float)).all())
+    side = [c for c in df_f.columns if not np.array_equal(
+        df_f[c].to_numpy(), df_s[c].to_numpy(),
+        equal_nan=df_f[c].dtype.kind == "f")]
+    print(f"  the fused run without the probe ({probe_steps} steps) "
+          f"{t_fused:.3f}s ({len(df_f) / t_fused:.1f} systems/s), the tail "
+          f"after it on the same stream {t_serial:.3f}s "
+          f"({len(df_f) / t_serial:.1f} systems/s); {int(keep.sum())} "
+          f"survivors bitwise equal to it: {not differ}; {int(early.sum())} "
+          f"aborted rows, {bad_abort} of them with a finite drift <= 10, "
+          f"their chaos columns NaN: {chaos_nan}; side stream and same "
+          f"stream equal: {not side}", flush=True)
+    if differ or bad_abort or not chaos_nan or side:
+        raise SystemExit(f"scan route: probe survivors differ in {differ}, "
+                         f"{bad_abort} aborted rows below the threshold, "
+                         f"chaos NaN {chaos_nan}, side stream {side}")
+    out.update(fused_s=t_fused, serial_s=t_serial, aborted=int(early.sum()),
+               probe_steps=probe_steps)
+    del df_p, df_f, df_s
+    torch.cuda.empty_cache()
+    out["grouping"] = scan_grouping(cfg, states, dyns, n_sub_raw, sel)
+    # the card against the port on the CPU
+    g_rows = np.random.default_rng(22).uniform(*SCAN_G_RANGE, len(G))
+    cpu_cases = [(label, cfg.replace(**change), G, "full")
+                 for label, change, _steps in SCAN_ROUTES]
+    cpu_cases = [(label, c.replace(early_exit_min_n_sub=SCAN_CPU_PROBE_NSUB)
+                  if c.early_exit_probe else c, g, mode)
+                 for label, c, g, mode in cpu_cases]
+    cpu_cases += [("minimal", cfg, G, "minimal"),
+                  ("per-system G", cfg, g_rows, "full")]
+    out["cpu"] = {label: scan_route_cpu(label, c, pop, g, soft, min_soft,
+                                        mode, n_sub_raw)
+                  for label, c, g, mode in cpu_cases}
+    out["s"] = time.perf_counter() - t_phase
+    print(f"  the scan route's phase {out['s']:.1f}s")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3689,6 +4038,10 @@ def main():
     if tm["n_tail"] != int(sel.sum()) or not np.array_equal(
             df["tail_fast_path"].to_numpy(bool), sel):
         raise SystemExit("the main path's tail differs from its selection")
+    if tm["engine"] != "fused" or tm["scan_lanes"] != 0 \
+            or tm["fused_lanes"] != B_MAIN - tm["n_tail"]:
+        raise SystemExit(f"the main path sent lanes off the tail to the "
+                         f"scan engine: {tm}")
     warm, fused_ms, tail_ms = [], [], []
     for _ in range(WARM_REPS):
         tm = {}
@@ -3706,21 +4059,6 @@ def main():
           f"{np.median(fused_ms):.1f} ms, tail {np.median(tail_ms):.1f} ms "
           f"(medians, device time)")
     check_output(df, "tail on")
-    tm = {}
-    t0 = time.perf_counter()
-    df_serial = analyze_population(mass, pos, vel, mask, cfg,
-                                   timing_out=tm, tail_stream=False, **kw)
-    t_serial = time.perf_counter() - t0
-    print(f"  tail after the fused call, same stream: {t_serial:.3f}s "
-          f"({B_MAIN / t_serial:.1f} systems/s); fused call "
-          f"{tm['fused_ms']:.1f} ms, tail {tm['tail_ms']:.1f} ms; phases "
-          f"{tm}")
-    differ = [c for c in df.columns if not np.array_equal(
-        df[c].to_numpy(), df_serial[c].to_numpy(),
-        equal_nan=df[c].dtype.kind == "f")]
-    if differ:
-        raise SystemExit(f"the side stream changes rows: {differ}")
-    del df_serial
 
     phase("tail off: bitwise non-tail rows, labels")
     t0 = time.perf_counter()
@@ -3910,6 +4248,13 @@ def main():
     phase("the large-N slice: the tiled force kernel alone at its paths' "
           "widths")
     alone = force_alone(fk, dev, evals)
+    del evals, rolls
+    torch.cuda.empty_cache()
+
+    phase("the scan route: analyze_population for every configuration the "
+          "fused engine does not take, on the dataset rows")
+    scan = phase_scan_route(cfg, hk, ek, (mass, pos, vel, mask), G, soft,
+                            min_soft, (states, dyns, n_sub_raw), sel)
 
     phase("report")
     entries = []
@@ -4085,6 +4430,33 @@ def main():
           f"{cd3['launch_bound'][0]:.4f} ms)")
     print(f"  the branches' phase {branches['s']:.1f}s; the fallback's share "
           f"at t = 0 {branches['shares']}")
+    # rows 1 and 4 on the scan route: their launches in phase 22's runs,
+    # their compare cases at the same shapes (N = 8 dataset rows)
+    ms, plain_ms, err, ns, steps, msteps, nsm, _sh = cases[1]["analysis"]
+    b_ms, b_by = bound("analysis", ns, nsm, steps, msteps, N_SLOTS, 2)
+    c = new_cmp["eps dataset clamp=True"]
+    for name, src, replaces, launches, row in (
+            ("hamsoft_analysis_multistep scan route", "hamsoft.cu",
+             "nbodysimproject_tpu/ops/pallas_hamsoft.py:565",
+             sum(r["launches"]["hamsoft_analysis_multistep"]
+                 for r in scan["runs"].values()),
+             dict(max_abs_err=max(err, cases[0]["analysis"][2]), ms=ms,
+                  plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)),
+            ("eps_star_and_grad_fused scan route", "eps_grad.cu",
+             "nbodysimproject_tpu/ops/pallas_eps.py:50",
+             sum(r["launches"]["eps_star_and_grad_fused"]
+                 for r in scan["runs"].values()),
+             dict(max_abs_err=max(v["err"] for k, v in new_cmp.items()
+                                  if k.startswith("eps dataset")),
+                  ms=c["ms"], plain_ms=c["plain_ms"], bound_ms=c["bound"][0],
+                  bound_by=c["bound"][1]))):
+        entries.append({"name": name, "route": "cuda",
+                        "source": f"nbodysimproject_tpu_torch/csrc/{src}",
+                        "replaces": replaces, "launches": launches, **row,
+                        "library_ms": None})
+        print(f"  {name}: launches in phase 22's runs {launches}; compare "
+              f"case kernel {row['ms']:.3f} ms, plain {row['plain_ms']:.3f} "
+              f"ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
     c = force_cmp["N=1e5"]
     main_roll = ln_rolls[("direct_pallas", 100_000)]
     entries.append({
@@ -4146,9 +4518,26 @@ def main():
         print(f"  leg {leg}: cold {cold:.1f} ms, warm median {med:.3f} ms, "
               f"drift(sys0) {dr:.3e}")
     print(f"  main path (tail on): warm median {t_med:.3f}s = "
-          f"{B_MAIN / t_med:.1f} systems/s; tail after the fused call "
-          f"{t_serial:.3f}s ({B_MAIN / t_serial:.1f} systems/s); tail off "
-          f"{t_off:.3f}s ({B_MAIN / t_off:.1f} systems/s)")
+          f"{B_MAIN / t_med:.1f} systems/s; tail off "
+          f"{t_off:.3f}s ({B_MAIN / t_off:.1f} systems/s); at "
+          f"{scan['probe_steps']} steps (phase 22) {scan['fused_s']:.3f}s, "
+          f"the tail after the fused call {scan['serial_s']:.3f}s "
+          f"({B_MAIN / scan['serial_s']:.1f} systems/s)")
+    print(f"  the scan's lanes in one call {scan['grouping'][0]:.3f}s, one "
+          f"call per ladder bucket {scan['grouping'][1]:.3f}s "
+          f"({SCAN_GROUP_STEPS} step, core)")
+    for label, run in scan["runs"].items():
+        tm = run["tm"]
+        print(f"  scan route {label} ({run['steps']} steps): "
+              f"{run['s']:.3f}s = {B_MAIN / run['s']:.1f} systems/s; engine "
+              f"{tm['engine']}, lanes fused {tm['fused_lanes']} / scan "
+              f"{tm['scan_lanes']} / tail {tm['n_tail']} / aborted "
+              f"{tm['n_early_exit']}; launches {run['launches']}")
+    for label, c in scan["cpu"].items():
+        print(f"  scan route card against CPU, {label}: is_stable "
+              f"{c['agree']:.4f}, rows outside the tolerance {c['outside']}"
+              f"; card {c['card_s']:.2f}s, CPU {c['cpu_s']:.2f}s")
+    print(f"  the scan route's phase {scan['s']:.1f}s")
     for kind, (ms, per_trip) in main_ms.items():
         print(f"  {kind} kernel on the main path: {ms:.1f} ms, {per_trip:.3f}"
               f" us per trip of the deepest lane; top-bucket case "

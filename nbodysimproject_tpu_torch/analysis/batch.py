@@ -3,28 +3,30 @@
 Counterpart of ``nbodysimproject_tpu/analysis/batch.py``
 (``analyze_population``; parity:
 ``minbody/batch_stability_analyzer.py:30-102``).  The population is one
-set of ``(B, N, d)`` tensors, built in one batched construction and
-analysed by the fused engine in one call, its lanes ordered by n_sub
-bucket on the ladder (``dispatch_plan``).  The kernels run each lane's
-own n_sub, so a row does not depend on the lanes beside it.
+set of ``(B, N, d)`` tensors, built in one batched construction.  Its
+systems off the Kepler tail run one engine call: the fused engine where
+it covers the configuration, the scan engine elsewhere (the JAX
+package's ``_engine_for``), their lanes ordered by n_sub bucket on the
+ladder (``dispatch_plan``).  Both engines run each lane's own n_sub, so
+a row does not depend on the lanes beside it.
 
 Left out, because they are specific to the TPU or to ``jax.export``:
 the group packing (``_pack_groups``) and the fixed-width chunk padding
 (``_chunks``, ``analysis_group_quantum``), which on the TPU bound the
 masked trips of a dispatch and here would only add duplicate lanes; the
+TPU lane test of ``_engine_for`` (``bsz % (8 * _LANES)``); the
 ``_pack_result``/``_drain_packed`` tunnel packing (the columns are
 stacked on the device and fetched in one copy); the AOT program cache
-(``utils/aot_cache.py``; PyTorch runs eagerly); the ``_STACK_MAX``
-chunk stacking; and the early-exit probe (off in the dataset
-configuration; ``early_exit_probe > 0`` raises).
+(``utils/aot_cache.py``; PyTorch runs eagerly); and the ``_STACK_MAX``
+chunk stacking.
 
 The Kepler tail (``analysis_tail_policy="kepler"``, the dataset
 configuration's default) takes the dominated tight binaries with a deep
-frozen schedule off the fused call (``_tail_selection``): they run the
+frozen schedule off the other lanes (``_tail_selection``): they run the
 scan engine (``analysis/stability.py::analyze_batch``) under
 ``integrator_mode="kepler_split"`` at the outer timescale's n_sub, on
-their own CUDA stream, while the fused kernel runs the other lanes
-exactly as with the tail off.
+their own CUDA stream beside the fused kernel, which runs the other
+lanes exactly as with the tail off.
 """
 
 from __future__ import annotations
@@ -250,19 +252,44 @@ def ic_feature_frame(mass, pos, vel, mask, cfg, *, G=1.0, softening=0.05,
     return pd.DataFrame(res_np)
 
 
+#: energy drift past which the early-exit probe aborts a row (the
+#: pathological-energy threshold; the JAX package's analysis/batch.py:728)
+_EARLY_EXIT_DRIFT = 10.0
+#: the chaos columns an aborted row leaves NaN
+_CHAOS_COLS = ("MEGNO", "lyapunov_time", "megno_slope_med")
+
+
+def _softening_policy(cfg) -> str:
+    """The frame's softening_policy tag (batch_stability_analyzer.py)."""
+    if cfg.integrator_mode == "ham_soft":
+        return "adaptive-ham"
+    return "adaptive-classic" if cfg.adaptive_softening else "static"
+
+
 def analyze_population(mass, pos, vel, mask, cfg, *, G=1.0, softening=0.05,
                        min_softening=0.0, dt=0.01, n_steps=1000,
                        mode="core", seed=0, show_progress=True,
                        include_ics=True, id_offset=0, timing_out=None,
                        device=None, tangent=None, tail_stream=True):
-    """Batched population analysis on the fused kernels, with the Kepler
-    tail on the scan engine; returns a pandas DataFrame with the JAX
-    package's columns.
+    """Batched population analysis; returns a pandas DataFrame with the
+    JAX package's columns.
 
     ``mass``/``mask`` (B, N), ``pos``/``vel`` (B, N, d) arrays or
     tensors; ``softening`` / ``G`` / ``min_softening`` scalars or (B,).
-    ``device``: ``None`` runs on the current CUDA device and raises
-    without one; ``"cpu"`` runs the kernels' plain versions.
+    ``mode``: "minimal", "core" or "full".  ``device``: ``None`` runs on
+    the current CUDA device and raises without one; ``"cpu"`` runs the
+    kernels' plain versions.
+
+    The engine (the JAX package's ``_engine_for`` without its TPU lane
+    test): the systems off the Kepler tail run the fused kernels
+    (``analysis/fused.py``) exactly when ``fused_config_covered`` holds
+    and G is uniform, and the scan engine (``analysis/stability.py::
+    analyze_batch``) otherwise: the classical integrators and WHFast,
+    float64, the legacy or fixed eps*, ``freeze_s_subsystem``,
+    ``use_fused_analysis=False``, mode "minimal", per-system G.  The
+    scan's lanes go in one call: the eager scan is bound by its
+    launches, which follow the deepest lane's n_sub, and each lane runs
+    its own n_sub as masked trips, so rows do not depend on the grouping.
 
     MEGNO tangent vectors: by default one ``(B, N, d)`` normal pair is
     drawn for the population from ``seed`` (``torch.Generator``) and
@@ -273,50 +300,60 @@ def analyze_population(mass, pos, vel, mask, cfg, *, G=1.0, softening=0.05,
 
     With ``analysis_tail_policy="kepler"`` the systems of
     ``_tail_selection`` run the scan engine under kepler_split.  With
-    ``tail_stream`` (the default) the fused analysis kernel is launched
-    first and the tail is issued right after it, on a CUDA device on its
-    own stream, so that its small kernels fill the SMs the fused launch
-    leaves idle; ``tail_stream=False`` runs the tail after the fused
-    call, on the same stream.  Rows do not depend on the choice.
+    ``tail_stream`` (the default) and the fused engine, the analysis
+    kernel is launched first and the tail is issued right after it, on
+    a CUDA device on its own stream, so that its small kernels fill the
+    SMs the fused launch leaves idle; otherwise the tail runs after the
+    other lanes, on the same stream.  Rows do not depend on the choice.
+
+    ``cfg.early_exit_probe`` > 0 (the JAX package's analysis/batch.py:
+    704-800): with n_steps >= 20 and mode "core" or "full", the systems
+    off the tail whose n_sub bucket is at least
+    ``cfg.early_exit_min_n_sub`` are first run in core mode for
+    ``max(10, round(n_steps * probe))`` steps on their engine; a row
+    whose drift is non-finite or above 10 keeps the probe's columns
+    with NaN chaos columns, the others run again from scratch with the
+    rest, so their rows are bit for bit those of a run without the
+    probe.  The frame then has an ``early_exit`` column.
 
     ``timing_out``: optional dict that receives the wall-clock phases
     setup_s (construction + scheduling), dispatch_s (the engine calls),
     drain_s (the device -> host copy, which waits for the device),
     frame_s (DataFrame assembly), n_groups (n_sub buckets),
-    n_dispatches (engine calls), and the device milliseconds of the
-    fused call (fused_ms) and of the tail engine (tail_ms, 0 without a
-    tail) with the tail's system count (n_tail).
+    n_dispatches (engine calls), engine ("fused" or "scan", the engine
+    of the lanes off the tail), the lanes each engine ran over the whole
+    horizon (fused_lanes, scan_lanes, n_tail), the probe's lanes and
+    aborted rows (probe_lanes, n_early_exit), and the device
+    milliseconds of each engine's call (fused_ms, scan_ms, tail_ms,
+    probe_ms; 0 where it did not run).
     """
     import pandas as pd
 
     t_setup0 = time.perf_counter()
     dev = resolve_device(device)
     dtype = dtype_of(cfg)
-    if float(getattr(cfg, "early_exit_probe", 0.0) or 0.0) > 0.0:
-        raise NotImplementedError(
-            "analyze_population: the early-exit probe is not ported")
-    if not fused_config_covered(cfg, mode, dtype):
-        raise NotImplementedError(
-            "analyze_population: only the fused engine's configurations "
-            "are ported (ham_soft, float32, the production eps* with the "
-            "exact or reference gradient, core/full mode, "
-            "use_fused_analysis, use_fused_megno in full mode)")
     g_np = np.asarray(_as_np(G), np.float64)
-    if not (g_np.size == 1 or bool((g_np == g_np.flat[0]).all())):
-        raise NotImplementedError(
-            "analyze_population: non-uniform G needs the scan engine for "
-            "every lane, which the port does not route yet")
+    g_uniform = g_np.size == 1 or bool((g_np == g_np.flat[0]).all())
+    fused_ok = g_uniform and fused_config_covered(cfg, mode, dtype)
+    engine = "fused" if fused_ok else "scan"
 
     B = pos.shape[0]
     if show_progress:
         print(f"Analyzing {B} systems (batched)...")
+        if (not fused_ok and getattr(cfg, "use_fused_analysis", False)
+                and cfg.integrator_mode == "ham_soft"):
+            why = "non-uniform G" if not g_uniform else "cfg gate"
+            print(f"[analysis] the lanes off the tail run the scan engine "
+                  f"instead of the fused kernels: {why}")
     states, dyns, n_sub_raw = prepare_population(
         mass, pos, vel, mask, cfg, G=g_np, softening=softening,
         min_softening=min_softening, dt=dt, device=dev)
     t = lambda x: _on_device(x, dtype, dev)
 
     megno_steps = 0
-    if mode == "full":
+    if mode != "full":
+        tangent = None  # only full mode runs MEGNO
+    else:
         n_samp = min(50, n_steps // 2)
         megno_steps = min(100, n_samp) if n_samp > 0 else 0
         if tangent is None:
@@ -328,24 +365,103 @@ def analyze_population(mass, pos, vel, mask, cfg, *, G=1.0, softening=0.05,
             tangent = (t(tangent[0]), t(tangent[1]))
 
     # the tail's systems and their outer-timescale n_sub; the rest go to
-    # the fused call in n_sub-bucket order (the plain version masks each
+    # their engine in n_sub-bucket order (the plain version masks each
     # lane's trips beyond its own n_sub, which are exact identities)
     tail_sel, n_tail = _tail_selection(states, dyns, cfg, n_sub_raw, dt)
-    fused_idx = np.nonzero(~tail_sel)[0]
-    tail_idx = np.nonzero(tail_sel)[0]
     n_subs = np.minimum(n_sub_raw, _n_sub_cap(cfg))
-    n_groups = len(np.unique(_bucket_ladder_values(
-        np.where(tail_sel, n_tail, n_subs))))
-    fused = tail = None
-    if len(fused_idx):
-        order, n_sub_max, _ = dispatch_plan(n_sub_raw[fused_idx], cfg)
-        rows = fused_idx[order]
+    buckets = _bucket_ladder_values(np.where(tail_sel, n_tail, n_subs))
+    n_groups = len(np.unique(buckets))
+    main_idx = np.nonzero(~tail_sel)[0]
+    tail_idx = np.nonzero(tail_sel)[0]
+
+    def lanes_of(idx):
+        """The systems at host indices ``idx`` as one engine call's
+        batch, in n_sub-bucket order (stable, so a warp's lanes have
+        similar depth)."""
+        order, n_sub_max, _ = dispatch_plan(n_sub_raw[idx], cfg)
+        rows = idx[order]
         lanes = torch.as_tensor(rows, device=dev)
-        fused = dict(
+        return dict(
             rows=rows, states=states.take(lanes), dyns=dyns.take(lanes),
             n_sub_max=n_sub_max,
             tangent=None if tangent is None else (tangent[0][lanes],
                                                   tangent[1][lanes]))
+
+    clocks = {k: _Clock(dev) for k in ("fused", "scan", "tail", "probe")}
+    ran = set()
+
+    def packed(r):
+        names = sorted(r)
+        return names, torch.stack([r[k] for k in names])
+
+    def run_fused(part, steps, mode_run, megno_run, clock, between=None):
+        """The fused call; ``between`` runs once, right after the analysis
+        kernel is launched and before the fused call queues anything
+        behind it.  Returns (output, whether ``between`` ran)."""
+        done = []
+
+        def analysis_fn(*args, **kw):
+            out = hamsoft_analysis_multistep(*args, **kw)
+            if between is not None and not done:
+                done.append(True)
+                between()
+            return out
+
+        clocks[clock].start()
+        r, _ = analyze_batch_fused(
+            part["states"], part["dyns"], cfg, int(steps), float(dt),
+            mode_run, part["n_sub_max"], megno_run, tangent=part["tangent"],
+            g_static=float(g_np.flat[0]), analysis_fn=analysis_fn)
+        out = packed(r)
+        clocks[clock].stop()
+        ran.add(clock)
+        return out, bool(done)
+
+    def run_scan(part, steps, mode_run, megno_run, clock, cfg_run=cfg,
+                 dt_run=None):
+        clocks[clock].start()
+        nsm = part["n_sub_max"]
+        r, _ = analyze_batch(
+            part["states"], part["dyns"], cfg_run, int(steps),
+            float(dt) if dt_run is None else dt_run, mode_run, nsm,
+            megno_run, tangent=part["tangent"], trips=nsm)
+        out = packed(r)
+        clocks[clock].stop()
+        ran.add(clock)
+        return out
+
+    def run_engine(part, steps, mode_run, megno_run, clock):
+        if fused_ok:
+            return run_fused(part, steps, mode_run, megno_run, clock)[0]
+        return run_scan(part, steps, mode_run, megno_run, clock)
+
+    # the early-exit probe: core mode on the deep buckets, on their engine
+    probe = float(getattr(cfg, "early_exit_probe", 0.0) or 0.0)
+    early = np.zeros(B, bool)
+    parts = []
+    probe_lanes = 0
+    if probe > 0.0 and n_steps >= 20 and mode in ("core", "full"):
+        pidx = main_idx[buckets[main_idx]
+                        >= int(getattr(cfg, "early_exit_min_n_sub", 8))]
+        if len(pidx):
+            probe_lanes = len(pidx)
+            part = lanes_of(pidx)
+            names, res = run_engine(part, max(10, int(round(n_steps * probe))),
+                                    "core", 0, "probe")
+            res = res.cpu().numpy()
+            drift = res[names.index("energy_drift")].astype(np.float64)
+            with np.errstate(invalid="ignore"):
+                bad = ~np.isfinite(drift) | (np.abs(drift) > _EARLY_EXIT_DRIFT)
+            if bad.any():
+                early[part["rows"][bad]] = True
+                res = res[:, bad]
+                for k in _CHAOS_COLS:
+                    res[names.index(k)] = np.nan
+                parts.append((part["rows"][bad], (names, res)))
+            main_idx = main_idx[~early[main_idx]]
+
+    main = lanes_of(main_idx) if len(main_idx) else None
+    tail = None
     if len(tail_idx):
         lanes = torch.as_tensor(tail_idx, device=dev)
         nt_sel = n_tail[tail_idx]
@@ -354,63 +470,28 @@ def analyze_population(mass, pos, vel, mask, cfg, *, G=1.0, softening=0.05,
             rows=tail_idx, states=states.take(lanes),
             dyns=dyns.take(lanes).replace(n_sub=torch.as_tensor(
                 nt_sel.astype(np.int32), device=dev)),
-            dt=torch.full((len(tail_idx),), float(dt), dtype=dtype,
-                          device=dev),
-            trips=trips,
+            n_sub_max=trips,
             tangent=None if tangent is None else (tangent[0][lanes],
                                                   tangent[1][lanes]))
     t_setup = time.perf_counter() - t_setup0
 
     t_disp0 = time.perf_counter()
     cfg_tail = cfg.replace(integrator_mode="kepler_split")
-    fused_clock, tail_clock = _Clock(dev), _Clock(dev)
+    run_tail = lambda: run_scan(
+        tail, n_steps, mode, megno_steps, "tail", cfg_run=cfg_tail,
+        dt_run=torch.full((len(tail_idx),), float(dt), dtype=dtype,
+                          device=dev))
 
-    def run_fused(between=None):
-        """The fused call; ``between`` runs once, right after the analysis
-        kernel is launched and before the fused call queues anything
-        behind it.  Returns (output, whether ``between`` ran)."""
-        ran = []
-
-        def analysis_fn(*args, **kw):
-            out = hamsoft_analysis_multistep(*args, **kw)
-            if between is not None and not ran:
-                ran.append(True)
-                between()
-            return out
-
-        fused_clock.start()
-        r, _ = analyze_batch_fused(
-            fused["states"], fused["dyns"], cfg, int(n_steps), float(dt),
-            mode, fused["n_sub_max"], megno_steps,
-            tangent=fused["tangent"], g_static=float(g_np.flat[0]),
-            analysis_fn=analysis_fn)
-        names = sorted(r)
-        out = (names, torch.stack([r[k] for k in names]))
-        fused_clock.stop()
-        return out, bool(ran)
-
-    def run_tail():
-        tail_clock.start()
-        r, _ = analyze_batch(
-            tail["states"], tail["dyns"], cfg_tail, int(n_steps),
-            tail["dt"], mode, tail["trips"], megno_steps,
-            tangent=tail["tangent"], trips=tail["trips"])
-        names = sorted(r)
-        out = (names, torch.stack([r[k] for k in names]))
-        tail_clock.stop()
-        return out
-
-    parts = []
-    if tail_stream and fused is not None and tail is not None:
+    if tail_stream and fused_ok and main is not None and tail is not None:
         # the tail is issued between the analysis kernel's launch and the
         # fused call's follow-up work: queued behind the long kernel, that
         # work would fill the device's launch queue and stall the tail's
         # launches until the kernel ends
         side = None
         if dev.type == "cuda":
-            main = torch.cuda.current_stream(dev)
+            cur = torch.cuda.current_stream(dev)
             side = torch.cuda.Stream(device=dev)
-            side.wait_stream(main)
+            side.wait_stream(cur)
         box = {}
 
         def tail_on_side():
@@ -418,15 +499,17 @@ def analyze_population(mass, pos, vel, mask, cfg, *, G=1.0, softening=0.05,
                   else contextlib.nullcontext()):
                 box["out"] = run_tail()
 
-        out, ran = run_fused(tail_on_side)
-        if not ran:  # use_fused_metrics=False launches no analysis kernel
+        out, done = run_fused(main, n_steps, mode, megno_steps, "fused",
+                              between=tail_on_side)
+        if not done:  # use_fused_metrics=False launches no analysis kernel
             tail_on_side()
         if side is not None:
-            main.wait_stream(side)
-        parts += [(fused["rows"], out), (tail["rows"], box["out"])]
+            cur.wait_stream(side)
+        parts += [(main["rows"], out), (tail["rows"], box["out"])]
     else:
-        if fused is not None:
-            parts.append((fused["rows"], run_fused()[0]))
+        if main is not None:
+            parts.append((main["rows"], run_engine(
+                main, n_steps, mode, megno_steps, engine)))
         if tail is not None:
             parts.append((tail["rows"], run_tail()))
     t_disp = time.perf_counter() - t_disp0
@@ -434,8 +517,8 @@ def analyze_population(mass, pos, vel, mask, cfg, *, G=1.0, softening=0.05,
     feats = F.extract_all(states, dyns, cfg) if mode == "full" else {}
     t_drain0 = time.perf_counter()
     res_rows = {}
-    for rows, (names, packed) in parts:
-        host = packed.cpu().numpy()
+    for rows, (names, res) in parts:
+        host = res.cpu().numpy() if isinstance(res, torch.Tensor) else res
         for i, k in enumerate(names):
             res_rows.setdefault(k, np.empty(B, host.dtype))[rows] = host[i]
     feats_rows = {f"initial_{k}": feats[k].cpu().numpy()
@@ -456,21 +539,27 @@ def analyze_population(mass, pos, vel, mask, cfg, *, G=1.0, softening=0.05,
     res_np["n_sub_capped"] = n_sub_raw > _n_sub_cap(cfg)
     if getattr(cfg, "analysis_tail_policy", "off") == "kepler":
         res_np["tail_fast_path"] = tail_sel
+    if probe > 0.0:
+        res_np["early_exit"] = early
     df = pd.DataFrame(res_np)
     df["mode"] = mode
     bad = (~np.isfinite(df["energy_drift"])) | (df["energy_drift"].abs() > 10)
     df["pathological_energy"] = bad
     df.loc[bad, "is_stable"] = 0.0
-    df["softening_policy"] = "adaptive-ham"
+    df["softening_policy"] = _softening_policy(cfg)
     df["simulation_id"] = np.arange(B)
     if timing_out is not None:
+        n_main = 0 if main is None else len(main["rows"])
         timing_out.update(
             setup_s=t_setup, dispatch_s=t_disp, drain_s=t_drain,
             frame_s=time.perf_counter() - t_frame0,
-            n_groups=n_groups, n_dispatches=len(parts),
-            fused_ms=fused_clock.ms() if fused is not None else 0.0,
-            tail_ms=tail_clock.ms() if tail is not None else 0.0,
-            n_tail=int(len(tail_idx)))
+            n_groups=n_groups, n_dispatches=len(ran), engine=engine,
+            fused_lanes=n_main if fused_ok else 0,
+            scan_lanes=0 if fused_ok else n_main,
+            n_tail=int(len(tail_idx)), probe_lanes=probe_lanes,
+            n_early_exit=int(early.sum()),
+            **{f"{k}_ms": c.ms() if k in ran else 0.0
+               for k, c in clocks.items()})
     if show_progress:
         print(f"Completed: {B} simulations analyzed")
     return df

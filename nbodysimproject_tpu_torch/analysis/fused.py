@@ -15,14 +15,16 @@ the metric moments, as in the JAX package:
 
 Both keep the scan path's sampling semantics: after macro step i, sample
 when ``i % interval == 0``.  ``cfg.use_fused_megno`` runs the MEGNO
-continuation in its own kernel.
+continuation in its own kernel; otherwise the MEGNO scan
+(``diagnostics/megno.py::megno_scan``) continues from the final state,
+as the JAX package's analysis/fused.py:203-208 does.
 
 The JAX package falls back to its scan engine on the CPU
 (``fused_path_applicable``); here the engine runs wherever the
 configuration is covered (``fused_config_covered``: every barrier policy
 and both eps* gradient modes, as the JAX fused engine), and on the CPU
 the kernel wrappers run their plain versions because the tensors lie
-there.  ``use_fused_megno=False`` raises (it needs the MEGNO scan).  At d = 3
+there.  At d = 3
 L0 is the (B, 3) L vector, ``angular_momentum_drift`` the relative drift
 of |L| and cos_theta the tilt of L against L0 (the JAX package's
 analysis/fused.py:98-108, :172-182).
@@ -35,6 +37,7 @@ import math
 import torch
 
 from ..diagnostics import energy as E
+from ..diagnostics.megno import megno_scan
 from ..diagnostics.metrics import step_metrics
 from ..ops.hamsoft_kernels import (hamsoft_analysis_multistep,
                                    hamsoft_megno_multistep,
@@ -130,15 +133,16 @@ def analyze_batch_fused(states, dyns, cfg, n_steps: int, dt, mode: str,
     ang_mom_drift = _ang_mom_drift(st1, L0)
 
     if mode == "full" and megno_steps > 0:
-        if not cfg.use_fused_megno:
-            raise NotImplementedError(
-                "analyze_batch_fused: use_fused_megno=False needs the MEGNO "
-                "scan, which is not ported yet")
         dr0, dv0 = tangent
-        po, vo, eo, pio, megno, lyap, slope_med = megno_fn(
-            st1.pos, st1.vel, states.mass, st1.eps, st1.pi, dr0, dv0,
-            dt=float(dt), n_steps=megno_steps, **kern)
-        st1 = _states_with(states, (po, vo, eo, pio))
+        if cfg.use_fused_megno:
+            po, vo, eo, pio, megno, lyap, slope_med = megno_fn(
+                st1.pos, st1.vel, states.mass, st1.eps, st1.pi, dr0, dv0,
+                dt=float(dt), n_steps=megno_steps, **kern)
+            st1 = _states_with(states, (po, vo, eo, pio))
+        else:
+            # the MEGNO scan from the analysis kernel's final state
+            st1, megno, lyap, slope_med = megno_scan(
+                st1, dyns, cfg, dr0, dv0, megno_steps, float(dt), n_sub_max)
     else:
         megno = torch.full((B,), 2.0, dtype=dtype, device=h.device)
         lyap = torch.full((B,), math.inf, dtype=dtype, device=h.device)
@@ -209,8 +213,9 @@ def fused_config_covered(cfg, mode: str, dtype) -> bool:
     JAX package's ``fused_path_applicable`` but its device and lane
     tests (the ham_soft production eps* in float32, core or full mode,
     any barrier policy, the "exact" or "reference" gradient, d = 2 or 3,
-    either ``use_fused_metrics``), with the MEGNO kernel
-    (``use_fused_megno``) in full mode."""
+    either ``use_fused_metrics``, either ``use_fused_megno``).  Every
+    other configuration runs the scan engine
+    (``analysis/batch.py::analyze_population``)."""
     return (bool(getattr(cfg, "use_fused_analysis", False))
             and cfg.integrator_mode == "ham_soft"
             and mode in ("core", "full")
@@ -218,6 +223,5 @@ def fused_config_covered(cfg, mode: str, dtype) -> bool:
             and not cfg.use_legacy_eps_star
             and not cfg.fixed_eps_star
             and cfg.eps_grad_mode in ("exact", "reference")
-            and (mode != "full" or bool(cfg.use_fused_megno))
             and not cfg.freeze_s_subsystem
             and not cfg._validate_S_only)

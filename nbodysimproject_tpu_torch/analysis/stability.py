@@ -7,9 +7,10 @@ the fused engine shares, and ``analyze_batch``, the scan engine, which
 integrates every system of a batch with ``integrators/step.py`` (each
 its own n_sub, as masked trips), samples the step metrics every
 ``max(1, n_steps // 100)`` steps, runs the MEGNO continuation and
-returns the verdict columns.  The analysis tail's kepler_split lanes run
-here (``analysis/batch.py``); the JAX package runs its tail chunks on
-its scan engine too.
+returns the verdict columns.  ``analysis/batch.py`` runs here the
+analysis tail's kepler_split lanes and every lane of a configuration
+that the fused engine does not cover, as the JAX package runs both on
+its scan engine.
 """
 
 from __future__ import annotations
@@ -83,8 +84,9 @@ def analyze_batch(states, dyns, cfg, n_steps: int, dt, mode: str,
     """Analyse a batch of systems on the scan engine; returns (result
     columns dict of (B,) tensors, final state).
 
-    ``mode``: "core" or "full" (the modes ``analyze_population`` runs;
-    the JAX package's "minimal" is not ported); ``megno_steps`` > 0 runs
+    ``mode``: "minimal" (the energy verdict alone: ``is_stable`` and
+    ``energy_drift``, no sampled metrics, as the JAX package's
+    analysis/stability.py:85-95), "core" or "full"; ``megno_steps`` > 0 runs
     the MEGNO continuation in full mode from ``tangent`` = (dr0, dv0),
     the (B, N, d) initial tangent vectors.  ``dt`` is a float or a (B,)
     tensor.  ``trips`` is the substep loop length (at most
@@ -97,9 +99,8 @@ def analyze_batch(states, dyns, cfg, n_steps: int, dt, mode: str,
     from ..diagnostics.metrics import step_metrics
     from ..integrators.step import _per_system, _trips, macro_step_dynamic
 
-    if mode not in ("core", "full"):
-        raise NotImplementedError(f"analyze_batch: mode {mode!r} is not "
-                                  f"ported")
+    if mode not in ("minimal", "core", "full"):
+        raise ValueError(f"analyze_batch: unknown mode {mode!r}")
     dtype = states.pos.dtype
     dtv = _per_system(dt, states.eps)
     if trips is None:
@@ -107,6 +108,12 @@ def analyze_batch(states, dyns, cfg, n_steps: int, dt, mode: str,
     step = lambda s: macro_step_dynamic(s, dyns, cfg, dtv, n_sub_max, trips)
     H0 = E.extended_hamiltonian(states, dyns, cfg)
     state = states
+    if mode == "minimal":
+        for _ in range(int(n_steps)):
+            state = step(state)
+        drift = _rel_drift(E.extended_hamiltonian(state, dyns, cfg), H0)
+        return {"is_stable": (drift < 0.01).to(dtype),
+                "energy_drift": drift}, state
     L0 = _angular_momentum(states)
     sample_interval = max(1, int(n_steps) // 100)
     accs = {k: _running_init(states.eps) for k in _SAMPLED}

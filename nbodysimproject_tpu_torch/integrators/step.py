@@ -78,7 +78,12 @@ def _per_system(dt, like):
 
 
 def _select(active, new, old):
-    """Field by field: ``new`` on the active systems, ``old`` elsewhere."""
+    """Field by field: ``new`` on the active systems, ``old`` elsewhere
+    (``None`` for an empty (eps*, grad) cache: ``freeze_s_subsystem``
+    runs no SPH solve)."""
+    if new is None:
+        return old
+
     def sel(a, b):
         if a is b:
             return a

@@ -164,20 +164,27 @@ def test_default_tangents_are_chunk_independent(frames):
 
 def test_tail_policy_kepler_raises():
     """The Kepler tail policy is ported (tests/test_torch_analysis_tail.py
-    holds it to the JAX package); what stays unported around it raises:
-    the early-exit probe.  With the policy on, a population with no
-    dominated deep-schedule system runs and carries the tail column."""
+    holds it to the JAX package), and so is the early-exit probe beside
+    it, which once raised here: with the policy on, a population with no
+    dominated deep-schedule system runs and carries the tail column, and
+    with ``early_exit_probe`` it also carries the ``early_exit`` column
+    (no row aborted: every drift is small).  n_steps >= 20 is the least
+    horizon the probe runs at."""
     m, q, v, mask = _raw_population(3, False, B=4)
     cfg = nt.SimConfig(**{**PIPE, "analysis_tail_policy": "kepler"})
     df = nt.analyze_population(m, q, v, mask, cfg, n_steps=2, mode="full",
                                show_progress=False, device="cpu")
     assert "tail_fast_path" in df.columns
     assert not df["tail_fast_path"].any()
-    with pytest.raises(NotImplementedError, match="early-exit"):
-        nt.analyze_population(m, q, v, mask,
-                              cfg.replace(early_exit_probe=0.1), n_steps=2,
-                              mode="full", show_progress=False,
-                              device="cpu")
+    tm = {}
+    df = nt.analyze_population(
+        m, q, v, mask, cfg.replace(early_exit_probe=0.1,
+                                   early_exit_min_n_sub=1),
+        n_steps=20, mode="full", show_progress=False, device="cpu",
+        timing_out=tm)
+    assert "early_exit" in df.columns and not df["early_exit"].any()
+    assert tm["probe_lanes"] == 4 and tm["n_early_exit"] == 0
+    assert np.isfinite(df["MEGNO"]).all()
 
 
 @pytest.mark.parametrize("device", [None, "cuda"])
@@ -199,16 +206,17 @@ def test_cuda_entry_without_gpu_raises(monkeypatch, device):
 def test_fused_path_gate(change):
     """The pipeline's configuration is covered with either way to the
     metric moments (use_fused_metrics True or False), and so are the
-    reflection policy and the "reference" gradient (the JAX fused
-    engine's configurations); float64, the scan engine and full mode
-    without the MEGNO kernel are not."""
+    reflection policy, the "reference" gradient and full mode with the
+    MEGNO scan in place of the MEGNO kernel (the JAX fused engine's
+    configurations); float64 and the scan engine are not, and run the
+    scan route (tests/test_torch_scan_route_*.py)."""
     from nbodysimproject_tpu_torch.analysis.fused import fused_config_covered
     from nbodysimproject_tpu_torch.core.device import dtype_of
 
     cfg = nt.SimConfig(**{**PIPE, **change})
     outside = ({"fast_float32": False}, {"use_fused_analysis": False})
     covered = fused_config_covered(cfg, "full", dtype_of(cfg))
-    assert covered == (change not in outside + ({"use_fused_megno": False},))
+    assert covered == (change not in outside)
     assert fused_config_covered(cfg, "core", dtype_of(cfg)) == (
         change not in outside)
     assert not fused_config_covered(cfg, "minimal", dtype_of(cfg))

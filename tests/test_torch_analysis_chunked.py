@@ -84,14 +84,15 @@ def test_chunked_core_mode_matches_jax():
 
 
 def test_full_mode_needs_the_soft_policy():
-    """Full mode once needed the soft policy; since the analysis and MEGNO
-    kernels take every policy, it needs the MEGNO kernel
-    (``use_fused_megno``) alone, with either ``use_fused_metrics``."""
+    """Full mode once needed the soft policy, then the MEGNO kernel;
+    since the analysis and MEGNO kernels take every policy and the MEGNO
+    scan continues after the analysis kernel, it needs neither, with
+    either ``use_fused_metrics``."""
     cfg = nt.SimConfig(fast_float32=True, use_fused_analysis=True,
                        use_fused_metrics=False, use_soft_barrier=False)
     for fused_metrics in (False, True):
         c = cfg.replace(use_fused_metrics=fused_metrics)
         assert fused_config_covered(c, "core", torch.float32)
         assert fused_config_covered(c, "full", torch.float32)
-        assert not fused_config_covered(c.replace(use_fused_megno=False),
-                                        "full", torch.float32)
+        assert fused_config_covered(c.replace(use_fused_megno=False),
+                                    "full", torch.float32)

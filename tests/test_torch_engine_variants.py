@@ -19,7 +19,8 @@ configurations it covers.
 * ``fused_config_covered`` against the conditions of the JAX package's
   ``fused_path_applicable`` but its device and lane tests, over a grid
   of configurations: the port covers what the JAX fused engine covers,
-  and needs the MEGNO kernel (``use_fused_megno``) in full mode.
+  in full mode with the MEGNO kernel or, ``use_fused_megno=False``, the
+  MEGNO scan after the analysis kernel.
 """
 
 import itertools
@@ -114,8 +115,7 @@ def test_covered_configs_match_the_jax_fused_engine(monkeypatch):
             for mode in ("core", "full", "minimal"):
                 for dtype in (torch.float32, torch.float64):
                     jax_ok = _jax_conditions(kw, mode, dtype, monkeypatch)
-                    want = jax_ok and (mode != "full"
-                                       or kw["use_fused_megno"])
+                    want = jax_ok
                     got = fused_config_covered(nt.SimConfig(**kw), mode,
                                                dtype)
                     assert got == want, (kw, mode, dtype)
