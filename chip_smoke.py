@@ -19,13 +19,18 @@ the fused multi-step entry points; ``csrc/composition.cu``,
 and the large-N slice at the widths of the JAX package's
 ``tools/bench_largen.py`` and ``tools/bench_whfast_largen.py``
 (``largen_rollout``, P3M, the classical and many-planet WHFast force
-routes; ``csrc/pairwise_force.cu``).  Phases (each prints its seconds):
+routes; ``csrc/pairwise_force.cu``), and the facade (``NBodySimulation``,
+its analyzers and the sim-list views).  Phases (each prints its
+seconds):
 
 1. card: ``nvidia-smi`` name and power limit;
 2. build: one ``nvcc`` per kernel source and body-slot count (the
    tiled force kernel: per dimension, 2 and 3; the analysis/MEGNO and
-   eps kernels at d = 2 and 3; the composition kernel: every N from 2
-   to 16 at d = 2 and 3), all started together, into the git-ignored
+   eps kernels at d = 2 and 3, the eps kernel also at every N from 2 to
+   8 at d = 2 for phase 23; the composition kernel: every N from 2
+   to 16 at d = 2 and 3), all started together, beside phase 23's CPU
+   references (child processes of this script on the CPU, waited for
+   at the phase's end), into the git-ignored
    ``nbodysimproject_tpu_torch/_build/``; prints each build's seconds
    and ptxas' register, stack frame and spill lines, and fails unless
    the analysis and MEGNO kernels at N = 8 (d = 2 and 3), the
@@ -83,7 +88,8 @@ routes; ``csrc/pairwise_force.cu``).  Phases (each prints its seconds):
 8. the same population with ``use_fused_metrics=False`` (tail off; the
    multi-step kernel in chunks, ``step_metrics`` between them): the
    run's time, its multi-step launches replayed between CUDA events
-   (each launch's time and bound), held to its plain version and to
+   (each launch's time and bound), held to its plain version on the
+   lowest bucket (the top bucket's case was cut for phase 23) and to
    the fused way at one step (final states bitwise equal: the analysis
    kernel's trip is the multi-step kernel's), the longer horizons
    measured;
@@ -111,7 +117,8 @@ routes; ``csrc/pairwise_force.cu``).  Phases (each prints its seconds):
 11. the fused engine's remaining branches: the analysis and
    MEGNO kernels under the reflection policy, the no-barrier policy and
    the "reference" eps* gradient held to their plain versions on phase
-   4's lanes under ``row_gate``'s rule (``bucket_cases``; a row past
+   4's lanes (on the lowest bucket only since phase 23) under
+   ``row_gate``'s rule (``bucket_cases``; a row past
    the widening allowed only where ``branch_walk`` finds kernel and
    plain parting at a trip whose fold or switch the float64 plain trip
    puts within BRANCH_ULPS float32 ulps of its threshold, on at most
@@ -229,14 +236,53 @@ routes; ``csrc/pairwise_force.cu``).  Phases (each prints its seconds):
    rows outside TOL allowed only where the CPU's float32 run lies
    outside TOL of its float64 run, and on at most MAX_WIDENED others).
 
+23. the facade (``nbodysimproject_tpu_torch/facade/``, the object API),
+   on the card, run right after phase 2 (its eager one-system steps
+   ran ~1.8x slower at the script's end than in a fresh process):
+   (a) the golden scenarios of ``tests/test_golden_regression.py`` in
+   float64 (verlet 1000 steps, ham_soft 100 steps) held to their golden
+   values, no eps launch (float64, the JAX dtype rule; the ham_soft
+   H_ext to the bound its pi tolerance implies, as
+   ``tests/test_torch_facade_golden.py`` holds it); (b) the golden
+   ham_soft system (to its golden horizon: it turns non-finite near step
+   110) and a 7-body ring at circular speed (1000 steps) in fast mode
+   through ``run`` (FACADE_RUNS), and FACADE_STEP_CALLS ``step`` calls
+   on a twin of each (ms a step each, the per-step host reads' share),
+   row 4's launches gated to n_sub + 1 a step, positions and
+   ``Diagnostics`` energies held entry by entry to the port's CPU
+   float32 run (``row_gate``, TOL32_FACADE, widened on no entry but
+   where the CPU's float32 run on reversed body slots lies outside it
+   too), row 4 against its plain version at B = 1 on the held state;
+   (c) ``StabilityAnalyzer(mode="full")`` over FACADE_SA_STEPS steps on
+   a fast-mode hierarchical triple at d = 2 and 3, is_stable equal to
+   the CPU port's; (d) ``MLTrainingPipeline.generate_diverse_dataset``
+   on FACADE_BATCH systems with its ``BatchStabilityAnalyzer`` cut to
+   FACADE_BATCH_STEPS steps (seconds, row 4's launches, gated > 0), row
+   4 against its plain version at the view's shape and at B = 1 on the
+   view's first simulations of 3 and of more bodies with a nonzero eps*
+   gradient (a nonzero gradient gated), and FACADE_CPU_ROWS shallow
+   rows analysed as one group on the card and on the CPU in float32 and
+   float64: is_stable off the CPU's float32 verdict only on rows where
+   the CPU's two precisions differ (gated); (e)
+   ``NBodySimulation(config=SimConfig(force_mode="direct_pallas"))`` on
+   bench_largen's 10^5 cloud, 50 steps: steps/s, row 7's launches gated
+   to 51, the state bit for bit ``largen_rollout``'s; (f) a float64
+   ham_soft snapshot taken on the CPU, restored on the card, run on
+   beside the CPU original and a card twin (gated at F64_TOL).  The CPU
+   references of (b) and (c) come from this script run as child
+   processes (``--facade-cpu-references``, FACADE_REF_JOBS) during
+   phase 2's builds, so that no measured phase shares the host with
+   them.
+
 It prints a ``{"kernels": [...]}`` line (the seven kernels, rows 1, 2
 and 4 again at d = 3, rows 1 and 2 under each branch of phase 11, row 3
 under the "reference" gradient and at d = 3, row 4's fallback, row 6
-at d = 3, and rows 1 and 4 on the scan route) and, last, the device
-line.  Any
+at d = 3, rows 1 and 4 on the scan route, and rows 4 and 7 on the
+facade's paths) and, last, the device line.  Any
 failed check raises, so the script exits non-zero; without a CUDA
 device it exits non-zero before printing any result.  It writes
-nothing outside the build directory.
+nothing outside the build directory (phase 23's CPU references and
+their log go there too).
 """
 
 import dataclasses
@@ -1305,7 +1351,7 @@ def bound_eps(B, n, d, share=None):
                      B * (2 * n * d + n + 5))
 
 
-def row_gate(label, outs, max_widened=MAX_WIDENED):
+def row_gate(label, outs, max_widened=MAX_WIDENED, against="float64"):
     """Hold each kernel output to its plain version: ``outs`` maps a name
     to (kernel, plain, plain float64, plain on reordered slots, (rtol,
     atol)), tensors with the system axis first.  A row fails where the
@@ -1313,7 +1359,8 @@ def row_gate(label, outs, max_widened=MAX_WIDENED):
     version's own rounding sensitivity (its distance to its float64 run
     and to its reordered run); rows that need the widening must be rows
     where the float32 plain version itself misses the tolerance against
-    float64, but for at most ``max_widened``.  Returns the largest
+    float64, but for at most ``max_widened``.  ``against`` names the
+    run given as "plain float64" in the report.  Returns the largest
     |kernel - plain|."""
     B = next(iter(outs.values()))[0].shape[0]
     dev = next(iter(outs.values()))[0].device
@@ -1340,7 +1387,7 @@ def row_gate(label, outs, max_widened=MAX_WIDENED):
         print(f"    {label} {name:5s} max_abs {e:.3e} max_rel "
               f"{float((err / p.abs().clamp_min(1e-30)).max()):.3e} outside "
               f"{int(bad.sum())} rows, widened {int(wide.sum())}; float32 "
-              f"plain outside the tolerance from float64 on "
+              f"plain outside the tolerance from {against} on "
               f"{int(off.sum())} rows")
         if bad.any():
             failures.append(name)
@@ -1576,11 +1623,12 @@ def compare_eps(label, st, dy, clamp, ek, use_fallback=False,
                    {"es": (k[0], p[0], p64[0], pr[0], EPS_TOL["es"]),
                     "grad": (k[1], p[1], p64[1], pr[1], EPS_TOL["grad"])})
     b_ms, b_by = bound_eps(st.pos.shape[0], n, st.pos.shape[2], share)
+    nonzero = int((p[1].abs().amax((1, 2)) > 0).sum())
     print(f"  {tag}: kernel {ms:.3f} ms, plain {pms:.3f} ms, bound "
-          f"{b_ms:.4f} ms ({b_by}); nonzero gradient on "
-          f"{int((p[1].abs().amax((1, 2)) > 0).sum())} rows", flush=True)
+          f"{b_ms:.4f} ms ({b_by}); nonzero gradient on {nonzero} rows",
+          flush=True)
     return dict(ms=ms, plain_ms=pms, err=err, bound=(b_ms, b_by),
-                share=share)
+                share=share, nonzero=nonzero)
 
 
 def eps_layouts_agree(states, dyns, ek, use_fallback=False):
@@ -3420,13 +3468,16 @@ def phase_branches(cfg, cfg_off, hk, ek, wk, dev, tangent_of, pop, states,
     out["shares"] = shares
     share_ds = shares["dataset rows"]
 
-    # rows 1-2 in each branch against their plain versions
+    # rows 1-2 in each branch against their plain versions, on the lowest
+    # bucket: each branch is a template argument of the kernel whose top
+    # bucket phase 4 holds (the branches' top-bucket cases, 35.2-62.0 s
+    # each on an NVIDIA H100 80GB HBM3 at 700 W, were cut for phase 23)
     pop3 = p3["pop"]
     for label, over in BRANCHES:
         t0 = time.perf_counter()
-        out["cases"][label] = bucket_cases(f"{label} ", states, dyns,
-                                           n_sub_raw, cfg.replace(**over),
-                                           hk, tangent_of)[0]
+        out["cases"][label] = bucket_cases(
+            f"{label} ", states, dyns, n_sub_raw, cfg.replace(**over), hk,
+            tangent_of, which=("lowest",))[0]
         print(f"  {label} cases done in {time.perf_counter() - t0:.1f}s",
               flush=True)
     cfg_r = cfg.replace(eps_grad_mode="reference")
@@ -3895,6 +3946,532 @@ def phase_scan_route(cfg, hk, ek, pop, G, soft, min_soft, prepared, sel):
     return out
 
 
+# ------------------------------------------------------------- the facade
+#: the golden scenarios of tests/test_golden_regression.py (phase 23 (a)):
+#: inputs, horizon, and the end state pinned there with its tolerances
+GOLDEN_VERLET = dict(
+    sim=dict(integrator_mode="verlet", softening=1e-3, masses=[1.0, 0.5, 0.1],
+             positions=[[0.0, 0.0], [1.0, 0.0], [0.0, 2.0]],
+             velocities=[[0.0, 0.0], [0.0, 1.0], [-0.5, 0.0]]),
+    steps=1000, pos=[[-0.35175328, -0.29241702], [0.51360617, -0.34556418],
+                     [5.94950188, 6.65199117]], pos_tol=(1e-6, 1e-8))
+GOLDEN_HAMSOFT = dict(
+    sim=dict(integrator_mode="ham_soft", softening=0.05,
+             masses=[1.0, 1.0, 0.5],
+             positions=[[-0.6, 0.05], [0.55, -0.02], [9.2, 0.3]],
+             velocities=[[0.0, -0.7], [0.0, 0.72], [0.02, 0.5]]),
+    steps=100, pos=[[-0.29568652, -0.65048405], [0.24357825, 0.48475306],
+                    [9.20421653, 0.69146197]], pos_tol=(1e-5, 1e-7),
+    eps=(0.18630140060382266, 1e-6), pi=(124.92173161726738, 1e-3),
+    H=(652.3749602929558, 1e-4))
+#: (b): the macro steps of each fast-mode run through ``run`` (one host
+#: read at the end), where it is held to the CPU's float32 run: the
+#: golden ham_soft system to its golden horizon (it turns non-finite
+#: near step 110, after the barrier bounce at step 96, in float32 and
+#: float64 alike), the ring to 1000
+FACADE_RUNS = {"golden ham_soft": 100, "ring7": 1000}
+#: (b): ``step`` calls timed on a twin of each run (the JAX facade's
+#: per-step host reads: the softening ledger, the schedule check)
+FACADE_STEP_CALLS = 50
+FACADE_DT = 0.01
+#: the ring's body count (the eps kernel's build at this N is one of
+#: ``facade_eps_jobs``)
+FACADE_RING_N = 7
+#: (c): the hierarchical triple's scale (positions times it, velocities
+#: over its square root: one substep a step, against two unscaled, so a
+#: step costs 12-13 ms on the card instead of 18-30) and the
+#: StabilityAnalyzer's horizon (full mode, 50 MEGNO steps)
+FACADE_TRIPLE_SCALE = 1.5
+FACADE_SA_STEPS = 500
+#: (d): the sim-list view's simulations (a facade construction takes
+#: ~23 ms on the card, a B = 1 ``build_batch`` of ~500 launches), the
+#: batch analyzer's depth (the view's 500 steps cut: the eager scan
+#: runs the deepest lane's n_sub trips, up to 256, each macro step; 2
+#: is the least with a MEGNO step), and the rows held to the CPU (the
+#: first FACADE_CPU_ROWS with a frozen n_sub of at most FACADE_CPU_NSUB,
+#: as phase 22 picks its CPU rows)
+FACADE_BATCH = 256
+FACADE_BATCH_STEPS = 2
+FACADE_CPU_ROWS = 64
+FACADE_CPU_NSUB = 4
+#: (f): float64 ham_soft steps on the CPU before the snapshot, then on
+#: the card after it
+FACADE_SNAP_STEPS = 20
+#: (b): the card against the CPU's float32 run, positions and energies
+#: each an entry of ``row_gate`` (the CPU tests' float32 position
+#: tolerance, (rtol, atol)), widened only on entries where the CPU's
+#: float32 run on reversed body slots lies outside it too; the float64
+#: run is no measure here: it parts from float32 by 23-127 in the golden
+#: system's H_ext (pi's evolution under the pi budget), where two
+#: float32 runs agree to 6e-8
+TOL32_FACADE = (2e-5, 2e-6)
+#: the CPU references of (b) and (c), computed by this script run as
+#: child processes on the CPU during phase 2's builds (one a job), so
+#: that no measured phase shares the host with them
+FACADE_REF_JOBS = (("ring7",), ("ring7 reversed", "golden ham_soft",
+                                "golden ham_soft reversed"),
+                   ("triple d=2", "triple d=3"))
+FACADE_REF = os.path.join(HERE, "nbodysimproject_tpu_torch", "_build",
+                          "facade_cpu_ref{}.json")
+#: energies of ``Diagnostics`` held in (b)
+FACADE_ENERGIES = ("H_ext", "energy", "kinetic", "potential")
+
+
+def facade_systems():
+    """(masses, positions, velocities, keywords, d) of phase 23's
+    systems, from numpy: the golden ham_soft system, a 7-body ring of
+    radius 1.5 at its circular speed (``generate_equal_mass_polygon``; one
+    substep a step; at half the speed the ring collapses and is chaotic
+    within the 1000 steps: card and CPU part by O(1) there, as float32
+    and float64 do), and a hierarchical triple (separation ratio 20,
+    scaled by FACADE_TRIPLE_SCALE) at d = 2 and, tilted by a numpy draw
+    (seed 3), at d = 3."""
+    from nbodysimproject_tpu_torch import SpecializedGenerators as SG
+
+    g = GOLDEN_HAMSOFT["sim"]
+    out = {"golden ham_soft": (np.array(g["masses"]),
+                               np.array(g["positions"]),
+                               np.array(g["velocities"]),
+                               dict(integrator_mode="ham_soft",
+                                    softening=0.05), 2)}
+    m, q, v = SG.generate_equal_mass_polygon(FACADE_RING_N, radius=1.5,
+                                             rotation_fraction=1.0,
+                                             device="cpu")
+    out["ring7"] = (m, q, v, dict(integrator_mode="ham_soft",
+                                  softening=0.05), 2)
+    m, q, v = SG.generate_hierarchical_triple(separation_ratio=20.0,
+                                              device="cpu")
+    q, v = q * FACADE_TRIPLE_SCALE, v / np.sqrt(FACADE_TRIPLE_SCALE)
+    kw = dict(integrator_mode="ham_soft", softening=0.05)
+    out["triple d=2"] = (m, q, v, kw, 2)
+    rng = np.random.default_rng(3)
+    out["triple d=3"] = (m, np.concatenate([q, 0.05 * rng.normal(
+        size=(3, 1))], 1), np.concatenate([v, 0.02 * rng.normal(
+            size=(3, 1))], 1), kw, 3)
+    return out
+
+
+def facade_sim(label, fast, device, reverse=False):
+    """A facade simulation of ``label`` (its bodies in reversed slots
+    where ``reverse``)."""
+    from nbodysimproject_tpu_torch import NBodySimulation, SimConfig
+
+    m, q, v, kw, d = facade_systems()[label]
+    if reverse:
+        m, q, v = (np.ascontiguousarray(a[::-1]) for a in (m, q, v))
+    return NBodySimulation(config=SimConfig(fast_float32=fast, dim=d),
+                           masses=m, positions=q, velocities=v,
+                           device=device, **kw)
+
+
+def facade_eps_jobs(ek):
+    """The eps kernel's builds phase 23 takes beyond ``ek.build_jobs()``:
+    N = 2 to 8 at d = 2 (the ring's 7; the sim-list view's simulations
+    at their own body counts, and its shallow rows' group)."""
+    return [j for j in ((ek.SOURCE, n, 2) for n in range(2, 9))
+            if j not in ek.build_jobs()]
+
+
+def facade_energies(sim):
+    from nbodysimproject_tpu_torch import Diagnostics
+
+    dg = Diagnostics(sim)
+    return {"kinetic": dg.kinetic_energy(), "potential": dg.potential_energy(),
+            "energy": dg.energy(), "H_ext": dg.compute_extended_hamiltonian()}
+
+
+def facade_held(sim, reverse=False):
+    """(b)'s held entries of a simulation: its positions (in the original
+    body order) and FACADE_ENERGIES."""
+    pos = sim.pos[::-1] if reverse else sim.pos
+    e = facade_energies(sim)
+    return np.concatenate([np.ravel(pos), [e[k] for k in FACADE_ENERGIES]])
+
+
+def facade_cpu_references(path, keys):
+    """The CPU side of phase 23 (b) and (c) for ``keys``, written to
+    ``path`` as JSON: a fast-mode run's held entries in float32 (" reversed":
+    its bodies in reversed slots), or the StabilityAnalyzer's full-mode
+    columns on a triple in float32."""
+    from nbodysimproject_tpu_torch import StabilityAnalyzer
+
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    out = {}
+    for key in keys:
+        label = key.replace(" reversed", "")
+        sim = facade_sim(label, True, "cpu", reverse=key != label)
+        if label in FACADE_RUNS:
+            sim.run(FACADE_DT, FACADE_RUNS[label])
+            out[key] = facade_held(sim, reverse=key != label).tolist()
+        else:
+            out[key] = StabilityAnalyzer(
+                sim, FACADE_SA_STEPS, FACADE_DT,
+                mode="full").run_stability_analysis()
+    out["s"] = time.perf_counter() - t0
+    tmp = path + ".part"
+    with open(tmp, "w") as f:
+        json.dump(out, f)
+    os.replace(tmp, path)
+    return 0
+
+
+def start_facade_cpu_references():
+    """This script in one child process on the CPU for each of
+    FACADE_REF_JOBS; each stopped at exit if still running.  Returns
+    [(process, output path)]."""
+    import atexit
+
+    procs = []
+    os.makedirs(os.path.dirname(FACADE_REF), exist_ok=True)
+    for i, keys in enumerate(FACADE_REF_JOBS):
+        path = FACADE_REF.format(i)
+        if os.path.exists(path):
+            os.remove(path)
+        log = open(path + ".log", "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__),
+             "--facade-cpu-references", path, *keys],
+            stdout=log, stderr=subprocess.STDOUT, cwd=HERE), path))
+        log.close()
+
+    def stop():
+        for proc, _ in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+    atexit.register(stop)
+    return procs
+
+
+def wait_facade_cpu_references(procs):
+    """The merged references of FACADE_REF_JOBS once every child is done
+    (each job's seconds under "s <i>"), and the seconds waited."""
+    t0 = time.perf_counter()
+    ref = {}
+    for i, (proc, path) in enumerate(procs):
+        rc = proc.wait(timeout=600)
+        if rc != 0 or not os.path.exists(path):
+            raise SystemExit(f"the facade's CPU references failed (rc {rc}; "
+                             f"{path}.log)")
+        with open(path) as f:
+            part = json.load(f)
+        ref[f"s {i}"] = part.pop("s")
+        ref.update(part)
+    return ref, time.perf_counter() - t0
+
+
+def sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def phase_facade(ek, fk, dev, ref):
+    """Phase 23: the object API on the card (``facade/``), (a)-(f) of the
+    script's docstring, ``ref`` the CPU references of (b) and (c).
+    Returns the phase's figures for the report."""
+    from nbodysimproject_tpu_torch import (BatchStabilityAnalyzer, Diagnostics,
+                                           MLTrainingPipeline, NBodySimulation,
+                                           SimConfig, StabilityAnalyzer,
+                                           largen_rollout)
+    from nbodysimproject_tpu_torch.analysis.batch import (_group_generator,
+                                                          stack_sims)
+    from nbodysimproject_tpu_torch.diagnostics.megno import draw_tangent
+
+    t_phase = time.perf_counter()
+    out = {"eps_launches": 0, "eps_cases": []}
+    count = lambda: int(ek.eps_star_and_grad_fused.launches)
+
+    # (a) the two golden scenarios in float64: no kernel (the JAX dtype
+    # rule), the golden end states
+    for name, g in (("verlet", GOLDEN_VERLET), ("ham_soft", GOLDEN_HAMSOFT)):
+        reset_counts(ek.eps_star_and_grad_fused)
+        t0 = time.perf_counter()
+        sim = NBodySimulation(device=dev, **g["sim"])
+        sim.run(0.01, g["steps"])
+        pos = sim.pos
+        s = time.perf_counter() - t0
+        d_pos = float(np.abs(pos - np.array(g["pos"])).max())
+        ok = np.allclose(pos, g["pos"], rtol=g["pos_tol"][0],
+                         atol=g["pos_tol"][1])
+        line = f"  (a) golden {name} float64, {g['steps']} steps {s:.2f}s: " \
+               f"|pos - golden| {d_pos:.3e}"
+        if name == "ham_soft":
+            # H_ext is 641 of 652 K_eps = pi^2 / (2 mu): the golden's pi
+            # tolerance admits |dH| up to |pi| 1e-3 / mu, and round-off
+            # grown through the barrier bounce at step 96 moves pi within
+            # it (tests/test_torch_facade_golden.py)
+            H = Diagnostics(sim).compute_extended_hamiltonian()
+            mu = float(sim._dyn.mu_soft)
+            d_e, d_pi, d_H = (abs(sim._epsilon - g["eps"][0]),
+                              abs(sim._pi - g["pi"][0]), abs(H - g["H"][0]))
+            H_tol = g["H"][1] + abs(sim._pi) * g["pi"][1] / mu
+            ok = ok and d_e < g["eps"][1] and d_pi < g["pi"][1] \
+                and d_H < H_tol
+            line += (f", |eps - golden| {d_e:.3e}, |pi - golden| {d_pi:.3e},"
+                     f" |H_ext - golden| {d_H:.3e} (held to {H_tol:.3e}; the "
+                     f"golden's own 1e-4 met: {d_H < g['H'][1]})")
+        print(line + f"; eps kernel launches {count()}", flush=True)
+        if not ok or count() != 0:
+            raise SystemExit(f"(a) golden {name}: outside its golden "
+                             f"tolerances, or a float64 run launched the eps "
+                             f"kernel ({count()})")
+
+    # (b) fast mode: the eps kernel on every substep of run() and step()
+    for label, steps in FACADE_RUNS.items():
+        reset_counts(ek.eps_star_and_grad_fused)
+        sim = facade_sim(label, True, dev)
+        sync(dev)
+        t0 = time.perf_counter()
+        sim.run(FACADE_DT, steps)
+        sync(dev)
+        t_run = (time.perf_counter() - t0) / steps
+        launches = count()
+        n_sub = sim._frozen_n_sub
+        twin = facade_sim(label, True, dev)
+        sync(dev)
+        t0 = time.perf_counter()
+        for _ in range(FACADE_STEP_CALLS):
+            twin.step(FACADE_DT)
+        sync(dev)
+        t_step = (time.perf_counter() - t0) / FACADE_STEP_CALLS
+        out["eps_launches"] += count()
+        want = steps * (n_sub + 1)
+        print(f"  (b) {label} fast mode (N={sim.n_bodies}, n_sub {n_sub}): "
+              f"run({steps}) {1e3 * t_run:.3f} ms a step, "
+              f"{FACADE_STEP_CALLS} step() calls {1e3 * t_step:.3f} ms a step "
+              f"(the per-step host reads {1.0 - t_run / t_step:.3f} of a "
+              f"step() call); eps kernel launches in run() {launches} "
+              f"(want {want})", flush=True)
+        if launches != want:
+            raise SystemExit(f"(b) {label}: eps launches {launches}, want "
+                             f"{want}")
+        # positions and energies against the CPU's float32 run, entries as
+        # rows, its run on reversed body slots as the sensitivity
+        f64 = lambda a: torch.as_tensor(np.asarray(a, np.float64))[:, None]
+        card, cpu = f64(facade_held(sim)), f64(ref[label])
+        rev = f64(ref[f"{label} reversed"])
+        row_gate(f"(b) {label}: card against the CPU's float32 run at step "
+                 f"{steps}, positions and {', '.join(FACADE_ENERGIES)}",
+                 {"q, E": (card, cpu, rev, rev, TOL32_FACADE)},
+                 max_widened=0, against="its run on reversed body slots")
+        out[label] = dict(run_ms=1e3 * t_run, step_ms=1e3 * t_step,
+                          sync_share=1.0 - t_run / t_step, launches=launches,
+                          n_sub=n_sub)
+        # the eps kernel against its plain version at this B = 1 shape, on
+        # the held (finite) state, with the facade's clamp (the soft
+        # policy's): these systems' bodies lie outside each other's SPH
+        # support, so their eps* gradient is 0 (B = 1 rows with a nonzero
+        # gradient are held in (d))
+        case = compare_eps(f"facade {label} B=1", sim._state, sim._dyn, True,
+                           ek)
+        out["eps_cases"].append(case)
+        if label == "ring7":
+            out["eps_case"] = case
+
+    # (c) StabilityAnalyzer in full mode, fast mode, d = 2 and 3
+    for label in ("triple d=2", "triple d=3"):
+        reset_counts(ek.eps_star_and_grad_fused)
+        sim = facade_sim(label, True, dev)
+        t0 = time.perf_counter()
+        got = StabilityAnalyzer(sim, FACADE_SA_STEPS, FACADE_DT,
+                                mode="full").run_stability_analysis()
+        s = time.perf_counter() - t0
+        out["eps_launches"] += count()
+        cpu = ref[label]
+        diff = {k: abs(got[k] - cpu[k]) for k in VERDICT}
+        print(f"  (c) StabilityAnalyzer {label}, full, {FACADE_SA_STEPS} "
+              f"steps at n_sub {sim._frozen_n_sub}: {s:.2f}s, is_stable "
+              f"{got['is_stable']} (CPU {cpu['is_stable']}), |card - CPU| "
+              f"{ {k: f'{v:.3e}' for k, v in diff.items()} } (thresholds "
+              f"{VERDICT}, the card's {({k: round(got[k], 6) for k in VERDICT})}"
+              f"), eps kernel launches {count()}", flush=True)
+        if got["is_stable"] != cpu["is_stable"] or count() == 0:
+            raise SystemExit(f"(c) {label}: is_stable {got['is_stable']} on "
+                             f"the card, {cpu['is_stable']} on the CPU, or no "
+                             f"eps launch ({count()})")
+        out[label] = dict(s=s)
+
+    # (d) BatchStabilityAnalyzer on the sim-list view's simulations
+    class Capture(BatchStabilityAnalyzer):
+        def analyze_batch(self, simulations, show_progress=True,
+                          tangent=None):
+            self.sims = list(simulations)
+            return super().analyze_batch(simulations, show_progress,
+                                         tangent)
+
+    reset_counts(ek.eps_star_and_grad_fused)
+    pipe = MLTrainingPipeline(n_systems=FACADE_BATCH, seed=0, device=dev)
+    pipe.batch_analyzer = Capture(FACADE_BATCH_STEPS, FACADE_DT, mode="full")
+    t0 = time.perf_counter()
+    df = pipe.generate_diverse_dataset()
+    sync(dev)
+    s_view = time.perf_counter() - t0
+    view_launches = count()
+    out["eps_launches"] += view_launches
+    sims = pipe.batch_analyzer.sims
+    missing = [c for c in list(TOL) + ["system_type", "n_sub"]
+               if c not in df]
+    if len(df) != FACADE_BATCH or missing \
+            or not np.isfinite(df["is_stable"]).all():
+        raise SystemExit(f"(d): {len(df)} rows, missing columns {missing}, "
+                         f"or a non-finite is_stable")
+    states, dyns = stack_sims(sims)
+    n_slots = states.pos.shape[1]
+    dr, dv = (t.cpu().numpy() for t in draw_tangent(_group_generator(0, 0),
+                                                    states))
+    # the eps kernel against its plain version at the view's shape, with
+    # the soft policy's clamp (the view's) and without it (where the
+    # gradient is not clamped to 0)
+    for clamp in (True, False):
+        out["eps_cases"].append(compare_eps(
+            f"facade view B={FACADE_BATCH}", states, dyns, clamp, ek))
+    # and at B = 1 on the view's own simulations whose eps* gradient is
+    # nonzero (the view's simulations hold 8 slots, ``_PIPE_CFG``'s
+    # bucket): the first of 3 bodies in its own 3 slots (the one-thread
+    # layout, as a facade simulation of 3 bodies holds them) and the
+    # first of more in its 8 (one lane a body)
+    from types import SimpleNamespace
+
+    g = ek.eps_star_and_grad_fused_plain(
+        states.pos, states.mass, states.eps, dyns.alpha_run,
+        dyns.min_softening, dyns.max_softening, states.mask, clamp=False,
+        use_fallback=False, lam_align=LAMBDA_SOFTENING)[1]
+    live = (g.abs().amax((1, 2)) > 0).cpu().numpy()
+    picks = [next((i for i in range(len(sims)) if live[i]
+                   and (sims[i].n_bodies <= 3) == small), None)
+             for small in (True, False)]
+    nonzero = 0
+    for i in (p for p in picks if p is not None):
+        st = sims[i]._state
+        n = 3 if sims[i].n_bodies <= 3 else st.pos.shape[1]
+        st = SimpleNamespace(pos=st.pos[:, :n], mass=st.mass[:, :n],
+                             mask=st.mask[:, :n], eps=st.eps)
+        for clamp in (True, False):
+            c = compare_eps(f"facade view simulation {i} B=1", st,
+                            sims[i]._dyn, clamp, ek)
+            out["eps_cases"].append(c)
+            nonzero += c["nonzero"]
+    print(f"  (d) B = 1 eps cases with a nonzero gradient: simulations "
+          f"{picks} (3 bodies in 3 slots, more in 8), nonzero gradient in "
+          f"{nonzero} of their cases; {int(live.sum())} of {len(sims)} view "
+          f"rows have one", flush=True)
+    if nonzero == 0:
+        raise SystemExit("(d): no B = 1 eps case with a nonzero gradient")
+
+    # is_stable on shallow rows against the CPU: the same rows analysed
+    # as one group on the card and, restored, on the CPU in float32 and
+    # float64 (the same padding, trips and tangents on both); a row may
+    # differ from the card only where the CPU's two precisions differ
+    n_sub_all = df["n_sub"].to_numpy()
+    rows = np.nonzero(n_sub_all <= FACADE_CPU_NSUB)[0][:FACADE_CPU_ROWS]
+    k = max(sims[i].n_bodies for i in rows)
+    tangent = [(dr[i][:k], dv[i][:k]) for i in rows]
+    analyze = lambda group: BatchStabilityAnalyzer(
+        FACADE_BATCH_STEPS, FACADE_DT, mode="full").analyze_batch(
+        group, show_progress=False, tangent=tangent)
+    before = count()
+    on_card = analyze([sims[i] for i in rows])
+    out["eps_launches"] += count() - before
+    t0 = time.perf_counter()
+    verdicts = {}
+    for name, fast in (("float32", True), ("float64", False)):
+        group = []
+        for i in rows:
+            snap = sims[i].snapshot()
+            snap["cfg"] = snap["cfg"].replace(fast_float32=fast)
+            group.append(NBodySimulation.restore(snap, device="cpu"))
+        verdicts[name] = analyze(group)
+    s_cpu = time.perf_counter() - t0
+    card_v = on_card["is_stable"].to_numpy()
+    c32, c64 = (verdicts[x]["is_stable"].to_numpy()
+                for x in ("float32", "float64"))
+    differ = np.nonzero(card_v != c32)[0]
+    sensitive = c32 != c64
+    away = int((~sensitive[differ]).sum())
+    agree = float((card_v == c32).mean())
+    for j in differ:
+        print(f"    row {rows[j]}: is_stable card {card_v[j]}, CPU float32 "
+              f"{c32[j]}, float64 {c64[j]}; " + ", ".join(
+                  f"{c} {on_card[c].to_numpy()[j]:.6g} / "
+                  f"{verdicts['float32'][c].to_numpy()[j]:.6g} / "
+                  f"{verdicts['float64'][c].to_numpy()[j]:.6g} (threshold "
+                  f"{t})" for c, t in VERDICT.items()))
+    in_view = float((df["is_stable"].to_numpy()[rows] == card_v).mean())
+    out["batch"] = dict(s=s_view, launches=view_launches, agree=agree,
+                        n_sub_max=int(min(n_sub_all.max(), 256)))
+    print(f"  (d) generate_diverse_dataset({FACADE_BATCH}) -> "
+          f"BatchStabilityAnalyzer (full, {FACADE_BATCH_STEPS} steps): "
+          f"{s_view:.2f}s, eps kernel launches {view_launches}, deepest "
+          f"capped n_sub {out['batch']['n_sub_max']}; is_stable of "
+          f"{len(rows)} rows (n_sub <= {FACADE_CPU_NSUB}, {k} slots) "
+          f"analysed on the card against the CPU's float32 run {agree:.4f}, "
+          f"{int(sensitive.sum())} rows whose CPU float32 and float64 "
+          f"verdicts differ, {away} rows off the CPU away from them (gated "
+          f"0; the CPU runs {s_cpu:.2f}s); the same rows' verdicts in the "
+          f"view's {n_slots}-slot group the same in {in_view:.4f}",
+          flush=True)
+    if view_launches == 0 or away:
+        raise SystemExit(f"(d): eps launches {view_launches}, is_stable off "
+                         f"the CPU's on {away} rows where its precisions "
+                         f"agree")
+
+    # (e) the large-N branch on direct_pallas: bench_largen's 10^5 cloud
+    N = 100_000
+    q, m, v = largen_ics()[1][N]
+    eps, steps = 6.0 / LN_NG[N], LN_ROLL_STEPS
+    reset_counts(fk.pairwise_force)
+    sim = NBodySimulation(config=SimConfig(force_mode="direct_pallas"),
+                          masses=m, positions=q, velocities=v,
+                          integrator_mode="verlet", softening=eps,
+                          device=dev)
+    sync(dev)
+    t0 = time.perf_counter()
+    sim.run(LN_ROLL_DT, steps)
+    sync(dev)
+    s = time.perf_counter() - t0
+    launches = int(fk.pairwise_force.launches)
+    m64, v64 = np.asarray(m, np.float64), np.asarray(v, np.float64)
+    v0 = v64 - (m64[:, None] * v64).sum(0) / m64.sum()  # the facade's
+    f64 = lambda a: torch.as_tensor(np.asarray(a, np.float64), device=dev)
+    qr, vr, _ = largen_rollout(f64(q), f64(v0), f64(m), eps, 1.0, LN_ROLL_DT,
+                               steps, SimConfig(force_mode="direct_pallas"))
+    same = bool(torch.equal(sim._state.pos[0], qr)
+                and torch.equal(sim._state.vel[0], vr))
+    out["largen"] = dict(s=s, launches=launches, steps_s=steps / s)
+    print(f"  (e) the large-N branch, direct_pallas, N={N}: run({steps}) "
+          f"{s:.3f}s = {steps / s:.2f} steps/s, tiled force launches "
+          f"{launches} (want {steps + 1}), positions and velocities bit for "
+          f"bit largen_rollout's: {same}", flush=True)
+    if launches != steps + 1 or not same:
+        raise SystemExit("(e): the large-N branch is not largen_rollout")
+    del sim, qr, vr
+
+    # (f) a snapshot taken on the CPU, restored on the card, run on as the
+    # original on the CPU and its twin built on the card
+    orig = facade_sim("golden ham_soft", False, "cpu")
+    twin = facade_sim("golden ham_soft", False, dev)
+    for s_ in (orig, twin):
+        s_.run(FACADE_DT, FACADE_SNAP_STEPS)
+    moved = NBodySimulation.restore(orig.snapshot(), device=dev)
+    for s_ in (orig, twin, moved):
+        s_.run(FACADE_DT, FACADE_SNAP_STEPS)
+    dif = lambda a, b: float(np.abs(a.pos - b.pos).max()
+                             / np.abs(b.pos).max())
+    d_orig, d_twin = dif(moved, orig), dif(moved, twin)
+    print(f"  (f) a CPU snapshot restored on the card ({moved.device}), "
+          f"{FACADE_SNAP_STEPS} steps on: relative position difference from "
+          f"the CPU original {d_orig:.3e}, from the card twin {d_twin:.3e} "
+          f"(gated <= {F64_TOL[0]})", flush=True)
+    if moved.device.type != dev.type or max(d_orig, d_twin) > F64_TOL[0]:
+        raise SystemExit("(f): the restored simulation parts from the "
+                         "original")
+    out["s"] = time.perf_counter() - t_phase
+    print(f"  the facade's phase {out['s']:.1f}s")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3921,11 +4498,15 @@ def main():
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
 
+    # phase 23's CPU references, in child processes beside the builds
+    facade_ref = start_facade_cpu_references()
+
     phase("build")
     t0 = time.perf_counter()
     # the composition kernel at every (N, d) it takes, bk.build_jobs()'s
     # shapes among them
     built = cuda_build.build(hk.build_jobs() + ek.build_jobs()
+                             + facade_eps_jobs(ek)
                              + bk.build_jobs(COMPOSITION_SHAPES)
                              + wk.build_jobs() + fk.build_jobs()
                              + list(BRANCH_JOBS))
@@ -3963,6 +4544,21 @@ def main():
     sass = sass_step_counts(built[(bk.SOURCE, 3, 2)][0])
     print(f"  composition.cu N=3 d=2 SASS, (instructions, MUFU) a step by "
           f"stage count: {sass}")
+
+    facade_ref, waited = wait_facade_cpu_references(facade_ref)
+    secs = ", ".join(f"{facade_ref[f's {i}']:.1f}"
+                     for i in range(len(FACADE_REF_JOBS)))
+    print(f"  phase 23's CPU references: {len(FACADE_REF_JOBS)} child "
+          f"processes on the CPU, {secs} s, waited {waited:.2f}s after the "
+          f"builds", flush=True)
+
+    # phase 23 runs here, in a fresh process: its eager B = 1 steps ran
+    # ~1.8x slower at the script's end than alone (9.05 against 4.8-5.1
+    # ms a step)
+    phase("the facade: NBodySimulation, its analyzers and the sim-list views "
+          "on the card")
+    facade = phase_facade(ek, fk, dev, facade_ref)
+    torch.cuda.empty_cache()
 
     phase("population")
     (mass, pos, vel, mask, G, soft, min_soft), ref = load_population(B_MAIN)
@@ -4163,11 +4759,13 @@ def main():
           f"deepest lane; the run {t_c:.3f}s", flush=True)
     chunked_parity_horizon(states.take(lanes_c), dyns.take(lanes_c), cfg_off,
                            nsm_c, analyze_batch_fused)
+    # the lowest bucket only: the top bucket's case (41.3 s on an NVIDIA
+    # H100 80GB HBM3 at 700 W) was cut to pay for phase 23; the multi-step
+    # kernel's trip is the analysis kernel's, bit for bit (gated above),
+    # and the analysis kernel's top bucket is held in phase 4
     for label, lanes, steps, nsm, widen in (
             ("lowest bucket, use_fused_metrics=False", low, 20,
-             int(buckets[low].max()), False),
-            ("top bucket, use_fused_metrics=False", top, 2,
-             int(cfg.analysis_n_sub_cap), True)):
+             int(buckets[low].max()), False),):
         t0 = time.perf_counter()
         chunked_cases.append(compare_case(
             label, states, dyns, cfg_c, torch.as_tensor(lanes, device=dev),
@@ -4255,6 +4853,7 @@ def main():
           "fused engine does not take, on the dataset rows")
     scan = phase_scan_route(cfg, hk, ek, (mass, pos, vel, mask), G, soft,
                             min_soft, (states, dyns, n_sub_raw), sel)
+    torch.cuda.empty_cache()
 
     phase("report")
     entries = []
@@ -4359,23 +4958,21 @@ def main():
                 ("megno", "nbodysimproject_tpu/ops/pallas_hamsoft.py:770")):
             # a case's bound counts the fallback's firings in its plain
             # run; the full-width run's, the share at t = 0
-            ms, plain_ms, err, ns, steps, msteps, nsm, sh = cases_b[1][kind]
+            ms, plain_ms, err, ns, steps, msteps, nsm, sh = cases_b[0][kind]
             b_ms, b_by = bound(kind, ns, nsm, steps, msteps, N_SLOTS, 2, sh)
             entries.append({
                 "name": f"hamsoft_{kind}_multistep {label}", "route": "cuda",
                 "source": "nbodysimproject_tpu_torch/csrc/hamsoft.cu",
                 "replaces": replaces,
                 "launches": run["launches"][f"hamsoft_{kind}_multistep"],
-                "max_abs_err": max(err, cases_b[0][kind][2]),
+                "max_abs_err": err,
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                 "bound_by": b_by, "library_ms": None})
             r_ms, (rb, rby) = run["times"][kind]
-            print(f"  {kind} {label}: top-bucket case kernel {ms:.3f} ms, "
+            print(f"  {kind} {label}: lowest-bucket case kernel {ms:.3f} ms, "
                   f"plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}"
                   + (f"; the fallback's counted share {sh:.4f}" if sh
-                     is not None else "") + "); "
-                  f"lowest-bucket case kernel {cases_b[0][kind][0]:.3f} ms, "
-                  f"plain {cases_b[0][kind][1]:.3f} ms; its full-width run's "
+                     is not None else "") + "); its full-width run's "
                   f"launch {r_ms:.1f} ms, bound {rb:.3f} ms ({rby})")
         print(f"  {label} run (tail off): {run['s']:.3f}s = "
               f"{B_MAIN / run['s']:.1f} systems/s, fused call "
@@ -4472,6 +5069,49 @@ def main():
           f"{c['plain_ms']:.3f} ms, bound {c['bound'][0]:.4f} ms "
           f"({c['bound'][1]}); launches in the direct_pallas rollout at "
           f"N=1e5 {main_roll['launches']}")
+    # rows 4 and 7 on the facade's paths: their launches in phase 23's
+    # runs; row 4's case the facade's own B = 1 shape (the ring, N = 7),
+    # its error the largest of phase 23's eps cases; row 7's the N = 1e5
+    # case above (the same shape)
+    c = facade["eps_case"]
+    entries.append({
+        "name": "eps_star_and_grad_fused facade", "route": "cuda",
+        "source": "nbodysimproject_tpu_torch/csrc/eps_grad.cu",
+        "replaces": "nbodysimproject_tpu/ops/pallas_eps.py:50",
+        "launches": facade["eps_launches"],
+        "max_abs_err": max(x["err"] for x in facade["eps_cases"]),
+        "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound"][0],
+        "bound_by": c["bound"][1], "library_ms": None})
+    c = force_cmp["N=1e5"]
+    entries.append({
+        "name": "pairwise_force facade", "route": "cuda",
+        "source": "nbodysimproject_tpu_torch/csrc/pairwise_force.cu",
+        "replaces": "nbodysimproject_tpu/ops/pallas_kernels.py:28",
+        "launches": facade["largen"]["launches"],
+        "max_abs_err": max(v["err"] for v in force_cmp.values()),
+        "ms": c["ms"], "plain_ms": c["plain_ms"],
+        "bound_ms": c["bound"][0], "bound_by": c["bound"][1],
+        "library_ms": None})
+    for label in FACADE_RUNS:
+        f = facade[label]
+        print(f"  facade {label} fast mode: {f['run_ms']:.3f} ms a step in "
+              f"run(), {f['step_ms']:.3f} ms in step() (the host reads "
+              f"{f['sync_share']:.3f} of it), eps launches {f['launches']} "
+              f"at n_sub {f['n_sub']}")
+    b = facade["batch"]
+    print(f"  facade: StabilityAnalyzer full {FACADE_SA_STEPS} steps "
+          f"{facade['triple d=2']['s']:.2f}s (d=2), "
+          f"{facade['triple d=3']['s']:.2f}s (d=3); the sim-list view "
+          f"{FACADE_BATCH} x {FACADE_BATCH_STEPS} steps {b['s']:.2f}s (eps "
+          f"launches {b['launches']}, is_stable against the CPU "
+          f"{b['agree']:.4f}); the large-N branch "
+          f"{facade['largen']['steps_s']:.2f} steps/s at N=1e5 (tiled "
+          f"launches {facade['largen']['launches']}); row 4 launches in the "
+          f"phase {facade['eps_launches']}; eps facade ring B=1 case "
+          f"kernel "
+          f"{facade['eps_case']['ms']:.3f} ms, plain "
+          f"{facade['eps_case']['plain_ms']:.3f} ms; the phase "
+          f"{facade['s']:.1f}s")
     launches_at = {CLASSICAL_N: classical["launches"],
                    WL_NS[-1] + 1: wl[WL_NS[-1]]["direct_pallas"]["launches"],
                    100_000: main_roll["launches"], 1_000_000: 1}
@@ -4479,13 +5119,13 @@ def main():
         print(f"  pairwise_force alone N={n}: {ms:.4f} ms ({S} slice(s)), "
               f"bound {b_ms:.4f} ms ({b_by}), {ms / b_ms:.2f}x; launches on "
               f"its path {launches_at[n]}")
-    c8 = chunked_cases[1]["multistep"]
+    c8 = chunked_cases[0]["multistep"]
     print(f"  hamsoft_multistep N=8 (the use_fused_metrics=False analysis): "
           f"run {chunked['run_s']:.3f}s, {chunked['launches']} launches, "
           f"{chunked['kernel_ms']:.1f} ms in all (bound "
           f"{chunked['bound_ms']:.3f} ms), {chunked['launch_ms']:.3f} ms a "
           f"{chunked['launch_steps']}-step launch (bound "
-          f"{chunked['launch_bound'][0]:.4f} ms); top-bucket case kernel "
+          f"{chunked['launch_bound'][0]:.4f} ms); lowest-bucket case kernel "
           f"{c8[0]:.3f} ms, plain {c8[1]:.3f} ms")
     for policy in ("soft", "reflection"):
         med = legs[f"ham_soft fused {policy}"][1]
@@ -4568,4 +5208,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--facade-cpu-references"]:
+        sys.exit(facade_cpu_references(sys.argv[2], sys.argv[3:]))
     sys.exit(main())

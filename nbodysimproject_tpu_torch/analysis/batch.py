@@ -1,7 +1,9 @@
-"""Batched stability analysis over a system population.
+"""Batched stability analysis over a system population, and the
+facade's batch analyzer.
 
 Counterpart of ``nbodysimproject_tpu/analysis/batch.py``
-(``analyze_population``; parity:
+(``analyze_population``, ``stack_sims``, ``_scheduled_dyn``,
+``BatchStabilityAnalyzer``; parity:
 ``minbody/batch_stability_analyzer.py:30-102``).  The population is one
 set of ``(B, N, d)`` tensors, built in one batched construction.  Its
 systems off the Kepler tail run one engine call: the fused engine where
@@ -563,3 +565,232 @@ def analyze_population(mass, pos, vel, mask, cfg, *, G=1.0, softening=0.05,
     if show_progress:
         print(f"Completed: {B} simulations analyzed")
     return df
+
+
+# ----------------------------------------------------------------------
+# the facade's batch analyzer (batch.py:31-84 and :884-1019 of the JAX
+# package)
+# ----------------------------------------------------------------------
+
+def _pad_slots(x, k: int):
+    """``x`` (1, N[, d]) with ``k`` zero (False) slots appended."""
+    pad = torch.zeros((x.shape[0], k) + tuple(x.shape[2:]), dtype=x.dtype,
+                      device=x.device)
+    return torch.cat([x, pad], 1)
+
+
+def stack_sims(sims, dyns_list=None):
+    """Facade simulations stacked into batched (states, dyns), their body
+    slots padded (mass 0, mask False) to the largest count among them.
+    ``dyns_list``: each simulation's DynParams, its own by default."""
+    from ..core.state import DYN_FIELDS, STATE_FIELDS, DynParams, SimState
+
+    n_slots = max(s._state.n_slots for s in sims)
+
+    def padded(st):
+        k = n_slots - st.n_slots
+        if k == 0:
+            return st
+        return st.replace(**{f: _pad_slots(getattr(st, f), k)
+                             for f in ("mass", "pos", "vel", "mask")})
+
+    sts = [padded(s._state) for s in sims]
+    dys = dyns_list if dyns_list is not None else [s._dyn for s in sims]
+    states = SimState(**{f: torch.cat([getattr(s, f) for s in sts])
+                         for f in STATE_FIELDS})
+    dyns = DynParams(**{f: torch.cat([getattr(d, f) for d in dys])
+                        for f in DYN_FIELDS})
+    return states, dyns
+
+
+def _scheduled_dyn(sim, dt: float, cap: bool = True):
+    """The simulation's DynParams with the pi-budget mu raise and, where
+    ``dt`` is not within 1% of the frozen dt, a refrozen schedule; the
+    simulation is not changed.  ``cap`` applies the batch policy's n_sub
+    cap (``cfg.analysis_n_sub_cap``; the reference runs the full n_pred,
+    HSI:504-551)."""
+    import math
+
+    from ..parallel.batch_engine import refreeze
+
+    dyn = sim._dyn
+    if sim._integrator_mode != "ham_soft":
+        h_sub = float(dyn.h_sub_ref)
+        if not (math.isfinite(h_sub) and h_sub > 0.0):
+            h_sub = abs(dt)
+        n = int(max(1, min(sim.cfg.split_n_max,
+                           math.ceil(abs(dt) / h_sub))))
+        return dyn.replace(n_sub=torch.full_like(dyn.n_sub, n))
+    dyn = dyn.replace(mu_soft=calib.calibrate_mu_from_pi_budget(
+        dyn.mu_soft, dyn.k_soft, sim._as_dtype(abs(dt)),
+        sim._as_dtype(sim.cfg.theta_imp)))
+    prev = getattr(sim, "_frozen_dt", None)
+    if prev is None or prev <= 0.0 or abs(abs(dt) - prev) / prev > 0.01:
+        dyn = refreeze(sim._state, dyn, sim.cfg, sim._as_dtype(dt))
+    if cap:
+        dyn = dyn.replace(n_sub=torch.clamp_max(dyn.n_sub,
+                                                _n_sub_cap(sim.cfg)))
+    return dyn
+
+
+def _group_generator(seed: int, first: int) -> torch.Generator:
+    """The CPU generator of the group whose first simulation is
+    ``first`` (the JAX package folds that index into its key)."""
+    s = np.random.SeedSequence([int(seed), int(first)]).generate_state(1)
+    return torch.Generator().manual_seed(int(s[0]))
+
+
+class BatchStabilityAnalyzer:
+    """The facade's batch analyzer (batch_stability_analyzer.py:30-102):
+    the simulations grouped by (cfg, mode), each group padded to its
+    largest body count and analysed in one scan-engine call
+    (``analysis/stability.py::analyze_batch``) on the simulations'
+    device, each system at its own (capped) n_sub.  The frame has the
+    JAX package's columns: the result columns, the ``initial_*``
+    features in full mode, the per-body IC columns, the pre-cap n_sub.
+
+    MEGNO tangent vectors: drawn per group from a CPU ``torch.Generator``
+    seeded by (``seed``, the group's first index), or passed to
+    ``analyze_batch`` as ``tangent``, one (dr0, dv0) pair of (n_slots,
+    d) arrays per simulation."""
+
+    def __init__(self, n_steps: int = 1000, dt: float = 0.01,
+                 mode: str = "core", seed: int = 0) -> None:
+        self.n_steps = int(n_steps)
+        self.dt = float(dt)
+        self.mode = mode
+        self.seed = int(seed)
+        self.results: list = []
+
+    def analyze_simulation(self, sim) -> dict:
+        """The single-system path (batch_stability_analyzer.py:37-58)."""
+        from .stability import StabilityAnalyzer
+
+        analyzer = StabilityAnalyzer(sim, self.n_steps, self.dt,
+                                     mode=self.mode)
+        result = analyzer.run_stability_analysis() or {}
+        self._postprocess(result, sim)
+        return result
+
+    @staticmethod
+    def _postprocess(result: dict, sim) -> None:
+        drift = result.get("energy_drift")
+        bad = drift is not None and (abs(drift) > 10
+                                     or not np.isfinite(drift))
+        if bad:
+            result["is_stable"] = 0.0
+        result["pathological_energy"] = bool(bad)
+        if sim._integrator_mode == "ham_soft":
+            result["softening_policy"] = "adaptive-ham"
+        elif sim._adaptive_softening:
+            result["softening_policy"] = "adaptive-classic"
+        else:
+            result["softening_policy"] = "static"
+
+    def _tangent(self, tangent, idxs, states):
+        if tangent is None:
+            from ..diagnostics.megno import draw_tangent
+
+            return draw_tangent(_group_generator(self.seed, idxs[0]),
+                                states)
+        n_slots = states.pos.shape[1]
+
+        def stacked(k):
+            rows = []
+            for i in idxs:
+                a = np.asarray(tangent[i][k], np.float64)
+                rows.append(np.concatenate(
+                    [a, np.zeros((n_slots - len(a),) + a.shape[1:])]))
+            return _on_device(np.stack(rows), states.pos.dtype,
+                              states.pos.device)
+
+        return stacked(0), stacked(1)
+
+    def analyze_batch(self, simulations, show_progress: bool = True,
+                      tangent=None):
+        """One scan-engine call per (cfg, mode) group; returns the frame,
+        one row per simulation in input order."""
+        import pandas as pd
+        from collections import defaultdict
+
+        self.results = [None] * len(simulations)
+        if show_progress:
+            print(f"Analyzing {len(simulations)} simulations...")
+        groups = defaultdict(list)
+        for i, sim in enumerate(simulations):
+            groups[(sim.cfg, self.mode)].append(i)
+        megno_steps = 0
+        if self.mode == "full":
+            n_samp = min(50, self.n_steps // 2)
+            megno_steps = min(100, n_samp) if n_samp > 0 else 0
+
+        for (cfg, mode), idxs in groups.items():
+            sims = [simulations[i] for i in idxs]
+            # this dt's schedule, the simulations left as they are
+            # (strang_substeps' pi-budget raise, HSI:800); the n_sub
+            # columns record the demand before the cap
+            raw_list = [_scheduled_dyn(s, self.dt, cap=False) for s in sims]
+            n_subs_raw = np.array([int(d.n_sub) for d in raw_list])
+            cap = _n_sub_cap(cfg)
+            dyns_list = [d.replace(n_sub=torch.clamp_max(d.n_sub, cap))
+                         for d in raw_list]
+            n_sub_max = int(np.minimum(n_subs_raw, cap).max())
+            states, dyns = stack_sims(sims, dyns_list)
+            res, _ = analyze_batch(
+                states, dyns, cfg, self.n_steps, self.dt, mode, n_sub_max,
+                megno_steps, tangent=self._tangent(tangent, idxs, states)
+                if megno_steps else None)
+            # the JAX package's result and feature dicts come back from
+            # jit with their keys sorted: so do the columns here
+            res_np = {k: _as_np(res[k]) for k in sorted(res)}
+            if self.mode == "full":
+                feats = F.extract_all(states, dyns, cfg)
+                res_np.update({f"initial_{k}": _as_np(feats[k])
+                               for k in sorted(feats)})
+            res_np.update(serialize_ic_columns(
+                _as_np(states.mass), _as_np(states.pos), _as_np(states.vel),
+                _as_np(states.mask),
+                G=_as_np(dyns.G).astype(np.float64),
+                softening=_as_np(dyns.s0).astype(np.float64),
+                min_softening=_as_np(dyns.min_softening).astype(np.float64),
+                cfg=cfg))
+            res_np["n_sub"] = n_subs_raw.astype(np.int64)
+            res_np["n_sub_capped"] = n_subs_raw > cap
+            for j, i in enumerate(idxs):
+                row = {}
+                for k, v in res_np.items():
+                    val = v[j]
+                    if isinstance(val, str):
+                        row[k] = val
+                    elif isinstance(val, (np.bool_, bool)):
+                        row[k] = bool(val)
+                    elif isinstance(val, (np.integer, int)):
+                        row[k] = int(val)
+                    else:
+                        row[k] = float(val)
+                row["mode"] = self.mode
+                self._postprocess(row, simulations[i])
+                row["simulation_id"] = i
+                self.results[i] = row
+
+        if show_progress:
+            print(f"Completed: {len(self.results)} simulations analyzed")
+        return pd.DataFrame(self.results)
+
+    def save_batch_results(self, filename: str) -> None:
+        import pandas as pd
+
+        if not self.results:
+            print("[error] No results to save. Run analyze_batch first.")
+            return
+        df = pd.DataFrame(self.results)
+        df.to_csv(filename, index=False)
+        print(f"Saved {len(df)} results to {filename}")
+
+    def get_feature_matrix(self) -> np.ndarray:
+        import pandas as pd
+
+        if not self.results:
+            print("[error] No results available. Run analyze_batch first.")
+            return np.array([])
+        return pd.DataFrame(self.results).values

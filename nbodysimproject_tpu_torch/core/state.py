@@ -55,6 +55,9 @@ class SimState:
         return SimState(**{f.name: getattr(self, f.name)[idx]
                            for f in dataclasses.fields(self)})
 
+    def momenta(self):
+        return self.mass[..., :, None] * self.vel
+
 
 @dataclass(frozen=True)
 class DynParams:
@@ -110,6 +113,44 @@ def state_from_numpy(arrays: dict, *, device=None, dtype=None):
     state = SimState(**{k: conv(k) for k in STATE_FIELDS})
     dyn = DynParams(**{k: conv(k) for k in DYN_FIELDS})
     return state, dyn
+
+
+def build_state(masses, positions, velocities, *, eps, n_slots=None,
+                dim=None, dtype=torch.float64, device=None):
+    """A padded one-system batch (B = 1) from array-likes, the JAX
+    package's ``build_state`` (parity: simulation_state.py:98-144) with
+    the port's leading system axis: velocities broadcast from one (d,)
+    vector; padding slots get mass 0 and ``mask`` False.  ``device=None``
+    is the card."""
+    from .device import resolve_device
+
+    dev = resolve_device(device)
+    m = np.asarray(masses, dtype=np.float64).ravel()
+    q = np.atleast_2d(np.asarray(positions, dtype=np.float64))
+    v = np.asarray(velocities, dtype=np.float64)
+    n = m.size
+    d = q.shape[1] if dim is None else dim
+    if v.ndim == 1:
+        v = np.broadcast_to(v, (n, d)).copy()
+    v = np.atleast_2d(v)
+    slots = n if n_slots is None else int(n_slots)
+    if slots < n:
+        raise ValueError(f"n_slots={slots} < n_bodies={n}")
+
+    def pad(a):
+        out = np.zeros((1, slots) + a.shape[1:], dtype=np.float64)
+        out[0, :n] = a
+        return torch.as_tensor(out, dtype=dtype, device=dev)
+
+    mask = torch.zeros((1, slots), dtype=torch.bool, device=dev)
+    mask[0, :n] = True
+    full = lambda x: torch.full((1,), float(x), dtype=dtype, device=dev)
+    eps = float(eps)
+    return SimState(
+        mass=pad(m), pos=pad(q), vel=pad(v), eps=full(eps), pi=full(0.0),
+        s=full(eps), step_s2=full(eps * eps),
+        softening_energy_delta=full(0.0), hist_count=full(1.0),
+        hist_sum=full(eps), hist_sumsq=full(eps * eps), mask=mask)
 
 
 def remove_center_of_mass_velocity(mass, vel, mask=None):

@@ -62,6 +62,15 @@ def barrier_term(state, dyn, cfg):
     return torch.zeros_like(state.eps)
 
 
+def energy(state, dyn, cfg):
+    """H_ext with the pair potential at eps = state.eps, the
+    'physical-facing' extended energy (diagnostics.py:81-155)."""
+    T = kinetic_energy(state)
+    V = _pair_potential(state, dyn.G, state.eps)
+    K_eps, S_spring = spring_terms(state, dyn, hs.eps_target(state, dyn, cfg))
+    return T + V + barrier_term(state, dyn, cfg) + K_eps + S_spring
+
+
 def energy_breakdown(state, dyn, cfg):
     """dict(T, V, K_eps, PE_spring, H) (diagnostics.py:158-235); classical
     modes evaluate V at step_s2, ham_soft at eps^2."""
@@ -104,6 +113,12 @@ def extended_hamiltonian(state, dyn, cfg, eps_star=None):
     return T + V + K_eps + S_spring + S_bar
 
 
+def extended_hamiltonian_of_sim(sim) -> float:
+    """The facade's H_ext (Integrator.compute_extended_hamiltonian,
+    integrator.py:144-147)."""
+    return float(extended_hamiltonian(sim._state, sim._dyn, sim.cfg))
+
+
 def angular_momentum_z(state):
     """L_z = sum m (x vy - y vx) (diagnostics.py:553-557)."""
     q, v = state.pos, state.vel
@@ -120,6 +135,12 @@ def angular_momentum_vector(state):
     L_i = state.mass[..., None] * torch.linalg.cross(q, v, dim=-1)
     L_i = torch.where(state.mask[..., None], L_i, torch.zeros_like(L_i))
     return L_i.sum(-2)
+
+
+def linear_momentum(state):
+    """(B, d) total momentum (diagnostics.py:559-565)."""
+    p = state.mass[..., None] * state.vel
+    return torch.where(state.mask[..., None], p, torch.zeros_like(p)).sum(-2)
 
 
 def center_of_mass(state):

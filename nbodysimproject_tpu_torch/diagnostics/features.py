@@ -129,3 +129,15 @@ FEATURE_NAMES = [
     "angular_momentum_variance",
     "softening_mean", "softening_std",
 ]
+
+
+class DynamicalFeatures:
+    """The facade's view (dynamical_features.py:22): the 25 features of
+    one simulation as floats."""
+
+    def __init__(self, sim):
+        self.sim = sim
+
+    def extract_all(self) -> dict:
+        d = extract_all(self.sim._state, self.sim._dyn, self.sim.cfg)
+        return {k: float(v) for k, v in d.items()}

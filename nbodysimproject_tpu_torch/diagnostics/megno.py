@@ -1,10 +1,11 @@
-"""MEGNO tangent-vector initialisation.
+"""MEGNO: the tangent vectors and the scan continuation.
 
-Counterpart of ``init_tangent`` in
-``nbodysimproject_tpu/diagnostics/megno.py`` (parity:
-``minbody/evolution_features.py:37-44``): random COM-free unit tangent
-vectors.  The MEGNO continuation itself runs in the MEGNO kernel
-(``ops/hamsoft_kernels.py::hamsoft_megno_multistep``).
+Counterpart of ``nbodysimproject_tpu/diagnostics/megno.py`` (parity:
+``minbody/evolution_features.py:34-66``): random COM-free unit tangent
+vectors (``init_tangent``) and the MEGNO steps fused with the integrator
+on the scan engine (``megno_scan``; ``megno_static``, the facade's
+static-n_sub path).  The fused engine's MEGNO continuation runs in the
+MEGNO kernel (``ops/hamsoft_kernels.py::hamsoft_megno_multistep``).
 
 ``jax.random`` streams cannot be reproduced in PyTorch, so the normal
 draws come from a ``torch.Generator``: one ``(B, N, d)`` pair for the
@@ -15,6 +16,7 @@ package's draws pass the finished tangents instead.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -88,3 +90,34 @@ def megno_scan(state, dyn, cfg, dr0, dv0, n_steps: int, dt,
                                                 device=dtv.device)
     Y, lyap, slope_med = _megno_summary(accum, t, ys, dtv)
     return state, Y, lyap, slope_med
+
+
+def draw_tangent(generator, state):
+    """COM-free unit tangent vectors (dr0, dv0) for the batched
+    ``state``, from two normal draws of its shape taken from the CPU
+    ``torch.Generator`` ``generator`` (on the CPU, so the numbers do not
+    depend on the device)."""
+    shape, dev = tuple(state.pos.shape), state.pos.device
+    z1, z2 = (torch.randn(shape, generator=generator, dtype=state.pos.dtype)
+              for _ in range(2))
+    return init_tangent(z1.to(dev), z2.to(dev), state)
+
+
+def tangent_for(state, generator, tangent=None):
+    """The (dr0, dv0) of a facade view's MEGNO run on the one-system
+    ``state``: ``draw_tangent(generator, state)``, or the given finished
+    (n_slots, d) vectors ``tangent`` on the state's device and dtype."""
+    if tangent is None:
+        return draw_tangent(generator, state)
+    return tuple(torch.as_tensor(np.array(t), dtype=state.pos.dtype,
+                                 device=state.pos.device)[None]
+                 for t in tangent)
+
+
+def megno_static(state, dyn, cfg, dr0, dv0, n_steps: int, dt, n_sub: int):
+    """``megno_scan`` with one substep count ``n_sub`` for every system:
+    the JAX package's ``megno_jit``, the facade's path.  Every trip is
+    active, so it runs the static macro step's arithmetic."""
+    dyn = dyn.replace(n_sub=torch.full_like(dyn.n_sub, int(n_sub)))
+    return megno_scan(state, dyn, cfg, dr0, dv0, n_steps, dt, int(n_sub),
+                      int(n_sub))

@@ -1,6 +1,6 @@
-"""Step metrics, batched.
+"""Step metrics, batched, and the facade's ``Diagnostics``.
 
-Counterpart of ``step_metrics`` and ``tidal_trace`` of
+Counterpart of ``step_metrics``, ``tidal_trace`` and ``Diagnostics`` of
 ``nbodysimproject_tpu/diagnostics/metrics.py`` (parity:
 ``minbody/diagnostics.py:241-285``) on a batched state: one value per
 system for COM drift, J_eps, theta_eps, the angular-momentum statistics,
@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from . import energy as E
@@ -117,3 +118,106 @@ def step_metrics(state, dyn, cfg, L0=None, megno_slope_median=None,
     if energies:
         out.update(E.energy_breakdown(state, dyn, cfg))
     return out
+
+
+class Diagnostics:
+    """The facade's diagnostics (diagnostics.py:33): conserved
+    quantities, the extended Hamiltonian, the step metrics and the
+    runtime energy guard of one simulation, as host floats (each a
+    device-to-host read on the card)."""
+
+    #: occurrences of each rate-limited message, shared by every instance
+    #: (diagnostics.py:387-421)
+    _GLOBAL_DIAG_COUNTS: dict = {}
+
+    def __init__(self, simulation, integrator=None):
+        self.sim = simulation
+        self._integ = integrator
+        pref = getattr(simulation.cfg, "energy_tol_pref", None)
+        self._tol_pref = float(pref) if pref is not None else 1e-7
+        self._H0_mod = None
+        self._step_idx = 0
+
+    def _args(self):
+        return self.sim._state, self.sim._dyn, self.sim.cfg
+
+    # -- conserved quantities -------------------------------------------
+    def kinetic_energy(self) -> float:
+        return float(E.kinetic_energy(self.sim._state))
+
+    def potential_energy(self) -> float:
+        return float(E.potential_energy(self.sim._state, self.sim._dyn))
+
+    def energy(self) -> float:
+        return float(E.energy(*self._args()))
+
+    def energy_breakdown(self) -> dict:
+        return {k: float(v) for k, v in E.energy_breakdown(*self._args())
+                .items()}
+
+    def angular_momentum(self) -> float:
+        return float(E.angular_momentum_z(self.sim._state))
+
+    def linear_momentum(self):
+        p = E.linear_momentum(self.sim._state)[0].cpu().numpy()
+        return float(p[0]), float(p[1])
+
+    def center_of_mass(self):
+        x, v = (t[0].cpu().numpy() for t in E.center_of_mass(self.sim._state))
+        return (float(x[0]), float(x[1])), (float(v[0]), float(v[1]))
+
+    def compute_extended_hamiltonian(self) -> float:
+        return float(E.extended_hamiltonian(*self._args()))
+
+    # -- step metrics -----------------------------------------------------
+    def step_metrics(self, megno_slope_history=None) -> dict:
+        """The step metrics with L0 = the first call's L_z (at d = 3, as
+        in the JAX package, L_z stands for the L vector's every
+        component in the tilt)."""
+        st = self.sim._state
+        med = None
+        if megno_slope_history:
+            med = torch.full_like(st.eps,
+                                  float(np.median(megno_slope_history)))
+        if not hasattr(self, "_L0"):
+            self._L0 = float(E.angular_momentum_z(st))
+        L0 = torch.full_like(st.eps, self._L0)
+        if st.pos.shape[-1] == 3:
+            L0 = L0[..., None]
+        d = step_metrics(st, self.sim._dyn, self.sim.cfg, L0=L0,
+                         megno_slope_median=med)
+        return {k: float(v) for k, v in d.items()}
+
+    # -- rate-limited diagnostics (diagnostics.py:387-421) ----------------
+    def _rate_limited_diag_print(self, key: str, msg: str) -> None:
+        cfg = getattr(self.sim, "cfg", None)
+        if cfg is not None and not getattr(cfg, "diag_prints", True):
+            return
+        limit = max(int(getattr(cfg, "diag_print_limit", 3)) if cfg else 3,
+                    0)
+        interval = max(int(getattr(cfg, "diag_print_interval", 1000))
+                       if cfg else 1000, 1)
+        counts = Diagnostics._GLOBAL_DIAG_COUNTS
+        c = counts.get(key, 0) + 1
+        counts[key] = c
+        if c <= limit:
+            print(msg)
+        elif c % interval == 0:
+            print(f"{msg} (occurrence #{c})")
+
+    # -- runtime energy guard (diagnostics.py:288-384) --------------------
+    def energy_guard(self, dt: float) -> None:
+        cfg = self.sim.cfg
+        if not cfg.enable_runtime_guard:
+            return
+        self._step_idx += 1
+        if self._step_idx % int(cfg.invariant_check_interval):
+            return
+        H_now = self.compute_extended_hamiltonian()
+        if self._H0_mod is None:
+            self._H0_mod = H_now
+            return
+        tol = self._tol_pref * dt * dt
+        if abs(H_now - self._H0_mod) > tol:
+            print(f"[energy_guard] |dH_ext| = {abs(H_now - self._H0_mod):.3e}"
+                  f" > tol = {tol:.3e}")

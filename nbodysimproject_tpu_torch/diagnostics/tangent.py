@@ -39,3 +39,22 @@ def variational_accel_state(state, dyn, cfg, delta_r):
     """At the softening the step froze (step_s2; tangent_map.py:32)."""
     return variational_accel(state.pos, state.mass, delta_r, dyn.G,
                              state.step_s2, mask=state.mask)
+
+
+class TangentMap:
+    """The facade's view (tangent_map.py:16): the tangent acceleration
+    of one simulation's bodies for an (n_bodies, d) ``delta_r``."""
+
+    def __init__(self, sim):
+        self.sim = sim
+
+    def variational_accel(self, delta_r):
+        import numpy as np
+
+        st = self.sim._state
+        d = torch.as_tensor(np.asarray(delta_r, dtype=np.float64),
+                            dtype=st.pos.dtype, device=st.pos.device)
+        full = torch.zeros_like(st.pos)
+        full[0, : d.shape[0]] = d
+        out = variational_accel_state(st, self.sim._dyn, self.sim.cfg, full)
+        return out[0, : self.sim.n_bodies].cpu().numpy()

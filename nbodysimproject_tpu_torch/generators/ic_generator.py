@@ -280,9 +280,21 @@ class InitialConditionGenerator:
 
     def create_simulation(self, n_bodies: int, *, integrator_mode=None,
                           adaptive_softening=None):
-        raise NotImplementedError(
-            "create_simulation needs the facade (NBodySimulation), which "
-            "the port does not have yet (ROADMAP.md Queue 1 item 5)")
+        """A facade simulation of one drawn system, on this generator's
+        device, under ``sim_config`` where one was given."""
+        from ..facade.simulation import NBodySimulation
+
+        m, q, v = self.generate_single(n_bodies)
+        kwargs: Dict = dict(masses=m, positions=q, velocities=v,
+                            G=self.config.G, softening=self.config.softening,
+                            device=self.device)
+        if self.sim_config is not None:
+            kwargs["config"] = self.sim_config
+        if integrator_mode is not None:
+            kwargs["integrator_mode"] = integrator_mode
+        if adaptive_softening is not None:
+            kwargs["adaptive_softening"] = adaptive_softening
+        return NBodySimulation(**kwargs)
 
     def validate_system(self, masses, positions, velocities) -> Dict[str, float]:
         """Energy/virial/momentum report computed on the arrays in

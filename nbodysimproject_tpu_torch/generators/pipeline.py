@@ -1,4 +1,4 @@
-"""ML dataset orchestration, the batched half.
+"""ML dataset orchestration: the batched pipeline and its sim-list views.
 
 Counterpart of ``nbodysimproject_tpu/generators/pipeline.py``
 (capability parity: ``minbody/ml_training_pipeline.py:30-235``): the
@@ -17,21 +17,24 @@ reproduced in PyTorch): the tests compare cohort statistics
 distributionally and the transforms on replayed draws.
 
 The sim-list views (``generate_diverse_dataset``,
-``generate_focused_dataset``, ``quick_test_pipeline``) need the facade,
-which the port does not have yet (ROADMAP.md Queue 1 item 5); they
-raise.
+``generate_focused_dataset``, ``quick_test_pipeline``) build facade
+simulations (``facade/simulation.py``) on the pipeline's device and
+analyse them with the facade's analyzers, as the JAX package's do
+(ml_training_pipeline.py:39-235).
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
+from ..analysis.batch import BatchStabilityAnalyzer
 from ..core.config import SimConfig
 from ..core.device import resolve_device
-from .ic_generator import (InitialConditionGenerator, _pair_stats,
-                           check_generator, generate_population,
+from .ic_generator import (GeneratorConfig, InitialConditionGenerator,
+                           _pair_stats, check_generator, generate_population,
                            sample_body_counts)
 from .specialized import hierarchical_triple_batch, polygon_batch
 
@@ -284,16 +287,10 @@ def population_statistics(mass, pos, vel, mask, softening, G=1.0):
             "mean_separation": mean_sep}
 
 
-def _needs_facade(name):
-    raise NotImplementedError(
-        f"MLTrainingPipeline.{name} is a sim-list view over the facade "
-        f"(NBodySimulation), which the port does not have yet (ROADMAP.md "
-        f"Queue 1 item 5); use generate_diverse_dataset_batched")
-
-
 class MLTrainingPipeline:
-    """The diverse mixture drawn and analysed in one batched pass.
-    ``device=None`` runs on the card."""
+    """The diverse mixture drawn and analysed in one batched pass, and
+    the sim-list views over the facade.  ``device=None`` runs on the
+    card."""
 
     def __init__(self, n_systems: int = 1000, n_steps: int = 1000,
                  dt: float = 0.01, seed: int = 0, device=None):
@@ -304,6 +301,8 @@ class MLTrainingPipeline:
         self.device = resolve_device(device)
         self.ic_generator = InitialConditionGenerator(sim_config=_PIPE_CFG,
                                                       device=self.device)
+        self.batch_analyzer = BatchStabilityAnalyzer(
+            n_steps=self.n_steps, dt=self.dt, mode="full")
 
     def _population(self, dtype=torch.float32):
         gen = torch.Generator(device=self.device)
@@ -328,11 +327,104 @@ class MLTrainingPipeline:
         df["system_type"] = types
         return df
 
+    def _sim(self, m, p, v, **kw):
+        """A facade simulation under ``_PIPE_CFG`` (the JAX package's
+        pipeline builds every one of its simulations so)."""
+        from ..facade.simulation import NBodySimulation
+
+        return NBodySimulation(config=_PIPE_CFG, masses=m, positions=p,
+                               velocities=v, device=self.device, **kw)
+
     def generate_diverse_dataset(self):
-        _needs_facade("generate_diverse_dataset")
+        """The sim-list view of the diverse mixture: the same population
+        drawn on the device, one facade simulation per system, analysed
+        by the facade's batch analyzer (ml_training_pipeline.py:39-135)."""
+        sizes = cohort_sizes(self.n_systems)
+        print(f"Generating {self.n_systems} diverse N-body systems "
+              f"({', '.join(f'{v} {k}' for k, v in sizes.items())})...")
+        mass, pos, vel, mask, soft, types = self._population()
+        mass, pos, vel, soft = (x.cpu().numpy()
+                                for x in (mass, pos, vel, soft))
+        counts = mask.sum(1).cpu().numpy()
+        simulations = [
+            self._sim(mass[i, :n], pos[i, :n], vel[i, :n], G=1.0,
+                      softening=float(soft[i]))
+            for i, n in enumerate(counts)]
+        print(f"\nAnalyzing {len(simulations)} systems...")
+        results_df = self.batch_analyzer.analyze_batch(simulations,
+                                                       show_progress=True)
+        results_df["system_type"] = types
+        return results_df
 
     def generate_focused_dataset(self, focus: str = "boundary"):
-        _needs_facade("generate_focused_dataset")
+        """Simulations focused on the stability boundary, on stable
+        hierarchies or on chaotic clusters, their hyperparameters drawn
+        from numpy's global stream as in the JAX package
+        (ml_training_pipeline.py:137-196)."""
+        from .specialized import SpecializedGenerators as SG
+
+        print(f"Generating {self.n_systems} systems focused on {focus} "
+              f"cases...")
+        dev = self.device
+        icg = lambda cfg: InitialConditionGenerator(cfg, sim_config=_PIPE_CFG,
+                                                    device=dev)
+        simulations = []
+        for i in range(self.n_systems):
+            if focus == "boundary" and i % 3 == 0:
+                sim = self._sim(*SG.generate_hierarchical_triple(
+                    separation_ratio=np.random.uniform(5, 15), device=dev))
+            elif focus == "boundary" and i % 3 == 1:
+                sim = icg(GeneratorConfig(
+                    velocity_virial_fraction=1.0,
+                    velocity_perturbation=np.random.uniform(0.1, 0.3))
+                ).create_simulation(np.random.randint(3, 5))
+            elif focus == "boundary":
+                sim = self._sim(*SG.generate_equal_mass_polygon(
+                    np.random.randint(4, 7),
+                    rotation_fraction=np.random.uniform(0.3, 0.7),
+                    device=dev))
+            elif focus == "stable":
+                m, p, v = SG.generate_hierarchical_triple(
+                    separation_ratio=np.random.uniform(20, 100), device=dev)
+                v = v + np.random.randn(*v.shape) * 0.01
+                sim = self._sim(m, p, v, softening=0.01)
+            else:
+                sim = icg(GeneratorConfig(
+                    position_scale=0.1,
+                    velocity_virial_fraction=np.random.uniform(1.5, 2.0),
+                    velocity_perturbation=0.5, softening=0.001)
+                ).create_simulation(np.random.randint(3, 6))
+            simulations.append(sim)
+        results_df = self.batch_analyzer.analyze_batch(simulations)
+        results_df["dataset_focus"] = focus
+        return results_df
 
     def quick_test_pipeline(self):
-        _needs_facade("quick_test_pipeline")
+        """Ten systems of 3-5 bodies, each through the single-system
+        analyzer in core mode for 100 steps
+        (ml_training_pipeline.py:198-235)."""
+        import pandas as pd
+
+        from ..analysis.stability import StabilityAnalyzer
+        from ..utils.seeding import set_global_seed
+
+        set_global_seed(42)
+        print("Running quick test with 10 systems...")
+        generator = InitialConditionGenerator(device=self.device)
+        test_sims = [generator.create_simulation(3 + (i % 3))
+                     for i in range(10)]
+        print("\nTesting unified analyzer in core mode...")
+        results = []
+        for i, sim in enumerate(test_sims):
+            result = StabilityAnalyzer(sim, n_steps=100, dt=0.01,
+                                       mode="core").run_stability_analysis()
+            result["system_id"] = i
+            results.append(result)
+            status = "STABLE" if result["is_stable"] else "UNSTABLE"
+            print(f"System {i}: {status} "
+                  f"(E_drift={result['energy_drift']:.2e})")
+        test_df = pd.DataFrame(results)
+        n_stable = int(sum(test_df["is_stable"]))
+        print(f"\nTest complete. {n_stable} stable, "
+              f"{len(test_df) - n_stable} unstable")
+        return test_df

@@ -44,6 +44,12 @@ def classical_accel(state, dyn, cfg):
     return _div_mass(_force(state, dyn, cfg, eps_eff), state)
 
 
+def hamsoft_accel(state, dyn, cfg):
+    """a_i with eps = state.eps, the ham_soft force softening
+    (simulation.py:549-556)."""
+    return _div_mass(_force(state, dyn, cfg, state.eps), state)
+
+
 def verlet_kernel(state, dyn, cfg, h):
     """One velocity-Verlet kick-drift-kick
     (integration_scheme_base.py:129-149)."""
@@ -117,3 +123,10 @@ def adaptive_softening_refresh(state, dyn, cfg):
                          softening_energy_delta=state.softening_energy_delta
                          + dE)
 
+
+def apply_corrector(state, dyn, cfg, h_ref):
+    """Start-up corrector: one half-kick of ``h_ref`` (B,)
+    (integration_scheme_base.py:154-192; the order-dependent force
+    refreshes there change no state)."""
+    acc = classical_accel(state, dyn, cfg)
+    return state.replace(vel=state.vel + 0.5 * h_ref[..., None, None] * acc)

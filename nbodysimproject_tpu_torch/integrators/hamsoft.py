@@ -275,3 +275,30 @@ def strang_substep_cached(state, dyn, cfg, h, es_grad=None):
     if refl:
         state = _with_eps(state, *_fold(cfg, dyn, state.eps, state.pi))
     return state, es_grad_out
+
+
+def canonical_eom(state, dyn, cfg):
+    """The exact canonical equations of motion, for validation
+    (HSI:897-982): (qdot, pdot, epsdot, pidot), the first two (B, N, d),
+    the others (B,).  The "reference" gradient mode takes the
+    sign-aligned Omega gradient (HSI:942), the others the eps* gradient
+    of the spring flow."""
+    m_safe = torch.where(state.mask, state.mass, torch.ones_like(state.mass))
+    qdot = state.momenta() / m_safe[..., None]
+    F_grav = gravitational_force(state.pos, state.mass, state.eps, dyn.G,
+                                 mask=state.mask)
+    dVgrav = dV_d_epsilon(state.pos, state.mass, state.eps, dyn.G,
+                          mask=state.mask)
+    eps_star = eps_target(state, dyn, cfg)
+    if cfg.eps_grad_mode == "reference":
+        grad = grad_eps_target(state, dyn, cfg)
+    else:
+        grad = eps_star_and_grad(state, dyn, cfg)[1]
+    Delta = state.eps - eps_star
+    pdot = F_grav + (dyn.k_soft * Delta)[..., None, None] * grad
+    epsdot = torch.where(dyn.mu_soft != 0.0, state.pi / dyn.mu_soft,
+                         torch.zeros_like(state.pi))
+    dUbar = -_bar_force(cfg, dyn, state.eps) if _barrier_on(cfg) \
+        else torch.zeros_like(dVgrav)
+    pidot = -dVgrav - dyn.k_soft * Delta - dUbar
+    return qdot, pdot, epsdot, pidot

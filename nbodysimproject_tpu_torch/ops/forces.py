@@ -18,6 +18,11 @@ def gravitational_force(q, m, eps, G, mask=None):
     return (coeff[..., None] * diff).sum(-2)
 
 
+#: the reference's alias (minbody/forces.py:116); the tiled large-N kernel
+#: is ``ops/force_kernels.py::pairwise_force``
+pairwise_force = gravitational_force
+
+
 def force_auto(q, m, eps, G, mask, cfg):
     """Config-driven force dispatch shared by the classical and WHFast
     paths (``ops/forces.py:34-52`` of the JAX package): the tiled kernel
@@ -42,3 +47,15 @@ def dV_d_epsilon(q, m, eps, G, mask=None):
     _diff, _r2, inv_r3 = pairwise_geometry(q, eps=eps, mask=mask)
     mprod = m[..., :, None] * m[..., None, :]
     return 0.5 * G * eps * (mprod * inv_r3).sum((-2, -1))
+
+
+def softened_forces(q, m, G, eps, mask=None):
+    """``gravitational_force`` in the reference's other argument order
+    (minbody/forces.py:35-59)."""
+    return gravitational_force(q, m, eps, G, mask=mask)
+
+
+def dU_depsilon_plummer(pos, mass, G, epsilon, mask=None):
+    """``dV_d_epsilon`` under the reference's alias
+    (minbody/hamsoft_utils.py:225-231)."""
+    return dV_d_epsilon(pos, mass, epsilon, G, mask=mask)

@@ -43,6 +43,11 @@ def pairwise_geometry(pos, eps=0.0, mask=None):
     return diff, r2, inv_r3
 
 
+def geometry_buffers(pos, eps=0.0, mask=None):
+    """``pairwise_geometry`` under the reference's name."""
+    return pairwise_geometry(pos, eps=eps, mask=mask)
+
+
 def triu_pairs(n: int, device=None):
     """Row-major i < j pair indices (``jnp.triu_indices(n, 1)``)."""
     return torch.triu_indices(n, n, 1, device=device).unbind(0)

@@ -184,3 +184,14 @@ def kepler_propagate_fixed(r, v, mu, dt, iters: int = 8):
         chi = chi - torch.where(den_bad, torch.zeros_like(step), step)
     return _kepler_epilogue(r, v, mu, dt, chi, r0s, degenerate, alpha,
                             sqrt_mu)
+
+
+class UniversalVariableKeplerSolver:
+    """API-parity view (kepler_solver.py:24): ``propagate`` takes one
+    (d,) state or an (N, d) batch (:94-107), as tensors or arrays (a
+    NumPy input gives float64 tensors on the CPU)."""
+
+    def propagate(self, r, v, mu, dt):
+        r = torch.as_tensor(r)
+        v = torch.as_tensor(v, dtype=r.dtype, device=r.device)
+        return kepler_propagate(r, v, mu, dt)

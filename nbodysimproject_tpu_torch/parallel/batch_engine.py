@@ -1,10 +1,12 @@
 """Batched system construction.
 
 Counterpart of ``nbodysimproject_tpu/parallel/batch_engine.py``
-(``build_batch``, ``init_system``, ``_init_hamsoft``): COM removal,
-eps-model calibration, k/mu calibration and the frozen schedule (the
-simulation.py:39-162 + HSI:47-141 cascade) as tensor operations over a
-leading system axis — no per-system host loop — and ``integrate_batch``
+(``build_batch``, ``init_system``, ``_init_hamsoft``, ``refreeze_jit``):
+COM removal, eps-model calibration, k/mu calibration and the frozen
+schedule (the simulation.py:39-162 + HSI:47-141 cascade) as tensor
+operations over a leading system axis — no per-system host loop — the
+facade's one-system construction and schedule refreeze, and
+``integrate_batch``
 / ``step_batch`` (``integrate_dynamic`` / ``macro_step_dynamic`` of
 ``integrators/step.py`` on the whole batch: the JAX package's vmap is
 the batch axis here).  Integrator modes ham_soft, verlet and yoshida4
@@ -130,6 +132,35 @@ def _init_hamsoft(state, dyn, cfg, dt):
     dyn = dyn.replace(h_sub_ref=h_sub, n_sub=n_sub, omega_spr0=omega,
                       mu_soft=mu2, frozen_dt=torch.abs(dt))
     return state, dyn
+
+
+def init_system(mass, pos, vel, mask, cfg: SimConfig, *, G, softening,
+                min_softening, dt, skip_cm_recenter: bool = False):
+    """One system's construction (the JAX package's ``init_system`` /
+    ``init_system_jit``, which the facade calls): ``mass``/``mask``
+    (N,), ``pos``/``vel`` (N, d) tensors in, a B = 1 batch out, so that
+    the batched step functions apply to it unchanged."""
+    return build_batch(mass[None], pos[None], vel[None], mask[None], cfg, G,
+                       softening, min_softening, dt,
+                       skip_cm_recenter=skip_cm_recenter)
+
+
+def refreeze(states, dyns, cfg: SimConfig, dt):
+    """The ham_soft frozen schedule recomputed for a new ``dt`` (a
+    float or (B,) tensor): the JAX package's ``refreeze_jit``
+    (HSI:862-864)."""
+    dt = _per_system(dt, states.pos.shape[0], states.pos)
+    f = lambda x: torch.full_like(dt, float(x))
+    h_sub, n_sub, omega = calib.freeze_production_schedule(
+        states.pos, states.mass, dyns.G, eps0=states.eps,
+        eps_star=hs.eps_target(states, dyns, cfg), k_soft=dyns.k_soft,
+        mu_soft=dyns.mu_soft, omega_spr0=dyns.omega_spr0, dt_user=dt,
+        theta_cap=f(cfg.theta_cap), chi_pi=f(cfg.chi_pi), s0=dyns.s0,
+        eps_min=dyns.min_softening, eps_max=dyns.max_softening,
+        k_wall=dyns.k_wall, barrier_n=int(cfg.barrier_exponent),
+        include_barrier=hs.policy_is_soft(cfg), mask=states.mask)
+    return dyns.replace(h_sub_ref=h_sub, n_sub=n_sub, omega_spr0=omega,
+                        frozen_dt=torch.abs(dt))
 
 
 def integrate_batch(states, dyns, cfg, dt, n_steps: int, n_sub_max: int):

@@ -415,8 +415,8 @@ def test_initial_condition_generator_surface():
     assert len(sims) == 6 and all(3 <= len(s[0]) <= 5 for s in sims)
     m, q, v, mask = g.generate_batch_arrays(5, (3, 4), n_slots=8)
     assert q.shape == (5, 8, 2) and mask.sum(1).min() >= 3
-    with pytest.raises(NotImplementedError):
-        g.create_simulation(3)
+    sim = g.create_simulation(3)
+    assert sim.n_bodies == 3 and sim.device.type == "cpu"
 
 
 if __name__ == "__main__":

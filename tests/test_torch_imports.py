@@ -104,3 +104,16 @@ def test_walk_covers_the_generator_and_serving_modules():
                 "ml/predict.py", "ml/model_zoo.py", "ml/dataset.py",
                 "ml/data_utils.py", "ml/calibrate.py", "utils/seeding.py"):
         assert mod in names, mod
+
+
+def test_walk_covers_the_facade_modules():
+    """The object API's modules (the facade, its analyzers, the
+    validators, probes, evolution features and the flow-map API) are
+    among the sources checked above."""
+    names = {os.path.relpath(p, PKG) for p in _sources()}
+    for mod in ("facade/__init__.py", "facade/simulation.py",
+                "facade/body.py", "facade/compat.py", "core/validation.py",
+                "diagnostics/validation.py", "diagnostics/probes.py",
+                "diagnostics/evolution.py", "integrators/flows_api.py",
+                "analysis/stability.py", "analysis/batch.py"):
+        assert mod in names, mod

@@ -6,8 +6,9 @@ in the JAX package.  The frame has one row per system, a
 both used, and it equals ``analyze_population`` run on the same draw
 bit for bit.  Seed 66 is the one whose fused lanes are shallow (n_sub
 <= 2, two systems on the tail), which keeps the 500 steps of the CPU
-plain versions to seconds.  The sim-list views raise (they need the
-facade), and the port's ``_PIPE_CFG`` is the JAX package's.
+plain versions to seconds.  The sim-list views run on the facade (2
+steps deep; ``tests/test_torch_facade_views*.py`` hold them further),
+and the port's ``_PIPE_CFG`` is the JAX package's.
 """
 
 import dataclasses
@@ -48,13 +49,30 @@ def test_batched_dataset_on_the_cpu():
                                       err_msg=c)
 
 
-@pytest.mark.parametrize("view", ["generate_diverse_dataset",
-                                  "generate_focused_dataset",
-                                  "quick_test_pipeline"])
-def test_sim_list_views_need_the_facade(view):
+@pytest.mark.parametrize("view, extra, rows", [
+    ("generate_diverse_dataset", "system_type", 4),
+    ("generate_focused_dataset", "dataset_focus", 4),
+    ("quick_test_pipeline", "system_id", 10)])
+def test_sim_list_views_run(view, extra, rows, monkeypatch):
+    from nbodysimproject_tpu_torch.analysis import stability
+    from nbodysimproject_tpu_torch.utils import seeding
+
+    class Shallow(stability.StabilityAnalyzer):
+        def __init__(self, sim, n_steps=1000, dt=0.01, mode="core", seed=0):
+            super().__init__(sim, 2, dt, mode, seed)
+
+    # 2 steps deep; quick_test_pipeline's seed 42 draws a system at 55437
+    # substeps a step, so seed 41 stands in for it
+    monkeypatch.setattr(stability, "StabilityAnalyzer", Shallow)
+    seed = seeding.set_global_seed
+    monkeypatch.setattr(seeding, "set_global_seed", lambda s=42: seed(41))
+    np.random.seed(3)
     pipe = tpipe.MLTrainingPipeline(n_systems=4, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        getattr(pipe, view)()
+    pipe.batch_analyzer = nt.BatchStabilityAnalyzer(n_steps=2, dt=0.01,
+                                                    mode="full")
+    df = getattr(pipe, view)()
+    assert len(df) == rows and extra in df.columns
+    assert np.isin(df["is_stable"], (0.0, 1.0)).all()
 
 
 def _pipe_cfgs():
