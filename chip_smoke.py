@@ -19,8 +19,10 @@ the fused multi-step entry points; ``csrc/composition.cu``,
 and the large-N slice at the widths of the JAX package's
 ``tools/bench_largen.py`` and ``tools/bench_whfast_largen.py``
 (``largen_rollout``, P3M, the classical and many-planet WHFast force
-routes; ``csrc/pairwise_force.cu``), and the facade (``NBodySimulation``,
-its analyzers and the sim-list views).  Phases (each prints its
+routes; ``csrc/pairwise_force.cu``), the facade (``NBodySimulation``,
+its analyzers and the sim-list views), and the dataset-to-classifier
+path (sharded generation over ``torch.distributed`` processes, the MLP
+trained on the card, calibrated and served).  Phases (each prints its
 seconds):
 
 1. card: ``nvidia-smi`` name and power limit;
@@ -274,6 +276,43 @@ seconds):
    phase 2's builds, so that no measured phase shares the host with
    them.
 
+24. the dataset-to-classifier path, on the card, right after phase 23:
+   (a) ``parallel/distributed.py::generate_dataset_sharded`` on
+   SHARD_SYSTEMS diverse systems at SHARD_STEPS steps (the pipeline's
+   1000 cut for the time limit), once unsharded in this process and as
+   two shards by two worker processes of this script
+   (``--shard-worker``: ``torch.distributed`` over gloo, world size 2,
+   both on the card); the merged shards bit for bit the unsharded
+   frame in every column (NaN equal to NaN), the workers' float64
+   ``reduce_statistics_global`` bit for bit ``merge_statistics`` of
+   their local statistics, each worker's ``make_mesh()`` placing a host
+   batch's shard and replica on its card, rows 1 and 2 launched
+   (gated), their
+   launches and each run's seconds printed; (b) ``MLPTrainer`` on
+   ``data/stability_131k.csv.gz`` ("pre" features, the 0.7 / 0.15 /
+   0.15 split of seed 42): PARITY_EPOCHS epochs of PARITY_ROWS rows at
+   dropout 0 from ``make_mlp(PARITY_SEED)`` (200 optimizer steps, TF32
+   off) on the card against the same on the CPU (a child process of
+   this script during phase 2's builds, ``--mlp-parity-cpu``), gated at
+   PARITY_TOL; then the protocol at most TRAIN_EPOCHS epochs (cut from
+   200), test AUROC gated at MLP_AUROC_GATE, ms per optimizer step and
+   seconds per epoch printed; (c) ``save_model``, then the port's
+   ``StabilityPredictor`` on the card: its raw scores on the test split
+   within PREDICT_TOL of the trainer's ``predict_proba`` (gated); (d)
+   the trees ``train_gbdt`` fitted on host sklearn (fast grid, cv = 3,
+   ``hold_out_val``; committed with sklearn's scores of the test split,
+   since the card's machine may lack scikit-learn: ``python3
+   chip_smoke.py --fit-gbdt-reference`` remakes them where it is
+   installed) on the card (``ml/gbdt.py``): this run's split and scaler
+   those of the fit, raw scores bit for bit sklearn's ``_raw_predict``
+   and sklearn's link of them bit for bit its ``predict_proba``, test
+   AUROC sklearn's and at least GBDT_AUROC_GATE (gated); (e)
+   ``fit_cohort_calibration`` on the validation split by
+   ``system_type``, ``choose_global_threshold``, the close encounters'
+   recall floor and ``evaluate_policy``, the ``calibration`` block
+   written into the metadata: the predictor's decisions on the test
+   split on the card equal ``policy_decisions``', row for row (gated).
+
 It prints a ``{"kernels": [...]}`` line (the seven kernels, rows 1, 2
 and 4 again at d = 3, rows 1 and 2 under each branch of phase 11, row 3
 under the "reference" gradient and at d = 3, row 4's fallback, row 6
@@ -282,7 +321,7 @@ facade's paths) and, last, the device line.  Any
 failed check raises, so the script exits non-zero; without a CUDA
 device it exits non-zero before printing any result.  It writes
 nothing outside the build directory (phase 23's CPU references and
-their log go there too).
+their logs, and phase 24's shards, models and logs go there too).
 """
 
 import dataclasses
@@ -4472,6 +4511,494 @@ def phase_facade(ek, fk, dev, ref):
     return out
 
 
+#: phase 24 (a): the sharded generation's population and depth (the
+#: dataset pipeline runs 1000 steps; cut for the time limit to 100: at
+#: 250 the eager tail's deepest lanes took 244 ms a step, 64 s a run, on
+#: an H100 80GB HBM3 at 700 W)
+SHARD_SYSTEMS = 4096
+SHARD_STEPS = 100
+SHARD_SEED = 24
+#: (b): the card-against-CPU training parity, PARITY_EPOCHS epochs of
+#: the first PARITY_ROWS training rows at batch 32 (200 optimizer steps)
+#: from make_mlp(PARITY_SEED), dropout 0, validated on the same rows
+PARITY_ROWS = 640
+PARITY_EPOCHS = 10
+PARITY_SEED = 7
+PARITY_TOL = 1e-4
+#: (b): the protocol's epochs, cut from 200 for the time limit (an
+#: epoch 6.5-11.3 s on an H100 80GB HBM3 at 700 W, the eager step
+#: host-bound at 2.3-3.9 ms; 15 epochs reached AUROC 0.9766, 3 0.9745)
+TRAIN_EPOCHS = 3
+MLP_AUROC_GATE = 0.95
+GBDT_AUROC_GATE = 0.97
+#: (d): the GBDT that train_gbdt fitted on DATA where scikit-learn runs
+#: (``python3 chip_smoke.py --fit-gbdt-reference``), committed: the
+#: trees as the port writes them, and sklearn's scores of the test split
+GBDT_PREFIX = os.path.join(HERE, "data", "port_gbdt_pre_")
+GBDT_REFERENCE = GBDT_PREFIX + "reference.npz"
+#: (c): the predictor's raw scores against the trainer's predict_proba
+PREDICT_TOL = 1e-6
+#: (e): the close encounters' recall floor on the calibrated probability
+#: (tools/calibrate_operating_points.py of the JAX package)
+CE_FLOOR = {("close_encounter", "close_encounter_boundary"): 0.93}
+TRAIN_DIR = os.path.join(HERE, "nbodysimproject_tpu_torch", "_build",
+                         "phase24")
+MLP_PARITY_CPU = os.path.join(TRAIN_DIR, "mlp_parity_cpu.npz")
+
+
+def quiet(fn, *args, **kw):
+    """``fn``'s result with its stdout dropped (the trainers print their
+    progress)."""
+    import contextlib
+    import io
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        return fn(*args, **kw)
+
+
+def mlp_parity_run(device, data=None):
+    """(b)'s parity run on ``device``: a trainer on PARITY_ROWS training
+    rows (``data``: load_and_prepare_data's arrays, else loaded here),
+    returning (the kept state dict, on the CPU; its epoch; seconds)."""
+    from nbodysimproject_tpu_torch.ml import MLPTrainer, make_mlp
+
+    trainer = MLPTrainer(DATA, device=device, features="pre")
+    if data is None:
+        data = quiet(trainer.load_and_prepare_data)
+    X, y = data[0][:PARITY_ROWS], data[1][:PARITY_ROWS]
+    trainer.dropout_rate = 0.0
+    init = make_mlp(X.shape[1], PARITY_SEED, device="cpu").state_dict()
+    t0 = time.perf_counter()
+    quiet(trainer.train, X, y, X, y, epochs=PARITY_EPOCHS,
+          patience=PARITY_EPOCHS, init_state=init)
+    secs = time.perf_counter() - t0
+    return ({k: v.cpu() for k, v in trainer.params.items()},
+            trainer.best_epoch, secs)
+
+
+def mlp_parity_cpu(path):
+    """The CPU side of (b)'s parity, written to ``path`` (a child process
+    during phase 2's builds)."""
+    torch.set_num_threads(2)
+    state, best, secs = mlp_parity_run("cpu")
+    tmp = path + ".part.npz"
+    np.savez(tmp, best=best, s=secs, **{k: v.numpy()
+                                         for k, v in state.items()})
+    os.replace(tmp, path)
+    return 0
+
+
+def start_mlp_parity_cpu():
+    import atexit
+
+    os.makedirs(TRAIN_DIR, exist_ok=True)
+    if os.path.exists(MLP_PARITY_CPU):
+        os.remove(MLP_PARITY_CPU)
+    log = open(MLP_PARITY_CPU + ".log", "w")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--mlp-parity-cpu",
+         MLP_PARITY_CPU], stdout=log, stderr=subprocess.STDOUT, cwd=HERE)
+    log.close()
+    atexit.register(lambda: proc.poll() is None and (proc.kill(),
+                                                     proc.wait()))
+    return proc
+
+
+def free_port():
+    import socket
+
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def shard_worker(port, rank, out_dir, device, seed, n_systems, n_steps):
+    """One of (a)'s two processes: joins the gloo group, generates and
+    analyses its shard on ``device`` (the card), places a batch on the
+    default mesh, and writes its local and all-reduced statistics, the
+    mesh check, launches and seconds to ``out_dir/worker_<rank>.npz``."""
+    import torch.distributed as dist
+
+    from nbodysimproject_tpu_torch.ops import hamsoft_kernels as hk
+    from nbodysimproject_tpu_torch.parallel import (make_mesh, replicate,
+                                                    shard_batch)
+    from nbodysimproject_tpu_torch.parallel.distributed import (
+        feature_statistics, generate_dataset_sharded, initialize_distributed)
+
+    rank = int(rank)
+    if not initialize_distributed(f"localhost:{port}", 2, rank):
+        raise SystemExit("the worker joined no process group")
+    reset_counts(hk.hamsoft_analysis_multistep, hk.hamsoft_megno_multistep)
+    tm = {}
+    t0 = time.perf_counter()
+    df, reduced = generate_dataset_sharded(
+        int(seed), int(n_systems), out_dir=out_dir, n_steps=int(n_steps),
+        show_progress=False, timing_out=tm, device=device)
+    secs = time.perf_counter() - t0
+    local = feature_statistics(df)
+    # the default mesh under this gloo group: a host batch's shard and
+    # replica land on this process's card
+    mesh = make_mesh()
+    batch = torch.arange(2 * SHARD_SYSTEMS, dtype=torch.float64).reshape(
+        SHARD_SYSTEMS, 2)
+    shard = shard_batch(batch, mesh).to_local()
+    rep = replicate(batch, mesh).to_local()
+    mesh_ok = (shard.device.type == rep.device.type == "cuda"
+               and torch.equal(shard.cpu(), batch.chunk(2)[rank])
+               and torch.equal(rep.cpu(), batch))
+    np.savez(os.path.join(out_dir, f"worker_{rank}.npz"), s=secs,
+             mesh_ok=mesh_ok,
+             n_tail=tm["n_tail"], rows=len(df),
+             analysis=hk.hamsoft_analysis_multistep.launches,
+             megno=hk.hamsoft_megno_multistep.launches,
+             **{f"local_{k}": local[k] for k in ("count", "sum", "sumsq")},
+             **{f"reduced_{k}": reduced[k] for k in ("count", "sum", "sumsq")})
+    dist.destroy_process_group()
+    return 0
+
+
+def frames_differ(a, b):
+    """{column: rows that differ} between two frames of the same columns
+    (NaN equal to NaN)."""
+    out = {}
+    for c in a.columns:
+        x, y = a[c].to_numpy(), b[c].to_numpy()
+        same = x == y
+        if x.dtype.kind == "f":
+            same |= np.isnan(x) & np.isnan(y)
+        if not same.all():
+            out[c] = np.nonzero(~same)[0]
+    return out
+
+
+def start_shard_workers(out_dir, dev):
+    """(a)'s two worker processes, started; returns [(process, log)]."""
+    port = free_port()
+    env = dict(os.environ, GLOO_SOCKET_IFNAME="lo")
+    os.makedirs(out_dir, exist_ok=True)
+    procs = []
+    for r in range(2):
+        log = os.path.join(out_dir, f"worker_{r}.log")
+        with open(log, "w") as f:
+            procs.append((subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--shard-worker",
+                 str(port), str(r), out_dir, str(dev), str(SHARD_SEED),
+                 str(SHARD_SYSTEMS), str(SHARD_STEPS)],
+                stdout=f, stderr=subprocess.STDOUT, cwd=HERE, env=env), log))
+    return procs
+
+
+def wait_shard_workers(procs):
+    try:
+        rcs = [p.wait(timeout=600) for p, _ in procs]
+    finally:
+        for p, _ in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if rcs != [0, 0]:
+        for r, (_p, log) in enumerate(procs):
+            with open(log) as f:
+                print(f"  worker {r} log:\n" + f.read()[-4000:])
+        raise SystemExit(f"the shard workers failed: rc {rcs}")
+
+
+def sharded_generation(hk, dev):
+    """Phase 24 (a): the two workers and the unsharded run side by side
+    (each host-bound on its own core); returns its figures."""
+    import shutil
+
+    from nbodysimproject_tpu_torch.parallel.distributed import (
+        generate_dataset_sharded, merge_shards, merge_statistics)
+
+    one, two = (os.path.join(TRAIN_DIR, d) for d in ("one", "two"))
+    for d in (one, two):
+        shutil.rmtree(d, ignore_errors=True)
+    t0 = time.perf_counter()
+    procs = start_shard_workers(two, dev)
+    reset_counts(hk.hamsoft_analysis_multistep, hk.hamsoft_megno_multistep)
+    tm = {}
+    t1 = time.perf_counter()
+    generate_dataset_sharded(
+        SHARD_SEED, SHARD_SYSTEMS, out_dir=one, n_steps=SHARD_STEPS,
+        process_index=0, process_count=1, reduce_stats=False,
+        show_progress=False, timing_out=tm, device=dev)
+    sync(dev)
+    t_one = time.perf_counter() - t1
+    launches = {"analysis": hk.hamsoft_analysis_multistep.launches,
+                "megno": hk.hamsoft_megno_multistep.launches}
+    print(f"  unsharded: {SHARD_SYSTEMS} systems x {SHARD_STEPS} steps in "
+          f"{t_one:.3f}s ({SHARD_SYSTEMS / t_one:.1f} systems/s, beside the "
+          f"two workers), launches {launches}, lanes fused "
+          f"{tm['fused_lanes']} / tail {tm['n_tail']}, fused call "
+          f"{tm['fused_ms']:.1f} ms, tail {tm['tail_ms']:.1f} ms (the tail "
+          f"issued on its own stream inside the fused call)", flush=True)
+    if not (launches["analysis"] > 0 and launches["megno"] > 0):
+        raise SystemExit(f"the sharded path did not launch rows 1 and 2: "
+                         f"{launches}")
+    if tm["n_tail"] == 0:
+        raise SystemExit("the sharded population sends nothing to the tail")
+    wait_shard_workers(procs)
+    t_all = time.perf_counter() - t0
+    workers = [dict(np.load(os.path.join(two, f"worker_{r}.npz")))
+               for r in range(2)]
+    for r, w in enumerate(workers):
+        print(f"  worker {r}: {int(w['rows'])} rows in {float(w['s']):.3f}s "
+              f"of generation and analysis, tail {int(w['n_tail'])}, "
+              f"launches analysis {int(w['analysis'])} / megno "
+              f"{int(w['megno'])}")
+    print(f"  the three runs (gloo, world size 2, and the unsharded one, one "
+          f"card) {t_all:.3f}s wall, the workers' start-up included")
+
+    merged, ref = merge_shards(two), merge_shards(one)
+    if list(merged.columns) != list(ref.columns) or len(merged) != len(ref):
+        raise SystemExit("the merged shards' columns or rows differ from "
+                         "the unsharded frame's")
+    differ = frames_differ(merged, ref)
+    if differ:
+        tail = ref["tail_fast_path"].to_numpy(bool)
+        for c, rows in differ.items():
+            print(f"  column {c}: {len(rows)} rows differ, "
+                  f"{int(tail[rows].sum())} of them on the tail; first "
+                  f"{rows[:8].tolist()}")
+        raise SystemExit(f"the merged shards differ from the unsharded run "
+                         f"in {len(differ)} columns")
+    print(f"  merged shards bit for bit the unsharded frame: {len(ref)} rows "
+          f"x {len(ref.columns)} columns ({int(ref['tail_fast_path'].sum())} "
+          f"on the tail)")
+    local = [{"feature_cols": None, **{k: w[f"local_{k}"] for k in
+                                       ("count", "sum", "sumsq")}}
+             for w in workers]
+    m = merge_statistics(local)
+    same = all(np.array_equal(w[f"reduced_{k}"], m[k])
+               and w[f"reduced_{k}"].dtype == np.float64
+               for w in workers for k in ("count", "sum", "sumsq"))
+    print(f"  the workers' float64 all-reduce bit for bit merge_statistics "
+          f"of their local statistics: {same}")
+    if not same:
+        raise SystemExit("reduce_statistics_global differs from "
+                         "merge_statistics")
+    if not all(int(w["analysis"]) > 0 and int(w["megno"]) > 0
+               for w in workers):
+        raise SystemExit("a shard worker did not launch rows 1 and 2")
+    mesh_ok = all(bool(w["mesh_ok"]) for w in workers)
+    print(f"  the workers' make_mesh() / shard_batch / replicate: a host "
+          f"batch's shard and replica on each worker's card, its rows: "
+          f"{mesh_ok}")
+    if not mesh_ok:
+        raise SystemExit("the default mesh did not place the batch on the "
+                         "card")
+    return dict(t_one=t_one, t_all=t_all, launches=launches,
+                workers=[{k: float(w[k]) for k in ("s", "analysis", "megno",
+                                                   "n_tail")}
+                         for w in workers],
+                n_tail=tm["n_tail"], rows=len(ref))
+
+
+def fit_gbdt_reference():
+    """(d)'s committed GBDT (``--fit-gbdt-reference``, on a host with
+    scikit-learn): ``train_gbdt`` on DATA (fast grid, cv 3,
+    ``hold_out_val``, one process, four threads), its trees into
+    ``GBDT_PREFIX + "torch.npz"``; sklearn's raw scores and
+    probabilities on the test split, the labels, the feature names and
+    the test metrics into GBDT_REFERENCE."""
+    import joblib
+    import sklearn
+    from threadpoolctl import threadpool_limits
+
+    from nbodysimproject_tpu_torch.ml import DataUtils, train_gbdt
+    from nbodysimproject_tpu_torch.ml.dataset import StabilityDataset
+
+    os.environ["NB_GBDT_GRID"] = "fast"
+    t0 = time.perf_counter()
+    with joblib.parallel_config(backend="sequential"), threadpool_limits(4):
+        metrics, extras = train_gbdt(DATA, cv=3, prefix=GBDT_PREFIX,
+                                     features="pre", hold_out_val=True,
+                                     return_probs=True)
+    secs = time.perf_counter() - t0
+    X, y, names = StabilityDataset.load(DATA, features="pre")
+    X_test, y_test = DataUtils.split_and_scale(X, y, test_size=0.15,
+                                               val_size=0.15, seed=42)[2::3]
+    raw = extras["model"]._raw_predict(X_test)[:, 0]
+    if not (np.array_equal(y_test, extras["y_test"])
+            and np.array_equal(extras["model"].predict_proba(X_test)[:, 1],
+                               extras["prob_test"])):
+        raise SystemExit("the re-made test split is not train_gbdt's")
+    np.savez(GBDT_REFERENCE, raw_test=raw, prob_test=extras["prob_test"],
+             y_test=y_test, feature_names=np.asarray(names),
+             auroc=metrics["auroc"],
+             balanced_accuracy=metrics["balanced_accuracy"],
+             sklearn=sklearn.__version__, fit_s=secs)
+    print(f"{extras['model'].n_iter_} trees, test AUROC {metrics['auroc']}, "
+          f"fit {secs:.1f}s: {GBDT_PREFIX}torch.npz, {GBDT_REFERENCE}")
+    return 0
+
+
+def gbdt_on_card(trainer, pred, frame, y_test, dev):
+    """Phase 24 (d): the committed ``train_gbdt`` trees on the card held
+    to sklearn's scores of them; returns the test metrics."""
+    from scipy.special import expit
+
+    from nbodysimproject_tpu_torch.ml.artifacts import load_artifacts
+    from nbodysimproject_tpu_torch.ml.calibrate import roc_auc
+    from nbodysimproject_tpu_torch.ml.gbdt import TreeEnsemble
+    from nbodysimproject_tpu_torch.ml.predict import feature_matrix
+
+    ref = dict(np.load(GBDT_REFERENCE))
+    arrays = load_artifacts(GBDT_PREFIX + "torch.npz")
+    # the split and the scaler made here (numpy replicas of sklearn's)
+    # are the ones the trees were fitted on where sklearn ran
+    same_split = (list(ref["feature_names"]) == list(pred.feature_names)
+                  and np.array_equal(ref["y_test"], y_test)
+                  and np.array_equal(arrays["gbdt_scaler_mean"],
+                                     trainer.scaler.mean_)
+                  and np.array_equal(arrays["gbdt_scaler_scale"],
+                                     trainer.scaler.scale_))
+    Xs = trainer.scaler.transform(feature_matrix(frame, pred.feature_names))
+    ens = TreeEnsemble(arrays, dev)
+    raw_card = ens.raw_predict(torch.as_tensor(Xs, device=dev))
+    raw_g = raw_card.cpu().numpy()
+    same_raw = np.array_equal(raw_g, ref["raw_test"])
+    prob = expit(raw_g)
+    same_prob = np.array_equal(prob, ref["prob_test"])
+    d_sig = float(np.abs(torch.sigmoid(raw_card).cpu().numpy()
+                         - ref["prob_test"]).max())
+    auroc = roc_auc(ref["y_test"], prob)
+    print(f"  GBDT (train_gbdt's committed trees, fast grid, cv 3, sklearn "
+          f"{ref['sklearn']}): {ens.n_trees} trees of depth <= "
+          f"{ens.max_depth} on the card; split, labels and scaler those of "
+          f"the fit {same_split}; raw scores bit for bit sklearn's "
+          f"{same_raw}, sklearn's link of them bit for bit predict_proba "
+          f"{same_prob} (torch.sigmoid on the card within {d_sig:.3e}); "
+          f"test AUROC {auroc:.4f} (gate {GBDT_AUROC_GATE}; sklearn's "
+          f"{float(ref['auroc']):.4f})", flush=True)
+    if not (same_split and same_raw and same_prob
+            and auroc == float(ref["auroc"]) and auroc >= GBDT_AUROC_GATE):
+        raise SystemExit("the GBDT on the card differs from sklearn's or "
+                         "scores below its gate")
+    return {"auroc": auroc,
+            "balanced_accuracy": float(ref["balanced_accuracy"])}
+
+
+def phase_training(hk, dev, parity_proc):
+    """Phase 24: (a)-(e) of the script's docstring.  Returns its
+    figures for the report."""
+    import pandas as pd
+
+    from nbodysimproject_tpu_torch.ml import (DataUtils, MLPTrainer,
+                                              StabilityPredictor)
+    from nbodysimproject_tpu_torch.ml.calibrate import (
+        calibrated_probability, choose_global_threshold,
+        choose_recall_floor_thresholds, evaluate_policy,
+        fit_cohort_calibration, policy_decisions)
+
+    t_phase = time.perf_counter()
+    out = {"sharded": sharded_generation(hk, dev)}
+
+    # (b) the MLP on the card
+    rc = parity_proc.wait(timeout=600)
+    if rc != 0 or not os.path.exists(MLP_PARITY_CPU):
+        raise SystemExit(f"the CPU training parity failed (rc {rc}; "
+                         f"{MLP_PARITY_CPU}.log)")
+    ref = dict(np.load(MLP_PARITY_CPU))
+    trainer = MLPTrainer(DATA, device=dev, features="pre")
+    t0 = time.perf_counter()
+    data = quiet(trainer.load_and_prepare_data)
+    t_load = time.perf_counter() - t0
+    X_train, y_train, X_val, y_val, X_test, y_test = data
+    state, best, t_par = mlp_parity_run(dev, data)
+    d_par = max(float(np.abs(v.numpy() - ref[k]).max())
+                for k, v in state.items())
+    print(f"  training parity: {PARITY_EPOCHS * (PARITY_ROWS // 32)} optimizer"
+          f" steps at dropout 0, card against CPU: largest parameter "
+          f"difference {d_par:.3e} (gate {PARITY_TOL}), best epochs "
+          f"{best} / {int(ref['best'])}; card {t_par:.3f}s, CPU "
+          f"{float(ref['s']):.3f}s", flush=True)
+    if not (d_par <= PARITY_TOL and best == int(ref["best"])):
+        raise SystemExit("the card's training parts from the CPU's")
+
+    t0 = time.perf_counter()
+    quiet(trainer.train, X_train, y_train, X_val, y_val, epochs=TRAIN_EPOCHS)
+    sync(dev)
+    t_train = time.perf_counter() - t0
+    n_ep = len(trainer.history)
+    steps = n_ep * (len(X_train) // 32)
+    quiet(trainer.compute_optimal_threshold, X_val, y_val)
+    metrics = quiet(trainer.evaluate, X_test, y_test)
+    print(f"  MLP: {len(X_train)} training rows, {n_ep} epochs (best "
+          f"{trainer.best_epoch}), {t_train:.3f}s = {t_train / n_ep:.3f} s an "
+          f"epoch, {1e3 * t_train / steps:.4f} ms an optimizer step (the "
+          f"validation pass included); data load {t_load:.2f}s; test AUROC "
+          f"{metrics['auroc']:.4f} (gate {MLP_AUROC_GATE}), balanced "
+          f"accuracy {metrics['balanced_accuracy']:.4f}, Youden threshold "
+          f"{trainer.optimal_threshold:.4f}", flush=True)
+    if not metrics["auroc"] >= MLP_AUROC_GATE:
+        raise SystemExit("the MLP trained on the card scores below its gate")
+
+    # (c) served from its artifacts
+    prefix = os.path.join(TRAIN_DIR, "port_pre_")
+    quiet(trainer.save_model, prefix)
+    df_all = pd.read_csv(DATA, comment="#", usecols=list(
+        trainer.feature_names) + ["is_stable", "system_type"])
+    if len(df_all) != len(X_train) + len(X_val) + len(X_test):
+        raise SystemExit("the dataset's rows are not the trainer's")
+    _tr, va, te = DataUtils.split_indices(df_all["is_stable"].to_numpy(),
+                                          0.15, 0.15, 42)
+    frame = df_all.iloc[te].reset_index(drop=True)
+    pred = StabilityPredictor(prefix, model="mlp", device=dev)
+    prob_test = trainer.predict_proba(X_test).astype(np.float64)
+    raw = pred.predict_frame(frame, return_raw=True)[2]
+    d_pred = float(np.abs(raw - prob_test).max())
+    print(f"  served: the predictor's raw scores on the {len(te)} test rows "
+          f"within {d_pred:.3e} of the trainer's (gate {PREDICT_TOL}; "
+          f"bit for bit: {np.array_equal(raw, prob_test)})")
+    if not d_pred <= PREDICT_TOL:
+        raise SystemExit("the predictor's scores part from the trainer's")
+
+    # (d) the GBDT: its committed trees on the card
+    g_metrics = gbdt_on_card(trainer, pred, frame, y_test, dev)
+
+    # (e) calibration on the validation split, served on the card
+    types = df_all["system_type"].to_numpy().astype(str)
+    c_val, c_te = types[va], types[te]
+    prob_val = trainer.predict_proba(X_val).astype(np.float64)
+    y_v, y_t = y_val.astype(np.float64), y_test.astype(np.float64)
+    calib = fit_cohort_calibration(prob_val, y_v, c_val)
+    pc_val = calibrated_probability(prob_val, c_val, calib)
+    thr = choose_global_threshold(pc_val, y_v)
+    calib["global_threshold"] = thr
+    calib["cohort_operating_points"] = quiet(
+        choose_recall_floor_thresholds, pc_val, y_v, c_val, CE_FLOOR)
+    report = evaluate_policy(prob_test, y_t, c_te, calib, thr)
+    with open(prefix + "model_metadata.json") as f:
+        meta = json.load(f)
+    meta["calibration"] = calib
+    with open(prefix + "model_metadata.json", "w") as f:
+        json.dump(meta, f)
+    served = StabilityPredictor(prefix, model="mlp", device=dev)
+    _p, stable = served.predict_frame(frame, cohorts=c_te)
+    _pc, stable_ref = policy_decisions(prob_test, c_te, calib, thr)
+    ov = report["__overall__"]
+    tpr = float(stable[y_t == 1].mean())
+    print(f"  calibration: {len(calib['cohorts'])} cohort curves, global "
+          f"threshold {thr:.4f}, operating points "
+          f"{calib['cohort_operating_points']}; test balanced accuracy "
+          f"{ov['balanced_accuracy']:.4f} (AUROC {ov.get('auroc', 0):.4f}); "
+          f"the card's decisions equal the policy's on "
+          f"{int((stable == stable_ref).sum())} of {len(stable)} rows")
+    if not (np.array_equal(stable, stable_ref) and tpr == ov["tpr"]):
+        raise SystemExit("the calibrated predictor's decisions differ from "
+                         "evaluate_policy's")
+    out.update(parity=d_par, t_par=t_par, t_par_cpu=float(ref["s"]),
+               t_train=t_train, epochs=n_ep, steps=steps, mlp=metrics,
+               youden=trainer.optimal_threshold, d_pred=d_pred,
+               gbdt=g_metrics, calib_ba=ov["balanced_accuracy"],
+               s=time.perf_counter() - t_phase)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4498,8 +5025,10 @@ def main():
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
 
-    # phase 23's CPU references, in child processes beside the builds
+    # phase 23's and phase 24's CPU references, in child processes beside
+    # the builds
     facade_ref = start_facade_cpu_references()
+    parity_proc = start_mlp_parity_cpu()
 
     phase("build")
     t0 = time.perf_counter()
@@ -4558,6 +5087,11 @@ def main():
     phase("the facade: NBodySimulation, its analyzers and the sim-list views "
           "on the card")
     facade = phase_facade(ek, fk, dev, facade_ref)
+    torch.cuda.empty_cache()
+
+    phase("the dataset-to-classifier path: sharded generation, the MLP and "
+          "GBDT trained, calibrated and served")
+    training = phase_training(hk, dev, parity_proc)
     torch.cuda.empty_cache()
 
     phase("population")
@@ -5197,6 +5731,19 @@ def main():
               f"{BENCH_STEPS} steps, {v['ratio_main']:.1f}x the main path's "
               f"at {N_STEPS}; card against CPU max |dprob| "
               f"{v['d_prob']:.3e}")
+    sh = training["sharded"]
+    w_s = ", ".join(f"{w['s']:.3f}" for w in sh["workers"])
+    w_l = [(int(w["analysis"]), int(w["megno"])) for w in sh["workers"]]
+    print(f"  dataset-to-classifier (phase 24, {training['s']:.1f}s): sharded "
+          f"generation {SHARD_SYSTEMS} x {SHARD_STEPS} steps unsharded "
+          f"{sh['t_one']:.3f}s (launches {sh['launches']}) beside two "
+          f"workers ({w_s}s, launches {w_l}), {sh['t_all']:.3f}s wall"
+          f"; MLP {training['epochs']} epochs in {training['t_train']:.3f}s "
+          f"({1e3 * training['t_train'] / training['steps']:.4f} ms a step), "
+          f"AUROC {training['mlp']['auroc']:.4f}, parity "
+          f"{training['parity']:.3e}; GBDT AUROC "
+          f"{training['gbdt']['auroc']:.4f}; calibrated BA "
+          f"{training['calib_ba']:.4f}")
     phase("done")
     print(f"  total {time.perf_counter() - T0:.1f}s")
     print(card)
@@ -5210,4 +5757,10 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--facade-cpu-references"]:
         sys.exit(facade_cpu_references(sys.argv[2], sys.argv[3:]))
+    if sys.argv[1:2] == ["--mlp-parity-cpu"]:
+        sys.exit(mlp_parity_cpu(sys.argv[2]))
+    if sys.argv[1:2] == ["--fit-gbdt-reference"]:
+        sys.exit(fit_gbdt_reference())
+    if sys.argv[1:2] == ["--shard-worker"]:
+        sys.exit(shard_worker(*sys.argv[2:9]))
     sys.exit(main())

@@ -48,11 +48,18 @@ Ported so far (d = 2 unless stated):
 Entry points run on the current CUDA device unless the caller passes
 ``device="cpu"`` (the generators draw from a ``torch.Generator`` on that
 device; a simulation and everything built from it run on its device);
-the batched-integration functions run where their tensors lie.  The
-JAX package's ``MLPTrainer``, ``train_lightgbm_main``,
-``DataUtils``, ``save_checkpoint``, ``load_checkpoint`` and
-``EnergyAccumulator`` are not ported yet (ROADMAP.md Queue 1 items 6
-and 8).
+the batched-integration functions run where their tensors lie.
+
+* the dataset-to-classifier path: ``parallel/distributed.py``
+  (``generate_dataset_sharded`` over ``torch.distributed`` processes,
+  the float64 all-reduce of the feature statistics, ``merge_shards``),
+  ``parallel/mesh.py`` (``DeviceMesh`` / ``DTensor`` placements), the
+  trainers (``MLPTrainer`` on the device, ``train_gbdt`` /
+  ``train_lightgbm_main`` on host sklearn, ``DataUtils.split_and_scale``),
+  the calibration fits (``ml/calibrate.py``), and ``utils/``
+  (``save_checkpoint`` / ``load_checkpoint`` in the JAX package's npz
+  layout, ``EnergyAccumulator``).  The JAX package's Orbax checkpoints
+  and ``utils/aot_cache.py`` are specific to JAX and not ported.
 """
 
 from .analysis.batch import (BatchStabilityAnalyzer, analyze_population,
@@ -81,7 +88,8 @@ from .integrators.flows_api import (PhaseState, extended_hamiltonian,
                                     spring_oscillation,
                                     strang_softening_step)
 from .integrators.largen import largen_rollout
-from .ml import MLP, ScalerUtils, StabilityDataset, make_mlp
+from .ml import (MLP, DataUtils, MLPTrainer, ScalerUtils, StabilityDataset,
+                 make_mlp, train_lightgbm_main)
 from .ml.predict import StabilityPredictor
 from .ops.barrier import barrier_curvature, barrier_energy, barrier_force
 from .ops.batch_kernels import verlet_multistep, yoshida4_multistep
@@ -98,10 +106,11 @@ from .ops.reflection import (reflect_and_limit_eps, reflect_eps_symplectic,
 from .ops.softening import eps_target, grad_eps_target
 from .ops.whfast_kernels import whfast_multistep
 from .parallel.batch_engine import build_batch, integrate_batch, step_batch
-from .utils.seeding import set_global_seed
+from .utils import (EnergyAccumulator, load_checkpoint, save_checkpoint,
+                    set_global_seed)
 
 __all__ = [
-    # the reference's names (minbody/__init__.py:81-129) the port has
+    # the reference's names (minbody/__init__.py:81-129)
     "set_global_seed", "SimConfig", "SimulationValidator",
     "SofteningManager", "grad_eps_target", "Body", "BodyView",
     "NBodySimulation", "Integrator", "HamiltonianSofteningIntegrator",
@@ -113,14 +122,16 @@ __all__ = [
     "strang_softening_step", "extended_hamiltonian", "LAMBDA_SOFTENING",
     "CHI_EPS", "TangentMap", "Diagnostics", "validate_ham_soft",
     "DynamicalFeatures", "EvolutionFeatures", "StabilityAnalyzer",
-    "BatchStabilityAnalyzer", "ScalerUtils", "StabilityDataset",
+    "BatchStabilityAnalyzer", "DataUtils", "ScalerUtils", "StabilityDataset",
     "InitialConditionGenerator", "GeneratorConfig", "SpecializedGenerators",
-    "MLTrainingPipeline", "MLP", "make_mlp",
+    "MLTrainingPipeline", "MLP", "make_mlp", "MLPTrainer",
+    "train_lightgbm_main",
     # the component name-parity views
     "SimulationState", "IntegratorConstants", "TimestepManager",
-    "HamSoftParams", "HamSoftBarrier", "HamSoftStepper",
+    "HamSoftParams", "HamSoftBarrier", "HamSoftStepper", "EnergyAccumulator",
     # the JAX package's additions
-    "SimState", "DynParams", "build_state", "LAMBDA_SIGMA_STAR",
+    "SimState", "DynParams", "build_state", "save_checkpoint",
+    "load_checkpoint", "LAMBDA_SIGMA_STAR",
     "pairwise_geometry", "pairwise_force", "softened_forces",
     "softened_potential", "dU_d_eps", "eps_target",
     # the port's batched entry points

@@ -272,7 +272,8 @@ def analyze_population(mass, pos, vel, mask, cfg, *, G=1.0, softening=0.05,
                        min_softening=0.0, dt=0.01, n_steps=1000,
                        mode="core", seed=0, show_progress=True,
                        include_ics=True, id_offset=0, timing_out=None,
-                       device=None, tangent=None, tail_stream=True):
+                       device=None, tangent=None, tail_stream=True,
+                       n_population=None):
     """Batched population analysis; returns a pandas DataFrame with the
     JAX package's columns.
 
@@ -293,10 +294,14 @@ def analyze_population(mass, pos, vel, mask, cfg, *, G=1.0, softening=0.05,
     launches, which follow the deepest lane's n_sub, and each lane runs
     its own n_sub as masked trips, so rows do not depend on the grouping.
 
-    MEGNO tangent vectors: by default one ``(B, N, d)`` normal pair is
-    drawn for the population from ``seed`` (``torch.Generator``) and
-    indexed by global system id (``id_offset + i``), so a system's draw
-    does not depend on its chunk.  ``tangent=(dr0, dv0)`` passes
+    MEGNO tangent vectors: by default one ``(n_population, N, d)``
+    normal pair is drawn for the whole population from ``seed`` (a CPU
+    ``torch.Generator``) and indexed by global system id (``id_offset +
+    i``), so a system's draw does not depend on its chunk as long as the
+    chunks name the same ``n_population`` (default ``id_offset + B``: the
+    second draw of the pair starts after the first's n_population draws,
+    so a part analysed without it draws other tangents than the whole).
+    ``tangent=(dr0, dv0)`` passes
     finished (B, N, d) tangent vectors instead (e.g. the JAX package's
     ``init_tangent`` draws, which torch cannot reproduce).
 
@@ -359,10 +364,12 @@ def analyze_population(mass, pos, vel, mask, cfg, *, G=1.0, softening=0.05,
         n_samp = min(50, n_steps // 2)
         megno_steps = min(100, n_samp) if n_samp > 0 else 0
         if tangent is None:
-            z1, z2 = population_normals(seed, id_offset + B,
+            n_pop = id_offset + B if n_population is None else n_population
+            z1, z2 = population_normals(seed, n_pop,
                                         tuple(states.pos.shape[1:]), dtype)
-            tangent = init_tangent(z1[id_offset:].to(dev),
-                                   z2[id_offset:].to(dev), states)
+            rows = slice(id_offset, id_offset + B)
+            tangent = init_tangent(z1[rows].to(dev), z2[rows].to(dev),
+                                   states)
         else:
             tangent = (t(tangent[0]), t(tangent[1]))
 

@@ -16,7 +16,9 @@ msgpack, and writes one numpy ``.npz`` file, ``<prefix>torch.npz``
     python -m nbodysimproject_tpu_torch.ml.artifacts data/headline_pre_
 
 ``load_artifacts`` reads it with numpy alone, so the port serves the
-models where none of flax, msgpack or sklearn is installed.  Keys:
+models where none of flax, msgpack or sklearn is installed.  The port's
+own trainers (``ml/train_mlp.py``, ``ml/train_lightgbm.py``) write the
+same file through ``store_artifacts``.  Keys:
 ``mlp.fc{1,2,3}.{weight,bias}`` (float32, the ``ml/model_zoo.py::MLP``
 state dict), ``mlp_scaler_mean`` / ``mlp_scaler_scale`` and
 ``gbdt_scaler_mean`` / ``gbdt_scaler_scale`` (float64), and the tree
@@ -144,6 +146,19 @@ def export_artifacts(prefix: str, out_path: str | None = None) -> str:
         raise FileNotFoundError(f"no model artifacts under prefix {prefix!r}")
     np.savez_compressed(out_path, **arrays)
     return out_path
+
+
+def store_artifacts(path: str, arrays: dict, kind: str) -> str:
+    """Write one model's arrays (keys ``mlp.*`` / ``mlp_*`` or ``gbdt_*``,
+    by ``kind``) into the ``export_artifacts`` file at ``path``, keeping
+    the other model's arrays where the file already holds them: what the
+    port's trainers save, and the predictor reads."""
+    keep = {}
+    if os.path.exists(path):
+        keep = {k: v for k, v in load_artifacts(path).items()
+                if not k.startswith((kind + ".", kind + "_"))}
+    np.savez_compressed(path, **keep, **arrays)
+    return path
 
 
 def load_artifacts(path: str) -> dict:

@@ -6,7 +6,12 @@ Counterpart of ``nbodysimproject_tpu/ml/model_zoo.py`` (parity:
 (``fc1``, ``dropout1``, ``fc2``, ``dropout2``, ``fc3``; the JAX
 package's ``make_torch_mlp``).  The JAX package computes these products
 in flax ``Dense`` layers (XLA), outside any Pallas kernel, so
-``nn.Linear`` is their counterpart here.
+``nn.Linear`` is their counterpart here.  Dropout is flax's: in
+training mode it draws from the ``torch.Generator`` passed to
+``forward`` (never from torch's global generator unless given none) and
+divides what it keeps by the keep probability; in eval mode (the
+default after ``.eval()``, and how the predictor serves) it is the
+identity.
 """
 
 from __future__ import annotations
@@ -19,21 +24,42 @@ from torch import nn
 from ..core.device import resolve_device
 
 
+class Dropout(nn.Module):
+    """flax's ``nn.Dropout``: in training mode each unit is kept where a
+    uniform draw is below 1 - rate (``jax.random.bernoulli``) and the
+    kept ones are divided by 1 - rate; rate 0, and eval mode, are the
+    identity."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = float(rate)
+
+    def forward(self, x, generator=None):
+        if not self.training or self.rate == 0.0:
+            return x
+        keep_prob = 1.0 - self.rate
+        keep = torch.rand(x.shape, generator=generator, dtype=x.dtype,
+                          device=x.device) < keep_prob
+        return torch.where(keep, x / keep_prob, torch.zeros_like(x))
+
+
 class MLP(nn.Module):
-    """128-64-1 ReLU classifier with dropout 0.25 (model_zoo.py:18-33)."""
+    """128-64-1 ReLU classifier with dropout 0.25 (model_zoo.py:18-33).
+    ``forward(x, generator)``: ``generator`` feeds both dropout layers in
+    training mode."""
 
     def __init__(self, input_dim: int, hidden1: int = 128,
                  hidden2: int = 64, dropout_rate: float = 0.25):
         super().__init__()
         self.fc1 = nn.Linear(input_dim, hidden1)
-        self.dropout1 = nn.Dropout(dropout_rate)
+        self.dropout1 = Dropout(dropout_rate)
         self.fc2 = nn.Linear(hidden1, hidden2)
-        self.dropout2 = nn.Dropout(dropout_rate)
+        self.dropout2 = Dropout(dropout_rate)
         self.fc3 = nn.Linear(hidden2, 1)
 
-    def forward(self, x):
-        x = self.dropout1(torch.relu(self.fc1(x)))
-        x = self.dropout2(torch.relu(self.fc2(x)))
+    def forward(self, x, generator=None):
+        x = self.dropout1(torch.relu(self.fc1(x)), generator)
+        x = self.dropout2(torch.relu(self.fc2(x)), generator)
         return self.fc3(x)
 
 

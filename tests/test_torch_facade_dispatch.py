@@ -19,8 +19,8 @@ dispatch, on the CPU with spies, and the rest of the facade's surface.
   ``test_torch_facade_views.py``; ``quick_test_pipeline`` seeds 41 in
   place of its 42, whose draw holds a system at 55437 substeps a step,
   minutes of the eager scan on the CPU).
-* The flat namespace: every name of the JAX package's ``__all__`` but
-  those that wait for ROADMAP.md Queue 1 items 6 and 8.
+* The flat namespace: every name of the JAX package's ``__all__``, and
+  of its ``ml``, ``parallel`` and ``utils`` packages' ``__all__``.
 """
 
 import numpy as np
@@ -35,8 +35,7 @@ from nbodysimproject_tpu_torch.ops import eps_model, force_kernels
 from torch_facade import make_pair, system
 
 STEPS = 2
-WAITING = {"MLPTrainer", "train_lightgbm_main", "DataUtils",
-           "save_checkpoint", "load_checkpoint", "EnergyAccumulator"}
+WAITING = set()
 
 
 class _Spy:
@@ -194,3 +193,15 @@ def test_flat_namespace():
     assert WAITING <= set(nb.__all__)
     assert not [n for n in WAITING if hasattr(nt, n)]
     assert set(nt.__all__) >= set(nb.__all__) - WAITING
+    import nbodysimproject_tpu.ml
+    import nbodysimproject_tpu.parallel
+    import nbodysimproject_tpu.utils
+    import nbodysimproject_tpu_torch.ml
+    import nbodysimproject_tpu_torch.parallel
+    import nbodysimproject_tpu_torch.utils
+
+    for sub in ("ml", "parallel", "utils"):
+        ref = getattr(nb, sub).__all__
+        port = getattr(nt, sub)
+        assert [n for n in ref if not hasattr(port, n)] == [], sub
+        assert set(port.__all__) >= set(ref), sub

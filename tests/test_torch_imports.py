@@ -117,3 +117,17 @@ def test_walk_covers_the_facade_modules():
                 "diagnostics/evolution.py", "integrators/flows_api.py",
                 "analysis/stability.py", "analysis/batch.py"):
         assert mod in names, mod
+
+
+def test_walk_covers_the_training_and_scale_out_modules():
+    """The dataset-to-classifier path's modules (the trainers, the
+    calibration fits, the process-sharded generation, the mesh helpers,
+    checkpoints and the accumulator) are among the sources checked
+    above: training and scale-out need no JAX either."""
+    names = {os.path.relpath(p, PKG) for p in _sources()}
+    for mod in ("ml/train_mlp.py", "ml/train_lightgbm.py",
+                "ml/calibrate.py", "ml/data_utils.py", "ml/model_zoo.py",
+                "ml/artifacts.py", "parallel/distributed.py",
+                "parallel/mesh.py", "utils/checkpoint.py",
+                "utils/accumulator.py", "utils/summation.py"):
+        assert mod in names, mod
