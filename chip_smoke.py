@@ -105,9 +105,8 @@ seconds):
    two layouts on the 3-body rows (bitwise, gated), the ham_soft scan at
    d = 3 (``integrate_batch`` on the n_sub = 1 rows, SCAN3_STEPS steps,
    the eps kernel's launches gated > 0), the main path
-   ``analyze_population`` under ``_PIPE_CFG`` one cold and WARM_REPS_3D
-   warm runs (systems/s, fused_ms, tail_ms, n_tail, launches of both
-   kernels gated > 0), the tail-off run (non-tail rows bitwise, gated),
+   ``analyze_population`` under ``_PIPE_CFG`` one cold run (systems/s, fused_ms, tail_ms,
+   n_tail, launches of both kernels gated > 0), the tail-off run (non-tail rows bitwise, gated),
    is_stable held to the JAX fused engine's on the first 256 rows with
    at most 2 substeps (``data/labels_3d_jax_fused_256.npz``, gated at
    LABEL_GATE) and beside the dataset's on the non-tail rows (printed:
@@ -162,7 +161,7 @@ seconds):
    ``analyze_population`` under ``_PIPE_CFG`` as bench.py's leg runs it
    but at BENCH_STEPS = 60 steps (bench.py's 1000 cut for the time
    limit: its eager Kepler tail runs up to 7 trips a step),
-   one cold and BENCH_WARM_REPS warm runs (systems/s, ``timing_out``'s phases,
+   one cold run (systems/s, ``timing_out``'s phases,
    fused_ms, tail_ms, n_tail, the launches of the analysis and MEGNO
    kernels, gated > 0), the stable and tail shares per cohort; then the
    entry point ``MLTrainingPipeline(n_systems=16384, n_steps=500,
@@ -313,11 +312,43 @@ seconds):
    written into the metadata: the predictor's decisions on the test
    split on the card equal ``policy_decisions``', row for row (gated).
 
+25. every slot count (rows 1-3 at N other than 3, 4 and 8; four lanes a
+   body up to N = 8, two from 9 to 16), on the card, right after phase
+   7, under ``_PIPE_CFG`` tail off: (a) phase 3's rows padded from 8 to
+   16 slots (mass 0, mask False; the N = 8 tangents padded alike)
+   through ``analyze_population`` on the N = 16 builds, and (b) the rows
+   whose bodies lie in their first 5 slots cut to them (the others left
+   out, counted), on the N = 5 builds: both held to phase 7's tail-off
+   run, every column of TOL but is_stable within it and is_stable at
+   LABEL_GATE (gated), the rows not bitwise printed, the launches of
+   rows 1-2 gated > 0; (b)'s lowest bucket against the plain versions
+   (``compare_case``); (c) a drawn population (``generate_population``,
+   SLOT_POP_B systems of 9-16 bodies in 16 slots, seeded) at
+   SLOT_POP_STEPS steps (launches gated, its finite share and the us
+   per trip of its deepest lane), rows 1 and 2 on its B_CMP shallowest
+   systems against their plain versions at SLOT_CMP_STEPS steps
+   (``compare_case`` widened by the plain version's own rounding
+   sensitivity, as phase 4's top bucket: these clusters are deep and
+   chaotic) and at WITNESS_STEPS steps (``witness_case``: their final
+   states bit for bit the multi-step kernel's, and their distance to
+   the float64 plain run no worse than the float32 plain version's in
+   three body orders, gated), and with ``use_fused_metrics=False``
+   (row 3's launches gated); (d) row 3 at N = 2 (drawn pairs, one thread a system) and
+   N = 16 ((c)'s shallowest) against its plain version (``row_gate``),
+   its launches on a 2-body ``use_fused_metrics=False`` run gated; (e)
+   rows 1-3 at N = 16, d = 3 under the reflection fold and the
+   "reference" gradient on a drawn 3-D population's shallowest systems,
+   as (c) at SLOT_VARIANT_STEPS and WITNESS_STEPS steps (the
+   variants' launches gated on short runs).  Its builds (SLOT_JOBS) are
+   made in phase 2 with the others; here each prints its registers,
+   spills, shared bytes a block and resident warps an SM, and the
+   builds at N <= 8 are gated at 0 bytes spilled.
+
 It prints a ``{"kernels": [...]}`` line (the seven kernels, rows 1, 2
 and 4 again at d = 3, rows 1 and 2 under each branch of phase 11, row 3
 under the "reference" gradient and at d = 3, row 4's fallback, row 6
-at d = 3, rows 1 and 4 on the scan route, and rows 4 and 7 on the
-facade's paths) and, last, the device line.  Any
+at d = 3, rows 1 and 4 on the scan route, rows 4 and 7 on the
+facade's paths, and rows 1-3 at the slot counts of phase 25) and, last, the device line.  Any
 failed check raises, so the script exits non-zero; without a CUDA
 device it exits non-zero before printing any result.  It writes
 nothing outside the build directory (phase 23's CPU references and
@@ -899,19 +930,48 @@ def branch_gaps(hk, start, seed, mass, h, phys, conf):
     return gap
 
 
+def same_bits(a, b):
+    """Per system, whether the states a and b (pos, vel, eps, pi) agree in
+    every bit (NaN equal to NaN)."""
+    out = torch.ones(a[2].shape, dtype=torch.bool, device=a[2].device)
+    for x, y in zip(a, b):
+        x, y = x.reshape(len(out), -1), y.reshape(len(out), -1)
+        out &= ((x == y) | (torch.isnan(x) & torch.isnan(y))).all(1)
+    return out
+
+
+def tol_units(x, ref):
+    """Per system, the largest |x - ref| / (atol + rtol |ref|) over the
+    entries of the states x and ref (STATE_TOL); inf where one of them is
+    finite and the other not, 0 where neither is."""
+    rtol, atol = STATE_TOL
+    out = torch.zeros(ref[2].shape, dtype=torch.float64,
+                      device=ref[2].device)
+    for a, b in zip(x, ref):
+        a, b = a.double().reshape(len(out), -1), b.double().reshape(
+            len(out), -1)
+        fa, fb = torch.isfinite(a), torch.isfinite(b)
+        u = torch.where(fa & fb, (a - b).abs() / (atol + rtol * b.abs()),
+                        torch.where(fa == fb, torch.zeros_like(a),
+                                    torch.full_like(a, float("inf"))))
+        out = torch.maximum(out, u.max(1).values)
+    return out
+
+
+def finite_rows(*states):
+    """Per system, whether every entry of ``states`` is finite."""
+    out = torch.ones(states[0][2].shape, dtype=torch.bool,
+                     device=states[0][2].device)
+    for st in states:
+        for a in st:
+            out &= torch.isfinite(a.reshape(len(out), -1)).all(1)
+    return out
+
+
 def state_parts(a, b):
     """Per system, whether the states ``a`` and ``b`` (pos, vel, eps, pi)
     lie apart by more than STATE_TOL, or are finite in other entries."""
-    rtol, atol = STATE_TOL
-    out = torch.zeros(a[2].shape, dtype=torch.bool, device=a[2].device)
-    for x, y in zip(a, b):
-        x, y = x.double().reshape(len(out), -1), y.double().reshape(
-            len(out), -1)
-        fin = torch.isfinite(x) & torch.isfinite(y)
-        far = torch.where(fin, (x - y).abs() > atol + rtol * y.abs(),
-                          torch.isfinite(x) != torch.isfinite(y))
-        out |= far.any(1)
-    return out
+    return tol_units(a, b) > 1
 
 
 def recorded_prefixes(trips, start, per, steps):
@@ -991,10 +1051,7 @@ def branch_walk(hk, st, dy, cfg, n_steps, megno_steps, n_sub_max, kfinal,
         end = lambda S: tuple(torch.stack([S[t][i][r] for r, t in
                                            enumerate(T)]) for i in range(4))
         k_end, p_end = end(K), end(P)
-        same = torch.ones(R, dtype=torch.bool, device=per.device)
-        for x, y in zip(k_end, kfinal[kind]):
-            x, y = x.reshape(R, -1), y.reshape(R, -1)
-            same &= ((x == y) | (torch.isnan(x) & torch.isnan(y))).all(1)
+        same = same_bits(k_end, kfinal[kind])
         parts = torch.stack([state_parts(K[j], P[j])
                              for j in range(len(K))]).cpu().numpy()
         first = np.where(parts.any(0), parts.argmax(0), -1)
@@ -2719,11 +2776,6 @@ MODEL_PREFIX = os.path.join(HERE, "data", "headline_pre_")
 #: to pay for the scan route's phase (22)
 BENCH_STEPS = 30
 ENTRY_STEPS = 500
-#: warm runs of the bench population (one cold run before them), cut
-#: from 3 to keep the script inside its time limit once the 3-D phase
-#: came in (1,002 s on an H100 with three), and from 2 to 1 with the
-#: fused engine's branches
-BENCH_WARM_REPS = 1
 #: the card's scores against the same port on the CPU, on the same frame
 SERVE_MLP_TOL = 1e-5
 SERVE_GBDT_TOL = 1e-15
@@ -2841,7 +2893,8 @@ def generators_phase(dev):
 
 def bench_population_phase(cfg, hk, kw, dev):
     """bench.py's leg on its own population: analyze_population under
-    _PIPE_CFG at BENCH_STEPS steps, one cold and BENCH_WARM_REPS warm runs;
+    _PIPE_CFG at BENCH_STEPS steps, one cold run (its warm runs went to
+    pay for phase 25: one took 8.8 s on an NVIDIA H100 80GB HBM3 at 700 W);
     then the entry point MLTrainingPipeline(16384, ENTRY_STEPS, seed=0)
     .generate_diverse_dataset_batched() on a population drawn on the
     card."""
@@ -2858,25 +2911,12 @@ def bench_population_phase(cfg, hk, kw, dev):
                             **run_kw)
     cold = time.perf_counter() - t0
     launches = {f.__name__: f.launches for f in kinds}
-    print(f"  cold {cold:.3f}s ({B_MAIN / cold:.1f} systems/s), launches "
-          f"{launches}, phases {tm}")
+    print(f"  cold {cold:.3f}s: {B_MAIN / cold:.1f} systems/s (bench.py's "
+          f"population, B={B_MAIN}, n_steps={kw['n_steps']}, N={N_SLOTS}, "
+          f"tail on), launches {launches}, phases {tm}")
     if not all(launches.values()):
         raise SystemExit(f"bench population: a kernel was not launched: "
                          f"{launches}")
-    warm = []
-    for _ in range(BENCH_WARM_REPS):
-        tm = {}
-        t0 = time.perf_counter()
-        df = analyze_population(mass, pos, vel, mask, cfg, timing_out=tm,
-                                **run_kw)
-        warm.append(time.perf_counter() - t0)
-        print(f"  warm {warm[-1]:.3f}s: fused_ms {tm['fused_ms']:.1f}, "
-              f"tail_ms {tm['tail_ms']:.1f}, n_tail {tm['n_tail']}; "
-              f"phases {tm}")
-    t_med = float(np.median(warm))
-    print(f"  warm median {t_med:.3f}s over {BENCH_WARM_REPS}: "
-          f"{B_MAIN / t_med:.1f} systems/s (bench.py's population, "
-          f"B={B_MAIN}, n_steps={kw['n_steps']}, N={N_SLOTS}, tail on)")
     check_output(df, "bench population")
     share = per_cohort(types, np.mean, stable=df["is_stable"].to_numpy(float),
                        tail=df["tail_fast_path"].to_numpy(float))
@@ -2911,7 +2951,7 @@ def bench_population_phase(cfg, hk, kw, dev):
         f"{c} {v['stable']:.4f} / {v['tail']:.4f}"
         for c, v in e_share.items()))
     return dict(df=df, types=types, pop=(mass, pos, vel, mask, soft),
-                cold=cold, med=t_med, launches=launches, entry_s=t_e,
+                cold=cold, launches=launches, entry_s=t_e,
                 launches_entry=launches_e)
 
 
@@ -3001,7 +3041,7 @@ def serving_phase(cfg, bench, dev, main_rate):
         frame[c].to_numpy(float) - frame_cpu[c].to_numpy(float)))
         / max(float(np.nanmax(np.abs(frame_cpu[c].to_numpy(float)))), 1e-30))
         for c in feats)
-    an_rate = B_MAIN / bench["med"]
+    an_rate = B_MAIN / bench["cold"]
     print(f"  ic_feature_frame: cold {c_ic:.3f}s, warm median {t_ic:.4f}s = "
           f"{B_MAIN / t_ic:.1f} systems/s; its initial_* columns against "
           f"the CPU's: largest difference over the column's largest magnitude "
@@ -3044,9 +3084,6 @@ DATA3 = os.path.join(HERE, "data", "stability_3d_131k.csv.gz")
 #: these rows (ROADMAP.md Queue 3), so its labels are not the reference
 LABELS3 = os.path.join(HERE, "data", "labels_3d_jax_fused_256.npz")
 MODEL3_PREFIX = os.path.join(HERE, "data", "headline3d_pre_")
-#: warm runs of the 3-D main path (one cold run before them); 2 until
-#: the fused engine's branches came in, cut for the time limit
-WARM_REPS_3D = 1
 #: the 3-D dataset's columns are round 3's: its cos_theta_mean lies
 #: outside [-1, 1] where a cosine cannot (the z-only L0 in the vector
 #: branch) and its angular_momentum_drift is the z component's
@@ -3116,7 +3153,9 @@ def serve_3d(cfg, pop, soft, G, min_soft, dev):
 
 def phase_3d(cfg, cfg_off, hk, ek, dev, tangent_of):
     """The 3-D product path on the card: kernels held to their plain
-    versions at d = 3, the ham_soft scan, the main path (cold + warm),
+    versions at d = 3, the ham_soft scan, the main path (one cold run: its
+    warm runs went to pay for phase 25, one took 29.9 s on an NVIDIA H100
+    80GB HBM3 at 700 W),
     the tail-off run, the labels, the main path's launches replayed, and
     the 3-D headline models served."""
     from nbodysimproject_tpu_torch import analyze_population
@@ -3155,8 +3194,10 @@ def phase_3d(cfg, cfg_off, hk, ek, dev, tangent_of):
     df = analyze_population(mass, pos, vel, mask, cfg, timing_out=tm, **kw)
     cold = time.perf_counter() - t0
     launches = {f.__name__: f.launches for f in kinds}
-    print(f"  3-D main path cold {cold:.3f}s ({B_MAIN / cold:.1f} "
-          f"systems/s), launches {launches}, phases {tm}", flush=True)
+    print(f"  3-D main path cold {cold:.3f}s = {B_MAIN / cold:.1f} "
+          f"systems/s (B={B_MAIN}, n_steps={N_STEPS}, N={N_SLOTS}, d=3, "
+          f"tail on its own stream), launches {launches}, phases {tm}",
+          flush=True)
     if not all(launches.values()):
         raise SystemExit(f"the 3-D main path did not launch both kernels: "
                          f"{launches}")
@@ -3164,22 +3205,6 @@ def phase_3d(cfg, cfg_off, hk, ek, dev, tangent_of):
             df["tail_fast_path"].to_numpy(bool), sel):
         raise SystemExit("the 3-D main path's tail differs from its "
                          "selection")
-    warm, fused_ms, tail_ms = [], [], []
-    for _ in range(WARM_REPS_3D):
-        tm = {}
-        t0 = time.perf_counter()
-        df = analyze_population(mass, pos, vel, mask, cfg, timing_out=tm,
-                                **kw)
-        warm.append(time.perf_counter() - t0)
-        fused_ms.append(tm["fused_ms"])
-        tail_ms.append(tm["tail_ms"])
-        print(f"  3-D warm {warm[-1]:.3f}s phases {tm}", flush=True)
-    t_med = float(np.median(warm))
-    print(f"  3-D main path: warm median {t_med:.3f}s over {WARM_REPS_3D} = "
-          f"{B_MAIN / t_med:.1f} systems/s (B={B_MAIN}, n_steps={N_STEPS}, "
-          f"N={N_SLOTS}, d=3, tail on its own stream); fused call "
-          f"{np.median(fused_ms):.1f} ms, tail {np.median(tail_ms):.1f} ms, "
-          f"n_tail {int(sel.sum())}")
     check_output(df, "3-D tail on")
     if not {"z_0", "vz_7"} <= set(df.columns):
         raise SystemExit("the 3-D frame lacks its z columns")
@@ -3252,9 +3277,9 @@ def phase_3d(cfg, cfg_off, hk, ek, dev, tangent_of):
               f"lane, bound {b[0]:.3f} ms ({b[1]}), {t.ms / b[0]:.0f}x the "
               f"bound", flush=True)
 
-    out.update(cold=cold, med=t_med, off=t_off, launches=launches,
-               n_tail=int(sel.sum()), fused_ms=float(np.median(fused_ms)),
-               tail_ms=float(np.median(tail_ms)), main_ms=main_ms,
+    out.update(cold=cold, off=t_off, launches=launches,
+               n_tail=int(sel.sum()), fused_ms=float(tm["fused_ms"]),
+               tail_ms=float(tm["tail_ms"]), main_ms=main_ms,
                agree_jax=agree_jax, agree_ds=a,
                serve=serve_3d(cfg, (mass, pos, vel, mask), soft, G, min_soft,
                               dev),
@@ -3288,8 +3313,8 @@ BRANCH_DEFAULT_JOBS = tuple(("hamsoft_multistep.cu", n, 3) for n in (3, 4, 8)) \
 #: registers of the exact builds as PERF.md section 6 records them:
 #: (source, N, d) -> {kernel: registers of its instances}
 EXACT_REGISTERS = {
-    ("hamsoft.cu", 8, 2): {"analysis_kernel": [128], "megno_kernel": [141]},
-    ("hamsoft.cu", 8, 3): {"analysis_kernel": [128], "megno_kernel": [158]},
+    ("hamsoft.cu", 8, 2): {"analysis_kernel": [149], "megno_kernel": [143]},
+    ("hamsoft.cu", 8, 3): {"analysis_kernel": [144], "megno_kernel": [144]},
     ("hamsoft_multistep.cu", 3, 2): {"multistep_thread": [190, 192]},
     ("eps_grad.cu", 3, 2): {"eps_grad_thread": [156]},
     ("eps_grad.cu", 8, 2): {"eps_grad_lane": [167]},
@@ -3658,6 +3683,471 @@ def phase_branches(cfg, cfg_off, hk, ek, wk, dev, tangent_of, pop, states,
     out["s"] = time.perf_counter() - t_phase
     print(f"  the branches' phase {out['s']:.1f}s, its builds in phase 2")
     return out
+
+
+# ------------------------------------------------- every slot count 2-16
+#: phase 25's builds, made in phase 2 with the others: both
+#: sources at N = 2, 5 and 16 (d = 2) and at N = 16, d = 3, and the
+#: analysis and MEGNO kernels' reflection fold and the "reference"
+#: gradient of all three at N = 16, d = 3 (the largest table and
+#: register count); any other N is built on first use
+SLOT_JOBS = tuple((src, n, 2) for n in (2, 5, 16)
+                  for src in ("hamsoft.cu", "hamsoft_multistep.cu")) \
+    + (("hamsoft.cu", 16, 3), ("hamsoft_multistep.cu", 16, 3),
+       ("hamsoft.cu", 16, 3, "refl"), ("hamsoft.cu", 16, 3, "ref"),
+       ("hamsoft_multistep.cu", 16, 3, "ref"))
+#: the slot counts of phase 25's (a) and (b)
+SLOTS_PAD, SLOTS_CUT = 16, 5
+#: (c): a population of 9 to 16 bodies in 16 slots drawn on the card
+#: (seeded), analysed at SLOT_POP_STEPS steps (the dataset's 1000 cut
+#: for the time limit)
+SLOT_POP_B, SLOT_POP_COUNTS, SLOT_POP_SEED = 4096, (9, 16), 25
+SLOT_POP_STEPS = 100
+#: the 2-body population of (d) and the 3-D one of (e) (seeded), and
+#: the horizon of the runs of (c)-(e) that count a kernel's launches
+SLOT_PAIRS_B, SLOT_POP3_B = 4096, 4096
+SLOT_SHORT_STEPS = 20
+#: (c) and (e) hold rows 1-2 to their plain versions on the B_CMP
+#: shallowest systems twice.  At WITNESS_STEPS steps (and half as many
+#: MEGNO steps), ``witness_case``: the kernels' final states bit for bit
+#: the multi-step kernel's, and their distance to the float64 plain run
+#: no worse than the float32 plain version's in three body orders.  And
+#: at SLOT_CMP_STEPS and SLOT_VARIANT_STEPS steps, the analysis columns
+#: too, under ``compare_case``'s widened rule (phase 4's top bucket's):
+#: the drawn 9-16-body clusters are deep (at d = 2 14 of 4096 have
+#: n_sub <= 4 and the 1024 shallowest reach 38) and chaotic, so that
+#: the tolerances alone cannot hold a float32 run to another at 20
+#: steps.  On an NVIDIA H100 80GB HBM3 at 700 W, at 20 + 10 steps
+#: (``tools/hamsoft_slot_probe.py``): the float32 plain version in each
+#: of three body orders lay outside STATE_TOL of its float64 run on
+#: 824-829 of (c)'s 1024 rows (the kernel 843), on 339-356 under the
+#: "reference" fallback (the kernel 351); the kernel's state bit for bit
+#: its one-thread layout's on every row; and every row where the kernel
+#: went NaN went non-finite in float64 too
+SLOT_CMP_STEPS, SLOT_VARIANT_STEPS = 2, 4
+WITNESS_STEPS = 20
+#: ``witness_case``'s gate: at each of these quantiles of the rows (the
+#: float64 run finite), the kernel's distance to the float64 run in
+#: STATE_TOL units within STATE_TOL (1) or at most WITNESS_FACTOR times
+#: the largest of the float32 plain version's three body orders'
+WITNESS_QUANTILES = (0.5, 0.9, 0.99)
+WITNESS_FACTOR = 2.0
+#: the branch variants of (e): label, SimConfig fields, the multi-step
+#: kernel's policy and gradient mode
+SLOT_VARIANTS = (("refl", dict(use_soft_barrier=False), "reflection",
+                  "exact"),
+                 ("ref", dict(eps_grad_mode="reference"), "soft",
+                  "reference"))
+
+
+def slot_rows(label, ref, df, rows):
+    """Phase 25 (a) and (b): ``df``'s rows held to ``ref``'s on the same
+    systems (``rows`` of ``ref``): every column of TOL but is_stable
+    within its tolerance, is_stable agreeing on at least LABEL_GATE of
+    the rows (both gated); the rows that differ at all in any column the
+    two frames share, printed.  Returns (rows not bitwise, is_stable
+    agreement)."""
+    n = len(df)
+    ref = ref.iloc[rows].reset_index(drop=True)
+    df = df.reset_index(drop=True)
+    differ, by_col = np.zeros(n, bool), {}
+    for col in ref.columns.intersection(df.columns):
+        a, b = ref[col].to_numpy(), df[col].to_numpy()
+        d = ~((a == b) | (pd_isnan(a) & pd_isnan(b)))
+        differ |= d
+        if d.any():
+            by_col[col] = int(d.sum())
+    outside = {}
+    for col, (rtol, atol) in TOL.items():
+        if col != "is_stable":
+            o = _outside(ref[col].to_numpy(float), df[col].to_numpy(float),
+                         rtol, atol)
+            if o.any():
+                outside[col] = int(o.sum())
+    agree = float((ref["is_stable"].to_numpy(bool)
+                   == df["is_stable"].to_numpy(bool)).mean())
+    print(f"  {label}: {n} rows; {int(differ.sum())} not bitwise the N = "
+          f"{N_SLOTS} tail-off run's in some column (rows by column: "
+          f"{by_col or 'none'}); columns outside TOL {outside or 'none'}; "
+          f"is_stable agrees on {agree:.4f} (gated >= {LABEL_GATE})",
+          flush=True)
+    if outside:
+        raise SystemExit(f"{label}: columns outside TOL of the N = "
+                         f"{N_SLOTS} run: {outside}")
+    if agree < LABEL_GATE:
+        raise SystemExit(f"{label}: is_stable agrees on {agree:.4f}")
+    return int(differ.sum()), agree
+
+
+def slot_run(label, fns, *args, **kw):
+    """``analyze_population(*args, **kw)`` with the launch counts of
+    ``fns`` set to 0 just before and read just after (each gated > 0),
+    on the fused engine alone (gated): (frame, seconds, launches,
+    timing_out)."""
+    from nbodysimproject_tpu_torch import analyze_population
+
+    reset_counts(*fns)
+    tm = {}
+    t0 = time.perf_counter()
+    df = analyze_population(*args, timing_out=tm, show_progress=False, **kw)
+    secs = time.perf_counter() - t0
+    launches = {f.__name__: f.launches for f in fns}
+    print(f"  {label}: {secs:.3f}s ({len(df) / secs:.1f} systems/s), "
+          f"launches {launches}, fused call {tm['fused_ms']:.1f} ms",
+          flush=True)
+    if not all(launches.values()) or tm["engine"] != "fused" \
+            or tm["scan_lanes"]:
+        raise SystemExit(f"{label}: not every kernel launched on the fused "
+                         f"engine: {launches}, {tm}")
+    return df, secs, launches, tm
+
+
+def slot_entries(tag, n, d, cases, launches, share=None):
+    """The report's entries of rows 1 and 2 at (n, d) from a compare
+    case (``compare_case``) and a run's launches."""
+    out = []
+    for kind, line in (("analysis", 565), ("megno", 770)):
+        ms, plain_ms, err, ns, steps, msteps, nsm, sh = cases[kind]
+        b_ms, b_by = bound(kind, ns, nsm, steps, msteps, n, d,
+                           sh if share is None else share)
+        out.append({
+            "name": f"hamsoft_{kind}_multistep {tag}", "route": "cuda",
+            "source": "nbodysimproject_tpu_torch/csrc/hamsoft.cu",
+            "replaces": f"nbodysimproject_tpu/ops/pallas_hamsoft.py:{line}",
+            "launches": launches[f"hamsoft_{kind}_multistep"],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+    return out
+
+
+def multistep_entry(tag, c, launches):
+    return {"name": f"hamsoft_multistep {tag}", "route": "cuda",
+            "source": "nbodysimproject_tpu_torch/csrc/hamsoft_multistep.cu",
+            "replaces": "nbodysimproject_tpu/ops/pallas_hamsoft.py:508",
+            "launches": launches, "max_abs_err": c["err"], "ms": c["ms"],
+            "plain_ms": c["plain_ms"], "bound_ms": c["bound"][0],
+            "bound_by": c["bound"][1], "library_ms": None}
+
+
+def shallow_case(label, st, dy, n_sub_raw, cfg, hk, tangent_of, steps):
+    """Rows 1-2 against their plain versions (``compare_case``, widened
+    by the plain version's own rounding sensitivity) on the B_CMP
+    shallowest systems at ``steps`` steps; returns (case, lanes)."""
+    from nbodysimproject_tpu_torch.analysis.fused import analyze_batch_fused
+
+    n_sub = np.minimum(n_sub_raw, cfg.analysis_n_sub_cap)
+    lanes = np.argsort(n_sub, kind="stable")[:B_CMP]
+    t0 = time.perf_counter()
+    case = compare_case(label, st, dy, cfg,
+                        torch.as_tensor(lanes, device=st.pos.device),
+                        steps, max(1, int(n_sub[lanes].max())), hk,
+                        analyze_batch_fused, tangent_of, True)
+    print(f"  {label} done in {time.perf_counter() - t0:.1f}s", flush=True)
+    return case, lanes
+
+
+def witness_case(label, st, dy, n_sub_raw, cfg, hk, tangent_of, steps,
+                 one_thread=False, gate=True):
+    """Rows 1-2 on the B_CMP shallowest systems at ``steps`` steps and
+    steps // 2 MEGNO steps, held two ways.  Exactly: each kernel's final
+    (pos, vel, eps, pi) bit for bit the multi-step kernel's over the same
+    trips (the kernels share one trip), and with ``one_thread`` that
+    bit for bit the multi-step kernel's one-thread layout.  Against the
+    float64 plain multi-step run from the same start: the kernel's
+    distance in STATE_TOL units (``tol_units``, the larger of the two
+    stages) at WITNESS_QUANTILES within STATE_TOL or no worse than
+    WITNESS_FACTOR times the float32 plain version's in three body orders (as given, reversed,
+    rolled by 3), and the kernel non-finite only on rows where the
+    float64 run or a float32 plain order is too.  Prints what it finds,
+    and the tolerances' own verdict on the plain version against itself
+    reordered; with ``gate``, fails on any of these.  Returns the
+    figures."""
+    from nbodysimproject_tpu_torch.analysis.fused import (
+        _kernel_policy, analyze_batch_fused)
+
+    dev = st.pos.device
+    n_sub = np.minimum(n_sub_raw, cfg.analysis_n_sub_cap)
+    lanes = np.argsort(n_sub, kind="stable")[:B_CMP]
+    nsm = max(1, int(n_sub[lanes].max()))
+    ix = torch.as_tensor(lanes, device=dev)
+    st, dy = st.take(ix), dy.take(ix)
+    msteps = min(100, min(50, steps // 2))
+    t0 = time.perf_counter()
+    ta, tm = Timed(hk.hamsoft_analysis_multistep), Timed(
+        hk.hamsoft_megno_multistep)
+    analyze_batch_fused(st, dy, cfg, steps, DT, "full", nsm, msteps,
+                        tangent=tangent_of(st), g_static=1.0, analysis_fn=ta,
+                        megno_fn=tm)
+    conf = dict(G=1.0, k_wall=float(cfg.k_wall), eta=float(cfg.eta),
+                jcap=float(cfg.j_max_cap), bexp=int(cfg.barrier_exponent),
+                policy=_kernel_policy(cfg), grad_mode=str(cfg.eps_grad_mode),
+                lam_align=float(cfg.lambda_softening))
+
+    def run(fn, s, y, **extra):
+        """(the state after the analysis steps, after the MEGNO steps)"""
+        nsub = torch.clamp_min(y.n_sub, 1)
+        kw = dict(k_soft=y.k_soft, mu=y.mu_soft, alpha=y.alpha_run,
+                  eps_min=y.min_softening, eps_max=y.max_softening,
+                  h=DT / nsub.to(s.pos.dtype), n_sub=nsub, n_sub_max=nsm,
+                  **conf, **extra)
+        a = fn(s.pos, s.vel, s.mass, s.eps, s.pi, n_steps=steps, **kw)
+        b = fn(*a[:2], s.mass, *a[2:4], n_steps=msteps, **kw)
+        return tuple(a[:4]), tuple(b[:4])
+
+    warp = run(hk.hamsoft_multistep, st, dy)
+    exact = {"analysis kernel = multi-step kernel":
+             same_bits(ta.out[:4], warp[0]),
+             "MEGNO kernel = multi-step kernel": same_bits(tm.out[:4],
+                                                           warp[1])}
+    if one_thread:
+        thread = run(hk.hamsoft_multistep, st, dy, one_thread=True)
+        exact["warp layout = one-thread layout"] = (
+            same_bits(warp[0], thread[0]) & same_bits(warp[1], thread[1]))
+    R, n = len(lanes), st.pos.shape[1]
+    perms = (None, torch.arange(n - 1, -1, -1, device=dev),
+             torch.roll(torch.arange(n, device=dev), 3))
+    tan = tangent_of(st)
+    plain = run(hk.hamsoft_multistep_plain,
+                _stacked(*(_permuted(st, tan, p)[0] for p in perms)),
+                _stacked(*([dy] * len(perms))))
+    orders = []
+    for j, p in enumerate(perms):
+        runs = []
+        for stage in plain:
+            x = tuple(t[j * R:(j + 1) * R] for t in stage)
+            if p is not None:
+                inv = torch.argsort(p)
+                x = (x[0][:, inv], x[1][:, inv], x[2], x[3])
+            runs.append(x)
+        orders.append(runs)
+    f64 = run(hk.hamsoft_multistep_plain, _double(st), _double(dy))
+    units = lambda r, ref: torch.maximum(tol_units(r[0], ref[0]),
+                                         tol_units(r[1], ref[1]))
+    uk = units(warp, f64)
+    up = [units(r, f64) for r in orders]
+    fin64 = finite_rows(*f64)
+    finp = [finite_rows(*r) for r in orders]
+    fink = finite_rows(*warp)
+    qs = torch.tensor(WITNESS_QUANTILES, dtype=torch.float64, device=dev)
+    quant = lambda u: torch.quantile(torch.nan_to_num(u[fin64],
+                                                      posinf=1e30), qs)
+    qk, qp = quant(uk), torch.stack([quant(u) for u in up]).max(0).values
+    unexplained = ~fink & fin64 & torch.stack(finp).all(0)
+    self_parts = int((units(orders[1], orders[0]) > 1).sum())
+    kern_parts = int((units(warp, orders[0]) > 1).sum())
+    names = ("plain", "plain reversed", "plain rolled")
+    out = {
+        "steps": steps, "megno_steps": msteps, "n_sub_max": nsm,
+        "exact": {k: int(v.sum()) for k, v in exact.items()},
+        "outside": {"kernel": int((uk > 1).sum()),
+                    **{nm: int((u > 1).sum()) for nm, u in zip(names, up)}},
+        "quantiles": {"kernel": qk.tolist(), "plain orders": qp.tolist()},
+        "non-finite": {"kernel": int((~fink).sum()),
+                       "float64": int((~fin64).sum()),
+                       **{nm: int((~f).sum()) for nm, f in zip(names, finp)}},
+        "unexplained": int(unexplained.sum()), "self_parts": self_parts,
+        "kernel_parts": kern_parts, "s": time.perf_counter() - t0}
+    print(f"  {label}: {R} systems, {steps} + {msteps} MEGNO steps, "
+          f"n_sub_max {nsm}; rows bit for bit (of {R}): {out['exact']}; "
+          f"rows outside STATE_TOL of the float64 plain run "
+          f"{out['outside']}; STATE_TOL units to it at quantiles "
+          f"{WITNESS_QUANTILES}: kernel {[round(x, 3) for x in qk.tolist()]}"
+          f", the plain orders' largest {[round(x, 3) for x in qp.tolist()]}"
+          f" (gated <= 1 or {WITNESS_FACTOR}x); non-finite rows "
+          f"{out['non-finite']}, the kernel's with float64 and every plain "
+          f"order finite {out['unexplained']} (gated 0); the tolerances "
+          f"alone part the plain version from itself reversed on "
+          f"{self_parts} rows, from the kernel on {kern_parts}; "
+          f"{out['s']:.1f}s", flush=True)
+    failures = [k for k, v in exact.items() if int(v.sum()) != R]
+    if bool(((qk > 1.0) & (qk > WITNESS_FACTOR * qp)).any()):
+        failures.append("the distance to float64")
+    if out["unexplained"]:
+        failures.append("non-finite rows")
+    if gate and failures:
+        raise SystemExit(f"{label}: {failures}")
+    return out
+
+
+def drawn_population(B, counts, n_slots, d, seed, dev):
+    """(mass, pos, vel, mask) of ``generate_population`` on the card: B
+    systems of counts[0] to counts[1] bodies in ``n_slots`` slots, seeded."""
+    from nbodysimproject_tpu_torch.generators.ic_generator import (
+        generate_population, sample_body_counts)
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    n = sample_body_counts(gen, B, counts, device=dev)
+    return generate_population(gen, n, n_slots=n_slots, dim=d, device=dev)
+
+
+def phase_slots(cfg_off, hk, dev, pop, df_off, tangent8, tangent_of, built):
+    """Phase 25: the analysis, MEGNO and multi-step kernels at slot counts
+    other than 3, 4 and 8 on the card.  Returns (report entries, the
+    phase's figures)."""
+    from nbodysimproject_tpu_torch import SimConfig
+    from nbodysimproject_tpu_torch.analysis.batch import prepare_population
+    from nbodysimproject_tpu_torch.ops import cuda_build
+    from nbodysimproject_tpu_torch.parallel.batch_engine import build_batch
+
+    t_phase = time.perf_counter()
+    rows12 = (hk.hamsoft_analysis_multistep, hk.hamsoft_megno_multistep)
+    row3 = (hk.hamsoft_multistep,)
+    entries, out = [], {}
+    secs = [built[j][1] for j in SLOT_JOBS]
+    print(f"  builds of this phase: {len(secs)}, made in phase 2, the "
+          f"longest {max(secs):.1f}s")
+    for job in SLOT_JOBS:
+        src, n, d, *var = job
+        occ = hk.occupancy(src, n, d, var[0] if var else "")
+        print(f"    {cuda_build.job_name(job)}: " + "; ".join(
+            f"{k}{'<' + f + '>' if f else ''} {r} registers, {sp} bytes "
+            f"spilled" for k, f, r, sp in ptxas_entries(built[job][2]))
+            + f"; shared bytes a block and resident warps an SM {occ}")
+        if n <= 8:
+            spill_gate(cuda_build.job_name(job), built[job][2], 2)
+
+    (mass, pos, vel, mask), G, soft, min_soft = pop
+    dr8, dv8 = tangent8
+    kw = dict(G=G, softening=soft, min_softening=min_soft, dt=DT,
+              n_steps=N_STEPS, mode="full")
+
+    # (a) the dataset rows in 16 slots (mass 0, mask False), their N = 8
+    # tangents padded alike
+    k = SLOTS_PAD - N_SLOTS
+    padn = lambda a: np.concatenate(
+        [a, np.zeros(a.shape[:1] + (k,) + a.shape[2:], a.dtype)], 1)
+    padt = lambda t: torch.cat([t, t.new_zeros(t.shape[:1] + (k,)
+                                               + t.shape[2:])], 1)
+    df16, s16, l16, tm16 = slot_run(
+        f"(a) the {len(mass)} dataset rows in {SLOTS_PAD} slots", rows12,
+        padn(mass), padn(pos), padn(vel), padn(mask), cfg_off,
+        tangent=(padt(dr8), padt(dv8)), **kw)
+    out["a"] = dict(s=s16, fused_ms=tm16["fused_ms"], launches=l16)
+    out["a"]["differ"], out["a"]["agree"] = slot_rows(
+        f"(a) {SLOTS_PAD} slots", df_off, df16, np.arange(len(mass)))
+    del df16
+
+    # (b) the rows whose bodies lie in their first 5 slots, cut to them
+    ok = ~mask[:, SLOTS_CUT:].any(1)
+    rows = np.nonzero(ok)[0]
+    idx = torch.as_tensor(rows, device=dev)
+    cut = lambda a: a[rows, :SLOTS_CUT]
+    per = lambda a: a[rows] if np.ndim(a) else a
+    print(f"  (b): {int((~ok).sum())} rows hold a body past slot "
+          f"{SLOTS_CUT} and are left out", flush=True)
+    df5, s5, l5, tm5 = slot_run(
+        f"(b) {len(rows)} dataset rows in {SLOTS_CUT} slots", rows12,
+        cut(mass), cut(pos), cut(vel), cut(mask), cfg_off,
+        tangent=(dr8[idx, :SLOTS_CUT], dv8[idx, :SLOTS_CUT]),
+        **dict(kw, G=per(G), softening=per(soft),
+               min_softening=per(min_soft)))
+    out["b"] = dict(s=s5, fused_ms=tm5["fused_ms"], launches=l5,
+                    left_out=int((~ok).sum()))
+    out["b"]["differ"], out["b"]["agree"] = slot_rows(
+        f"(b) {SLOTS_CUT} slots", df_off, df5, rows)
+    del df5
+    st5, dy5, nsr5 = prepare_population(
+        cut(mass), cut(pos), cut(vel), cut(mask), cfg_off, G=per(G),
+        softening=per(soft), min_softening=per(min_soft), dt=DT, device=dev)
+    case5 = bucket_cases(f"(b) N={SLOTS_CUT} ", st5, dy5, nsr5, cfg_off, hk,
+                         tangent_of, which=("lowest",))[0][0]
+    entries += slot_entries(f"N={SLOTS_CUT}", SLOTS_CUT, 2, case5, l5)
+    del st5, dy5
+
+    # (c) a drawn population of 9-16 bodies in 16 slots, every slot real
+    # in its largest systems
+    m, q, v, msk = drawn_population(SLOT_POP_B, SLOT_POP_COUNTS, SLOTS_PAD,
+                                    2, SLOT_POP_SEED, dev)
+    kc = dict(G=1.0, softening=0.05, dt=DT, mode="full")
+    dfc, sc, lc, tmc = slot_run(
+        f"(c) {SLOT_POP_B} drawn systems of {SLOT_POP_COUNTS[0]}-"
+        f"{SLOT_POP_COUNTS[1]} bodies in {SLOTS_PAD} slots, "
+        f"{SLOT_POP_STEPS} steps", rows12, m, q, v, msk, cfg_off,
+        n_steps=SLOT_POP_STEPS, **kc)
+    stc, dyc, nsrc = prepare_population(m, q, v, msk, cfg_off, G=1.0,
+                                        softening=0.05, min_softening=0.0,
+                                        dt=DT, device=dev)
+    nsm = int(np.minimum(nsrc, cfg_off.analysis_n_sub_cap).max())
+    msteps = min(100, min(50, SLOT_POP_STEPS // 2))
+    finite = float(np.isfinite(dfc[list(TOL)].to_numpy(float)).all(1).mean())
+    us = 1e3 * tmc["fused_ms"] / ((SLOT_POP_STEPS + msteps) * nsm)
+    print(f"  (c): finite share {finite:.4f} (every column of TOL); the "
+          f"deepest lane n_sub {nsm}: the fused call {tmc['fused_ms']:.1f} "
+          f"ms = {us:.3f} us per trip of the deepest lane "
+          f"({SLOT_POP_STEPS} + {msteps} MEGNO steps)", flush=True)
+    out["c"] = dict(s=sc, fused_ms=tmc["fused_ms"], launches=lc,
+                    finite=finite, us=us, nsm=nsm)
+    del dfc
+    case_c, low = shallow_case(f"(c) N={SLOTS_PAD}, the {B_CMP} shallowest",
+                               stc, dyc, nsrc, cfg_off, hk, tangent_of,
+                               SLOT_CMP_STEPS)
+    entries += slot_entries(f"N={SLOTS_PAD}", SLOTS_PAD, 2, case_c, l16)
+    out["c"]["witness"] = witness_case(
+        f"(c) N={SLOTS_PAD}, the {B_CMP} shallowest, witness", stc, dyc,
+        nsrc, cfg_off, hk, tangent_of, WITNESS_STEPS)
+    _dfc3, _s, l3c, _tm = slot_run(
+        f"(c) use_fused_metrics=False, {SLOT_SHORT_STEPS} steps", row3, m, q,
+        v, msk, cfg_off.replace(use_fused_metrics=False),
+        n_steps=SLOT_SHORT_STEPS, **kc)
+
+    # (d) row 3 at N = 2 (one thread a system) and N = 16 (two lanes a
+    # body), d = 2, against its plain version
+    cfg_hs = SimConfig(integrator_mode="ham_soft", fast_float32=True)
+    m2, q2, v2, msk2 = drawn_population(SLOT_PAIRS_B, (2, 2), 2, 2,
+                                        SLOT_POP_SEED + 1, dev)
+    f32 = lambda x: x.to(torch.float32)
+    st2, dy2 = build_batch(f32(m2), f32(q2), f32(v2), msk2, cfg_hs, 1.0,
+                           0.05, 0.0, DT)
+    dy2 = dy2.replace(n_sub=torch.clamp_max(dy2.n_sub, HS_NSUB_CAP))
+    c2 = compare_multistep(cfg_hs, st2, dy2, "soft", hk)
+    _df2, _s, l2, _tm = slot_run(
+        f"(d) {SLOT_PAIRS_B} drawn pairs, use_fused_metrics=False, "
+        f"{SLOT_SHORT_STEPS} steps", row3, m2, q2, v2, msk2,
+        cfg_off.replace(use_fused_metrics=False), n_steps=SLOT_SHORT_STEPS,
+        **kc)
+    lowt = torch.as_tensor(low, device=dev)
+    c16 = compare_multistep(cfg_hs, stc.take(lowt), dyc.take(lowt), "soft",
+                            hk)
+    entries += [multistep_entry("N=2", c2, l2["hamsoft_multistep"]),
+                multistep_entry(f"N={SLOTS_PAD}", c16,
+                                l3c["hamsoft_multistep"])]
+    del stc, dyc, st2, dy2
+
+    # (e) rows 1-3 at N = 16, d = 3, under the reflection fold and the
+    # "reference" gradient, on a drawn population's lowest bucket
+    m3, q3, v3, msk3 = drawn_population(SLOT_POP3_B, SLOT_POP_COUNTS,
+                                        SLOTS_PAD, 3, SLOT_POP_SEED + 2, dev)
+    st3, dy3, nsr3 = prepare_population(m3, q3, v3, msk3, cfg_off, G=1.0,
+                                        softening=0.05, min_softening=0.0,
+                                        dt=DT, device=dev)
+    out["e"] = {}
+    for label, over, policy, grad in SLOT_VARIANTS:
+        cfg_v = cfg_off.replace(**over)
+        case_v, low3 = shallow_case(
+            f"(e) N={SLOTS_PAD} d=3 {label}, the {B_CMP} shallowest", st3,
+            dy3, nsr3, cfg_v, hk, tangent_of, SLOT_VARIANT_STEPS)
+        wit = witness_case(
+            f"(e) N={SLOTS_PAD} d=3 {label}, the {B_CMP} shallowest, "
+            f"witness", st3, dy3, nsr3, cfg_v, hk, tangent_of, WITNESS_STEPS)
+        low3 = torch.as_tensor(low3, device=dev)
+        cv = compare_multistep(cfg_hs.replace(**over), st3.take(low3),
+                               dy3.take(low3), policy, hk, grad)
+        _d, _s, lv, _tm = slot_run(
+            f"(e) {label}: {SLOT_POP3_B} drawn 3-D systems, "
+            f"{SLOT_SHORT_STEPS} steps", rows12, m3, q3, v3, msk3, cfg_v,
+            n_steps=SLOT_SHORT_STEPS, **kc)
+        _d, _s, lv3, _tm = slot_run(
+            f"(e) {label}, use_fused_metrics=False", row3, m3, q3, v3, msk3,
+            cfg_v.replace(use_fused_metrics=False),
+            n_steps=SLOT_SHORT_STEPS, **kc)
+        tag = f"N={SLOTS_PAD} d=3 {label}"
+        entries += slot_entries(tag, SLOTS_PAD, 3, case_v, lv)
+        entries.append(multistep_entry(tag, cv, lv3["hamsoft_multistep"]))
+        out["e"][label] = (case_v, cv, wit)
+    out["s"] = time.perf_counter() - t_phase
+    print(f"  the slot counts' phase {out['s']:.1f}s")
+    return entries, out
 
 
 # ------------------------------------------------------- the scan route
@@ -5038,7 +5528,7 @@ def main():
                              + facade_eps_jobs(ek)
                              + bk.build_jobs(COMPOSITION_SHAPES)
                              + wk.build_jobs() + fk.build_jobs()
-                             + list(BRANCH_JOBS))
+                             + list(BRANCH_JOBS) + list(SLOT_JOBS))
     for job, (path, secs, report) in sorted(built.items()):
         print(f"  {cuda_build.job_name(job)}: {os.path.basename(path)} in "
               f"{secs:.1f}s")
@@ -5239,6 +5729,13 @@ def main():
     if agree_ds < LABEL_GATE:
         raise SystemExit(f"is_stable agrees with the dataset on {agree_ds:.4f}"
                          f" of the fused rows (< {LABEL_GATE})")
+
+    phase("every slot count: the dataset rows in 16 and in 5 slots, a drawn "
+          "population of 9-16 bodies, rows 1-3 at N = 2, 5 and 16")
+    slot_report, slots = phase_slots(
+        cfg_off, hk, dev, ((mass, pos, vel, mask), G, soft, min_soft),
+        df_off, (dr0, dv0), tangent_of, built)
+    torch.cuda.empty_cache()
 
     phase("use_fused_metrics=False on the main path's population (tail off)")
     cfg_c = cfg_off.replace(use_fused_metrics=False)
@@ -5474,8 +5971,8 @@ def main():
           f"ham_soft scan ({p3['scan']['B']} systems, {SCAN3_STEPS} steps) "
           f"{p3['scan']['launches']}, its warm median {p3['scan']['med']:.1f} "
           f"ms")
-    print(f"  3-D main path (tail on): warm median {p3['med']:.3f}s = "
-          f"{B_MAIN / p3['med']:.1f} systems/s (cold {p3['cold']:.3f}s), "
+    print(f"  3-D main path (tail on): cold run {p3['cold']:.3f}s = "
+          f"{B_MAIN / p3['cold']:.1f} systems/s, "
           f"fused call {p3['fused_ms']:.1f} ms, tail {p3['tail_ms']:.1f} ms, "
           f"n_tail {p3['n_tail']}; tail off {p3['off']:.3f}s; is_stable "
           f"against the JAX package {p3['agree_jax']:.4f}, against the "
@@ -5718,9 +6215,8 @@ def main():
               f"{cases[1][kind][0]:.3f} ms")
     print(f"  generators: diverse_population({B_MAIN}) {gen_out['ms']:.3f} ms"
           f" on the card (cold {gen_out['cold_ms']:.3f} ms)")
-    print(f"  bench population ({BENCH_STEPS} steps, tail on): warm median "
-          f"{bench['med']:.3f}s = "
-          f"{B_MAIN / bench['med']:.1f} systems/s (cold {bench['cold']:.3f}s),"
+    print(f"  bench population ({BENCH_STEPS} steps, tail on): cold run "
+          f"{bench['cold']:.3f}s = {B_MAIN / bench['cold']:.1f} systems/s,"
           f" launches {bench['launches']}; the pipeline entry point "
           f"{bench['entry_s']:.3f}s, launches {bench['launches_entry']}")
     for kind in ("mlp", "gbdt"):
@@ -5734,6 +6230,28 @@ def main():
     sh = training["sharded"]
     w_s = ", ".join(f"{w['s']:.3f}" for w in sh["workers"])
     w_l = [(int(w["analysis"]), int(w["megno"])) for w in sh["workers"]]
+    entries += slot_report
+    for e in slot_report:
+        print(f"  {e['name']}: compare case kernel {e['ms']:.3f} ms, plain "
+              f"{e['plain_ms']:.3f} ms, bound {e['bound_ms']:.4f} ms "
+              f"({e['bound_by']}), largest |kernel - plain| "
+              f"{e['max_abs_err']:.3e}; launches on its path {e['launches']}")
+    a, b, c = slots["a"], slots["b"], slots["c"]
+    print(f"  every slot count (phase 25, {slots['s']:.1f}s): (a) {SLOTS_PAD} "
+          f"slots {a['s']:.3f}s, fused call {a['fused_ms']:.1f} ms, "
+          f"{a['differ']} rows not bitwise, is_stable {a['agree']:.4f}; (b) "
+          f"{SLOTS_CUT} slots {b['s']:.3f}s, fused call {b['fused_ms']:.1f} "
+          f"ms, {b['differ']} rows not bitwise, {b['left_out']} left out, "
+          f"is_stable {b['agree']:.4f}; (c) {SLOT_POP_B} x {SLOT_POP_STEPS} "
+          f"steps {c['s']:.3f}s, fused call {c['fused_ms']:.1f} ms, "
+          f"{c['us']:.3f} us per deepest trip (n_sub {c['nsm']}), finite "
+          f"share {c['finite']:.4f}")
+    for what, w in [("(c)", c["witness"])] + [
+            (f"(e) {k}", v[2]) for k, v in slots["e"].items()]:
+        print(f"  {what} at {w['steps']} + {w['megno_steps']} steps: rows "
+              f"bit for bit {w['exact']}; outside STATE_TOL of float64 "
+              f"{w['outside']}; the plain version against itself reversed "
+              f"parts on {w['self_parts']} rows")
     print(f"  dataset-to-classifier (phase 24, {training['s']:.1f}s): sharded "
           f"generation {SHARD_SYSTEMS} x {SHARD_STEPS} steps unsharded "
           f"{sh['t_one']:.3f}s (launches {sh['launches']}) beside two "

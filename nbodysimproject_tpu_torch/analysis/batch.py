@@ -293,6 +293,9 @@ def analyze_population(mass, pos, vel, mask, cfg, *, G=1.0, softening=0.05,
     scan's lanes go in one call: the eager scan is bound by its
     launches, which follow the deepest lane's n_sub, and each lane runs
     its own n_sub as masked trips, so rows do not depend on the grouping.
+    On the card the fused kernels take N from 2 to 16 body slots; a
+    population the fused engine covers at another N raises (it is not
+    sent to the scan engine instead).
 
     MEGNO tangent vectors: by default one ``(n_population, N, d)``
     normal pair is drawn for the whole population from ``seed`` (a CPU

@@ -39,7 +39,7 @@ import torch
 from ..diagnostics import energy as E
 from ..diagnostics.megno import megno_scan
 from ..diagnostics.metrics import step_metrics
-from ..ops.hamsoft_kernels import (hamsoft_analysis_multistep,
+from ..ops.hamsoft_kernels import (check_slots, hamsoft_analysis_multistep,
                                    hamsoft_megno_multistep,
                                    hamsoft_multistep)
 from .stability import (_ang_mom_drift, _angular_momentum, _mean,
@@ -88,9 +88,12 @@ def analyze_batch_fused(states, dyns, cfg, n_steps: int, dt, mode: str,
     (dr0, dv0) pair of (B, N, d) initial MEGNO tangent vectors, required
     in full mode.  ``analysis_fn``/``megno_fn``/``multistep_fn`` default
     to the kernel wrappers; a comparison passes their plain versions,
-    which take the same arguments.  Returns (result columns dict of (B,)
-    tensors, final state)."""
+    which take the same arguments.  On the card the kernels take N from
+    2 to 16 body slots: any other N raises before anything is launched.
+    Returns (result columns dict of (B,) tensors, final state)."""
     B = states.pos.shape[0]
+    if states.pos.device.type == "cuda":
+        check_slots(*states.pos.shape[1:])
     dtype = states.pos.dtype
     n_sub = torch.clamp_min(dyns.n_sub, 1)
     h = float(dt) / n_sub.to(dtype)

@@ -18,15 +18,19 @@
 // 10^3 expf at N = 8).  One thread per system cannot get that chain
 // below about 2 s even at one operation a cycle, so the design splits
 // each trip across lanes:
-//   * four lanes of a warp per body (a warp per system at N = 8, two
-//     systems a warp at N = 3 and 4), each holding a share of the body's
-//     neighbour slots (hamsoft_physics_warp.cuh); the terms of a sum
-//     over slots, bodies or pairs are exchanged by warp shuffle and
-//     added in the one-thread physics' order, so the trajectory is bit
-//     for bit that of hamsoft_multistep.cu;
+//   * several lanes of a warp per body, each holding a share of the
+//     body's neighbour slots (hamsoft_physics_warp.cuh): four at
+//     N <= 8 (a warp per system at N = 5-8, two systems a warp at
+//     N = 3 and 4, four at N = 2), two at N = 9-16 (a warp per
+//     system); the terms of a sum over slots, bodies or pairs are
+//     exchanged by warp shuffle and added in the one-thread physics'
+//     order, so the trajectory is bit for bit that of
+//     hamsoft_multistep.cu, and no sum leaves its warp;
 //   * the SPH kernel terms of every forward iterate stay in registers,
 //     so the reverse sweep runs no expf; its pair terms go through a
-//     shared-memory table, one row per body and dimension;
+//     table in dynamic shared memory, one row per iterate, body and
+//     dimension (8 N d rows of 2 (N - 1) terms a system: 96 KiB a block
+//     at N = 16, d = 3, which bounds the warps resident on an SM);
 //   * what is left is a chain of IEEE divisions, square roots and expf
 //     (8 SPH iterations), so independent quotients and roots that every
 //     lane of a body would repeat are split across its lanes;
@@ -67,7 +71,18 @@ struct Geo {
   static constexpr int SYS = Lay<N>::SYS;
   static constexpr int PER_BLOCK = kBlock / SYS;  // systems per block
   static constexpr int ACC_PER_LANE = (kAccRows + SYS - 1) / SYS;
+  // the reverse sweep's tables of a block, in dynamic shared memory (64
+  // and 96 KiB at N = 16, d = 2 and 3: past the 48 KiB static limit)
+  static constexpr size_t SMEM =
+      sizeof(float) * PER_BLOCK * GradRows<N, D>::SIZE;
 };
+
+// the thread's system's table in the block's dynamic shared memory
+template <int N, int D>
+__device__ __forceinline__ float* system_rows() {
+  extern __shared__ __align__(16) float hs_rows[];
+  return hs_rows + (threadIdx.x / Geo<N, D>::SYS) * GradRows<N, D>::SIZE;
+}
 
 // The warp slot of this thread's system, or -1 past the batch.
 template <int N, int D>
@@ -113,7 +128,7 @@ __device__ __forceinline__ void tangent_accel_w(const Lane<N, D>& s,
     }
   }
 #pragma unroll
-  for (int a = 0; a < D; ++a) acc[a] = xsum<1, kLPB>(part[a], s.mask);
+  for (int a = 0; a < D; ++a) acc[a] = xsum<1, Lay<N>::LPB>(part[a], s.mask);
 }
 
 // L0 of the tilt: L_z (d = 2) or the L vector (d = 3)
@@ -139,17 +154,18 @@ __device__ __forceinline__ void metrics_w(const Lane<N, D>& s,
   float com2 = 0.f;
 #pragma unroll
   for (int a = 0; a < D; ++a) {
-    float sm = xsum<kLPB, SYS>(s.mval_i * qi[a], s.mask);
+    float sm = xsum<Lay<N>::LPB, SYS>(s.mval_i * qi[a], s.mask);
     com2 = com2 + sm * sm;
   }
   out[0] = sqrtf(com2);
 
   if constexpr (D == 2) {
     float L_i = s.mval_i * (qi[0] * vi[1] - qi[1] * vi[0]);
-    float L_tot = xsum<kLPB, SYS>(L_i, s.mask);
+    float L_tot = xsum<Lay<N>::LPB, SYS>(L_i, s.mask);
     float L_mean = L_tot / nb;
     float d0 = L_i - L_mean;
-    float var_L = xsum<kLPB, SYS>(s.valid_i ? d0 * d0 : 0.f, s.mask) / nb;
+    float var_L =
+        xsum<Lay<N>::LPB, SYS>(s.valid_i ? d0 * d0 : 0.f, s.mask) / nb;
     bool cos_ok = (L0[0] != 0.f) && (L_tot != 0.f);
     out[1] = cos_ok ? (L_tot * L0[0]) / (fabsf(L_tot) * fabsf(L0[0]))
                     : nanf("");
@@ -160,12 +176,13 @@ __device__ __forceinline__ void metrics_w(const Lane<N, D>& s,
                         s.mval_i * (qi[0] * vi[1] - qi[1] * vi[0])};
     float Lv[3];
 #pragma unroll
-    for (int a = 0; a < 3; ++a) Lv[a] = xsum<kLPB, SYS>(c[a], s.mask);
+    for (int a = 0; a < 3; ++a) Lv[a] = xsum<Lay<N>::LPB, SYS>(c[a], s.mask);
     float L_tot = sqrtf(Lv[0] * Lv[0] + Lv[1] * Lv[1] + Lv[2] * Lv[2]);
     float l_i = sqrtf(c[0] * c[0] + c[1] * c[1] + c[2] * c[2]);
-    float l_mean = xsum<kLPB, SYS>(s.valid_i ? l_i : 0.f, s.mask) / nb;
+    float l_mean = xsum<Lay<N>::LPB, SYS>(s.valid_i ? l_i : 0.f, s.mask) / nb;
     float d0 = l_i - l_mean;
-    float var_L = xsum<kLPB, SYS>(s.valid_i ? d0 * d0 : 0.f, s.mask) / nb;
+    float var_L =
+        xsum<Lay<N>::LPB, SYS>(s.valid_i ? d0 * d0 : 0.f, s.mask) / nb;
     float L0n = sqrtf(L0[0] * L0[0] + L0[1] * L0[1] + L0[2] * L0[2]);
     float dot = Lv[0] * L0[0] + Lv[1] * L0[1] + Lv[2] * L0[2];
     bool cos_ok = (L0n != 0.f) && (L_tot != 0.f);
@@ -198,8 +215,12 @@ __device__ __forceinline__ void metrics_w(const Lane<N, D>& s,
   out[3] = s.G * 2.f * tr;  // i != j double-counts the i < j sum
 }
 
+// One resident block a multiprocessor is all the bound asks, as for the
+// MEGNO kernel: ptxas' own register choice spilled 8 bytes at N = 5,
+// d = 3.  At N = 3, 4 and 8 it keeps the kernel unspilled either way and
+// the main path's fused call takes the same time (PERF.md section 6).
 template <int N, int D, bool REFL, bool REF>
-__global__ void __launch_bounds__(kBlock) analysis_kernel(
+__global__ void __launch_bounds__(kBlock, 1) analysis_kernel(
     const float* __restrict__ pos, const float* __restrict__ vel,
     const float* __restrict__ mass, const float* __restrict__ eps_in,
     const float* __restrict__ pi_in, const float* __restrict__ k_s,
@@ -214,14 +235,12 @@ __global__ void __launch_bounds__(kBlock) analysis_kernel(
     int interval, float G, float k_wall, float eta, float jcap, float lam,
     int bexp, int barrier_on) {
   using GE = Geo<N, D>;
-  __shared__ __align__(16) float rows[GE::PER_BLOCK]
-                                     [GradRows<N, D>::SIZE];
   const int w = system_slot<N, D>(B);
   if (w < 0) return;
   const int b = order[w];
   const int lane = threadIdx.x & 31;
   const int l = lane % GE::SYS;
-  float* rw = rows[threadIdx.x / GE::SYS];
+  float* rw = system_rows<N, D>();
 
   Lane<N, D> s;
   float qi[D], vi[D], gi[D], qj[Lay<N>::SPL * D];
@@ -235,7 +254,7 @@ __global__ void __launch_bounds__(kBlock) analysis_kernel(
   float L0[Lrows<D>::R];
 #pragma unroll
   for (int a = 0; a < Lrows<D>::R; ++a) L0[a] = L0_in[a * B + b];
-  float nb = xsum<kLPB, GE::SYS>(s.valid_i ? 1.f : 0.f, s.mask);
+  float nb = xsum<Lay<N>::LPB, GE::SYS>(s.valid_i ? 1.f : 0.f, s.mask);
   nb = maxf(nb, 1.f);
 
   float es;
@@ -321,14 +340,12 @@ __global__ void __launch_bounds__(kBlock, 1) megno_kernel(
     int barrier_on) {
   using GE = Geo<N, D>;
   constexpr int SPL = Lay<N>::SPL;
-  __shared__ __align__(16) float rows[GE::PER_BLOCK]
-                                     [GradRows<N, D>::SIZE];
   const int w = system_slot<N, D>(B);
   if (w < 0) return;
   const int b = order[w];
   const int lane = threadIdx.x & 31;
   const int l = lane % GE::SYS;
-  float* rw = rows[threadIdx.x / GE::SYS];
+  float* rw = system_rows<N, D>();
 
   Lane<N, D> s;
   float qi[D], vi[D], gi[D], qj[SPL * D], dri[D], dvi[D], drj[SPL * D];
@@ -365,7 +382,7 @@ __global__ void __launch_bounds__(kBlock, 1) megno_kernel(
     float p2 = dri[0] * dri[0];
 #pragma unroll
     for (int a = 1; a < D; ++a) p2 = p2 + dri[a] * dri[a];
-    float nr2 = xsum<kLPB, GE::SYS>(s.body ? p2 : 0.f, s.mask);
+    float nr2 = xsum<Lay<N>::LPB, GE::SYS>(s.body ? p2 : 0.f, s.mask);
     float norm_r = sqrtf(nr2);
     // reference quirk: divides by the tiny norm, then treats it as 1
     bool tiny = norm_r < 1e-12f;
@@ -379,7 +396,7 @@ __global__ void __launch_bounds__(kBlock, 1) megno_kernel(
     float v2 = dvi[0] * dvi[0];
 #pragma unroll
     for (int a = 1; a < D; ++a) v2 = v2 + dvi[a] * dvi[a];
-    float nv2 = xsum<kLPB, GE::SYS>(s.body ? v2 : 0.f, s.mask);
+    float nv2 = xsum<Lay<N>::LPB, GE::SYS>(s.body ? v2 : 0.f, s.mask);
     float norm_v = sqrtf(nv2);
     accum = accum + (norm_v / norm_r) * tt * dt;
     if (l == 0) out_ys[step * B + b] = 2.f * accum / tt;
@@ -406,6 +423,29 @@ dim3 grid_of(int B) {
   return dim3((B + per - 1) / per);
 }
 
+// Lets ``kernel`` take the block's tables (past 48 KiB only after this);
+// set on every launch, for whichever device is current.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
+}
+
+// out[0]: the shared bytes of a block of ``kernel``; out[1]: its warps
+// resident on one multiprocessor at that size
+template <typename Kernel>
+cudaError_t occupancy(Kernel kernel, size_t bytes, int* out) {
+  cudaError_t e = allow_smem(kernel, bytes);
+  int blocks = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                      kBlock, bytes);
+  out[0] = (int)bytes;
+  out[1] = blocks * kBlock / 32;
+  return e;
+}
+
 }  // namespace
 
 extern "C" {
@@ -421,8 +461,13 @@ int hs_analysis(const float* pos, const float* vel, const float* mass,
                 float k_wall, float eta, float jcap, float lam, int bexp,
                 int barrier_on, void* stream) {
   if (B <= 0) return 0;
-  analysis_kernel<HS_N, HS_D, HS_REFL != 0, HS_REF != 0>
-      <<<grid_of<HS_N, HS_D>(B), kBlock, 0, (cudaStream_t)stream>>>(
+  auto* const kernel =
+      &analysis_kernel<HS_N, HS_D, HS_REFL != 0, HS_REF != 0>;
+  constexpr size_t smem = Geo<HS_N, HS_D>::SMEM;
+  const cudaError_t set = allow_smem(kernel, smem);
+  if (set != cudaSuccess) return (int)set;
+  kernel<<<grid_of<HS_N, HS_D>(B), kBlock, smem,
+           (cudaStream_t)stream>>>(
           pos, vel, mass, eps, pi, k_s, mu, alpha, flo, cap, h, nsub, order,
           L0, out_pos, out_vel, out_eps, out_pi, out_acc, out_es, out_ps, B,
           n_steps, n_sub_max, interval, G, k_wall, eta, jcap, lam, bexp,
@@ -441,13 +486,30 @@ int hs_megno(const float* pos, const float* vel, const float* mass,
              float k_wall, float eta, float jcap, float lam, int bexp,
              int barrier_on, void* stream) {
   if (B <= 0) return 0;
-  megno_kernel<HS_N, HS_D, HS_REFL != 0, HS_REF != 0>
-      <<<grid_of<HS_N, HS_D>(B), kBlock, 0, (cudaStream_t)stream>>>(
+  auto* const kernel =
+      &megno_kernel<HS_N, HS_D, HS_REFL != 0, HS_REF != 0>;
+  constexpr size_t smem = Geo<HS_N, HS_D>::SMEM;
+  const cudaError_t set = allow_smem(kernel, smem);
+  if (set != cudaSuccess) return (int)set;
+  kernel<<<grid_of<HS_N, HS_D>(B), kBlock, smem,
+           (cudaStream_t)stream>>>(
           pos, vel, mass, eps, pi, k_s, mu, alpha, flo, cap, h, nsub, order,
           dt, dr, dv, out_pos, out_vel, out_eps, out_pi, out_accum, out_t,
           out_ys, B, n_steps, n_sub_max, G, k_wall, eta, jcap, lam, bexp,
           barrier_on);
   return (int)cudaGetLastError();
+}
+
+// the analysis kernel's (out[0..1]) and the MEGNO kernel's (out[2..3])
+// shared bytes per block and resident warps per multiprocessor
+int hs_occupancy(int* out) {
+  constexpr size_t smem = Geo<HS_N, HS_D>::SMEM;
+  cudaError_t e = occupancy(
+      &analysis_kernel<HS_N, HS_D, HS_REFL != 0, HS_REF != 0>, smem, out);
+  if (e == cudaSuccess)
+    e = occupancy(&megno_kernel<HS_N, HS_D, HS_REFL != 0, HS_REF != 0>,
+                  smem, out + 2);
+  return (int)e;
 }
 
 const char* hs_error_string(int code) {

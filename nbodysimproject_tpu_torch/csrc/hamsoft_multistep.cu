@@ -29,7 +29,11 @@
 //     in registers for the reverse sweep (no expf, square root or
 //     division there), in blocks of kThreadBlock threads;
 //   * N = 4 runs the warp layout: one thread per system was faster there
-//     but spills at every launch bound (192 kept terms).
+//     but spills at every launch bound (192 kept terms).  So do N = 5-16
+//     (two lanes a body from N = 9, a warp per system); N = 2 runs one
+//     thread per system, as N = 3 does.
+// The warp layout's reverse-sweep tables live in dynamic shared memory
+// (96 KiB a block at N = 16, d = 3).
 // Both layouts add every sum in the one-thread order, so a trip moves
 // (pos, vel, eps, pi) bit for bit the same in either, and as the analysis
 // and MEGNO kernels do.  The wrapper hands in the systems deepest first
@@ -52,11 +56,18 @@
 #ifndef HS_REF
 #define HS_REF 0
 #endif
+// the build variant "thread": one thread per system at every N, the
+// order both layouts keep (a witness of the warp layout's sums; it
+// spills from N = 4)
+#ifndef HS_THREAD
+#define HS_THREAD 0
+#endif
 
 namespace {
 
-// the layout of each N: a warp per system from N = 4 up
-constexpr bool kWarpLayout = HS_N >= 4;
+// the layout of each N: one thread per system at N = 2 and 3, the
+// lane-split physics from N = 4 up
+constexpr bool kWarpLayout = HS_N >= 4 && !HS_THREAD;
 constexpr int kThreadBlock = 128;
 constexpr int kWarpBlock = 64;
 
@@ -115,13 +126,13 @@ __global__ void __launch_bounds__(kWarpBlock) multistep_warp(
     float k_wall, float eta, float jcap, float lam, int bexp,
     int barrier_on) {
   constexpr int SYS = Lay<N>::SYS;
-  __shared__ __align__(16) float rows[kWarpBlock / SYS]
-                                     [GradRows<N, D>::SIZE];
+  // the block's reverse-sweep tables (warp_smem bytes)
+  extern __shared__ __align__(16) float rows[];
   const int w = (blockIdx.x * blockDim.x + threadIdx.x) / SYS;
   if (w >= B) return;
   const int b = order[w];
   const int lane = threadIdx.x & 31;
-  float* rw = rows[threadIdx.x / SYS];
+  float* rw = rows + (threadIdx.x / SYS) * GradRows<N, D>::SIZE;
 
   Lane<N, D> s;
   float qi[D], vi[D], gi[D], qj[Lay<N>::SPL * D];
@@ -152,6 +163,28 @@ __global__ void __launch_bounds__(kWarpBlock) multistep_warp(
   }
 }
 
+// The warp layout's dynamic shared memory: one reverse-sweep table a
+// system (96 KiB a block at N = 16, d = 3, past the 48 KiB static limit)
+template <int N, int D>
+constexpr size_t warp_smem() {
+  return sizeof(float) * (kWarpBlock / Lay<N>::SYS) * GradRows<N, D>::SIZE;
+}
+
+// The kernel a build launches for (REFL, REF), its block and its shared
+// bytes; the attribute that lets it take them is set before each launch
+template <bool REFL>
+struct Layout {
+  static constexpr bool REF = HS_REF != 0;
+  static constexpr int block = kWarpLayout ? kWarpBlock : kThreadBlock;
+  static constexpr size_t smem = kWarpLayout ? warp_smem<HS_N, HS_D>() : 0;
+  static auto kernel() {
+    if constexpr (kWarpLayout)
+      return &multistep_warp<HS_N, HS_D, REFL, REF>;
+    else
+      return &multistep_thread<HS_N, HS_D, REFL, REF>;
+  }
+};
+
 template <bool REFL>
 int launch(const float* pos, const float* vel, const float* mass,
            const float* eps, const float* pi, const float* k_s,
@@ -161,21 +194,17 @@ int launch(const float* pos, const float* vel, const float* mass,
            float* out_pi, int B, int n_steps, int n_sub_max, float G,
            float k_wall, float eta, float jcap, float lam, int bexp,
            int barrier_on, cudaStream_t st) {
-  constexpr bool REF = HS_REF != 0;
-  if constexpr (kWarpLayout) {
-    constexpr int per = kWarpBlock / Lay<HS_N>::SYS;  // systems per block
-    multistep_warp<HS_N, HS_D, REFL, REF>
-        <<<(B + per - 1) / per, kWarpBlock, 0, st>>>(
-            pos, vel, mass, eps, pi, k_s, mu, alpha, flo, cap, h, nsub,
-            order, out_pos, out_vel, out_eps, out_pi, B, n_steps, n_sub_max,
-            G, k_wall, eta, jcap, lam, bexp, barrier_on);
-  } else {
-    multistep_thread<HS_N, HS_D, REFL, REF>
-        <<<(B + kThreadBlock - 1) / kThreadBlock, kThreadBlock, 0, st>>>(
-            pos, vel, mass, eps, pi, k_s, mu, alpha, flo, cap, h, nsub,
-            order, out_pos, out_vel, out_eps, out_pi, B, n_steps, n_sub_max,
-            G, k_wall, eta, jcap, lam, bexp, barrier_on);
-  }
+  using LY = Layout<REFL>;
+  auto* const kernel = LY::kernel();
+  const cudaError_t set = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)LY::smem);
+  if (set != cudaSuccess) return (int)set;
+  constexpr int per = kWarpLayout ? kWarpBlock / Lay<HS_N>::SYS
+                                  : kThreadBlock;  // systems per block
+  kernel<<<(B + per - 1) / per, LY::block, LY::smem, st>>>(
+      pos, vel, mass, eps, pi, k_s, mu, alpha, flo, cap, h, nsub, order,
+      out_pos, out_vel, out_eps, out_pi, B, n_steps, n_sub_max, G, k_wall,
+      eta, jcap, lam, bexp, barrier_on);
   return (int)cudaGetLastError();
 }
 
@@ -203,6 +232,30 @@ int hs_multistep(const float* pos, const float* vel, const float* mass,
                              cap, h, nsub, order, out_pos, out_vel, out_eps,
                              out_pi, B, n_steps, n_sub_max, G, k_wall, eta,
                              jcap, lam, bexp, barrier_on, st);
+}
+
+// shared bytes per block (out[0]) and resident warps per multiprocessor
+// (out[1]) of the soft / no-barrier instance, out[2..3] of the
+// reflection one
+int hs_occupancy(int* out) {
+  cudaError_t e = cudaSuccess;
+  int k = 0;
+  for (bool refl : {false, true}) {
+    auto* const kernel =
+        refl ? Layout<true>::kernel() : Layout<false>::kernel();
+    constexpr size_t smem = Layout<false>::smem;
+    constexpr int block = Layout<false>::block;
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    int blocks = 0;
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                        block, smem);
+    out[k++] = (int)smem;
+    out[k++] = blocks * block / 32;
+  }
+  return (int)e;
 }
 
 const char* hs_error_string(int code) {

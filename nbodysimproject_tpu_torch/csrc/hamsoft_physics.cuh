@@ -227,7 +227,9 @@ __device__ __forceinline__ float rank_median(const float (&rv)[NP],
   float hi = floorf(cnt * 0.5f);
   hi = cnt > 0.f ? minf(hi, cnt - 1.f) : 0.f;
   float med_lo = 0.f, med_hi = 0.f;
-#pragma unroll
+  // unrolled up to N = 8 (28 pairs); above, NP^2 unrolled compares would
+  // swamp the build of a branch that runs only on degenerate systems
+#pragma unroll(NP <= 28 ? NP : 1)
   for (int k = 0; k < NP; ++k) {
     float rank = 0.f;
 #pragma unroll

@@ -6,19 +6,24 @@
 // every sum that enters the trajectory is taken in the one-thread
 // physics' order, so a trip here moves (pos, vel, eps, pi) exactly as
 // the one-thread trip does.  Included by hamsoft.cu (the analysis and
-// MEGNO kernels) and by hamsoft_multistep.cu (its warp layout, N = 4
-// and 8); the multi-step kernel's one-thread layout (N = 3) and
+// MEGNO kernels) and by hamsoft_multistep.cu (its warp layout, N = 4 to
+// 16); the multi-step kernel's one-thread layout (N = 2 and 3) and
 // eps_grad.cu (one thread at N <= 3, one lane per body above) do not.
 //
-// Layout (Lay<N>): a system owns SYS = NP * kLPB consecutive lanes of
-// a warp, NP the power of two >= N.  Lane l of a system works for body
-// i = l / kLPB and holds SPL = ceil(N / kLPB) of its neighbour slots,
-// j = (l % kLPB) * SPL + s.  A slot is "real" when j < N and j != i; a
+// Layout (Lay<N>): a system owns SYS = NP * LPB consecutive lanes of a
+// warp, NP the power of two >= N and LPB = min(4, 32 / NP) the lanes
+// per body: four up to N = 8 (measured against one lane per body,
+// PERF.md), two from N = 9 to 16, so that every system keeps to one warp
+// and every sum to its shuffles.  Lane l of a system works for body
+// i = l / LPB and holds SPL = ceil(N / LPB) of its neighbour slots,
+// j = (l % LPB) * SPL + s.  A slot is "real" when j < N and j != i; a
 // lane whose body is >= N (padding) has none.  Each lane keeps its own
 // body's q_i, v_i and eps* gradient (the same in every lane of the
 // body's group) and the positions of its slots' neighbours, fetched by
 // shuffle after every drift.  Per-system scalars (eps, pi, eps*) are
-// replicated in every lane.
+// replicated in every lane.  Where a body's group has fewer lanes than
+// there are dimensions (LPB = 2, d = 3) or quotients to split, a lane
+// takes ceil(count / LPB) of them, in rounds.
 //
 // Ordered sums: a lane computes the terms of its own slots (W_ij, the
 // pair forces, the pair potentials); every lane that needs the sum then
@@ -61,18 +66,23 @@ __host__ __device__ constexpr int next_pow2(int n) {
 }
 
 // lanes per body: four (measured against one lane per body, PERF.md)
-constexpr int kLPB = 4;
+// while a system of them fits in a warp, two from N = 9 to 16
+__host__ __device__ constexpr int lanes_per_body(int n) {
+  return 32 / next_pow2(n) < 4 ? 32 / next_pow2(n) : 4;
+}
 
 template <int N>
 struct Lay {
   static constexpr int NP = next_pow2(N);             // body groups
-  static constexpr int SPL = (N + kLPB - 1) / kLPB;   // slots per lane
-  static constexpr int SYS = NP * kLPB;               // lanes per system
-  static_assert(N >= 2 && SYS <= 32, "a system must fit in one warp");
+  static constexpr int LPB = lanes_per_body(N);       // lanes per body
+  static constexpr int SPL = (N + LPB - 1) / LPB;     // slots per lane
+  static constexpr int SYS = NP * LPB;                // lanes per system
+  static_assert(N >= 2 && N <= 16 && SYS <= 32,
+                "a system of 2 to 16 bodies in one warp");
 };
 
-// Sum over the lanes l ^ o, o = LO, 2 LO, ... < HI (LO = 1, HI = kLPB:
-// the body's group; LO = kLPB, HI = SYS: one value per body; LO = 1,
+// Sum over the lanes l ^ o, o = LO, 2 LO, ... < HI (LO = 1, HI = LPB:
+// the body's group; LO = LPB, HI = SYS: one value per body; LO = 1,
 // HI = SYS: the whole system): for the metrics and the tangent map,
 // which do not feed the trajectory.
 template <int LO, int HI>
@@ -89,24 +99,56 @@ __device__ __forceinline__ float xmax(float v, unsigned mask) {
   return v;
 }
 
-// Up to kLPB independent divisions a_r / b_r of a body's group, lane r
-// of the group dividing and every lane reading all results: one IEEE
-// division per lane instead of one per quotient.  The quotients are
-// bit for bit those of a / b in every lane.
-template <int K>
+// K independent divisions a_r / b_r of a body's group, lane c of the
+// group dividing a_r / b_r for r = c, c + LPB, ... (one round per LPB
+// quotients) and every lane reading all results: ceil(K / LPB) IEEE
+// divisions per lane instead of K.  The quotients are bit for bit those
+// of a / b in every lane.
+template <int LPB, int K>
 __device__ __forceinline__ void group_div(const float (&a)[K],
                                           const float (&b)[K], float (&q)[K],
                                           int sub, int group, unsigned mask) {
-  static_assert(K <= kLPB, "one quotient per lane of the group");
-  float num = a[0], den = b[0];
+  constexpr int R = (K + LPB - 1) / LPB;  // rounds
+  float x[R];
 #pragma unroll
-  for (int r = 1; r < K; ++r) {
-    num = (sub == r) ? a[r] : num;
-    den = (sub == r) ? b[r] : den;
+  for (int r = 0; r < R; ++r) {
+    float num = a[r * LPB], den = b[r * LPB];
+#pragma unroll
+    for (int c = 1; c < LPB; ++c) {
+      const int k = r * LPB + c;
+      if (k < K) {
+        num = (sub == c) ? a[k] : num;
+        den = (sub == c) ? b[k] : den;
+      }
+    }
+    x[r] = num / den;
   }
-  const float x = num / den;
 #pragma unroll
-  for (int r = 0; r < K; ++r) q[r] = __shfl_sync(mask, x, group + r);
+  for (int k = 0; k < K; ++k)
+    q[k] = __shfl_sync(mask, x[k / LPB], group + k % LPB);
+}
+
+// Body b's gradient entries g[0..D-1] from the reverse sweep's table:
+// lane c of b's group adds the rows of dimensions a = c, c + LPB, ...
+// (each in the table's order), and every lane of the group reads all D
+// sums.  ``row_sum(a)``: the sum of the lane's body's row(s) of
+// dimension a, as the one-thread loop adds it to g_b[a].
+template <int N, int D, typename RowSum>
+__device__ __forceinline__ void group_rows(bool body, int sub, int group,
+                                           unsigned mask, RowSum row_sum,
+                                           float* g) {
+  constexpr int LPB = Lay<N>::LPB;
+  constexpr int R = (D + LPB - 1) / LPB;  // rows per lane
+  float ga[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int a = sub + r * LPB;
+    ga[r] = (body && a < D) ? row_sum(a) : 0.f;
+  }
+  __syncwarp(mask);
+#pragma unroll
+  for (int a = 0; a < D; ++a)
+    g[a] = __shfl_sync(mask, ga[a / LPB], group + a % LPB);
 }
 
 // What one lane knows of its system.
@@ -152,7 +194,7 @@ __device__ __forceinline__ void gather_slots(const Lane<N, D>& s,
                                              const float* own, float* nb) {
 #pragma unroll
   for (int t = 0; t < Lay<N>::SPL; ++t) {
-    const int src = s.base + min(s.j[t], N - 1) * kLPB;
+    const int src = s.base + min(s.j[t], N - 1) * Lay<N>::LPB;
 #pragma unroll
     for (int a = 0; a < D; ++a)
       nb[t * D + a] = __shfl_sync(s.mask, own[a], src);
@@ -179,7 +221,7 @@ __device__ __forceinline__ float slot_sum(const Lane<N, D>& s,
 template <int N, int D>
 __device__ __forceinline__ float body_val(const Lane<N, D>& s, float x,
                                           int i) {
-  return __shfl_sync(s.mask, x, s.base + i * kLPB);
+  return __shfl_sync(s.mask, x, s.base + i * Lay<N>::LPB);
 }
 
 // Sum over the pairs i < j, in the one-thread loops' order (i, then j),
@@ -194,7 +236,7 @@ __device__ __forceinline__ float pair_sum(const Lane<N, D>& s,
 #pragma unroll
     for (int j = i + 1; j < N; ++j)
       acc = acc + __shfl_sync(s.mask, v[j % SPL],
-                              s.base + i * kLPB + j / SPL);
+                              s.base + i * Lay<N>::LPB + j / SPL);
   return acc;
 }
 
@@ -246,15 +288,13 @@ __device__ __forceinline__ void pair_rows_w(const Lane<N, D>& s,
     }
   }
   __syncwarp(s.mask);
-  float ga = 0.f;
-  if (s.body && s.sub < D) {
-    const float* row = rows + (s.i * D + s.sub) * GR::GROW;
+  group_rows<N, D>(s.body, s.sub, s.group, s.mask, [&](int a) {
+    const float* row = rows + (s.i * D + a) * GR::GROW;
+    float ga = 0.f;
 #pragma unroll
     for (int p = 0; p < GR::LEN; ++p) ga = ga + row[p];
-  }
-  __syncwarp(s.mask);
-#pragma unroll
-  for (int a = 0; a < D; ++a) g[a] = __shfl_sync(s.mask, ga, s.group + a);
+    return ga;
+  }, g);
 }
 
 // The "reference" fallback (hamsoft_physics.cuh's reference_switch) on
@@ -274,7 +314,7 @@ __device__ __forceinline__ void reference_switch_w(
 #pragma unroll
   for (int a = 0; a < D; ++a) g2 = g2 + g[a] * g[a];
   const float gmax =
-      xmax<kLPB, SYS>((s.body && s.valid_i) ? sqrtf(g2) : 0.f, s.mask);
+      xmax<Lay<N>::LPB, SYS>((s.body && s.valid_i) ? sqrtf(g2) : 0.f, s.mask);
   bool vp[SPL];  // the slot's pair is valid
   float rm = 0.f;
 #pragma unroll
@@ -294,7 +334,7 @@ __device__ __forceinline__ void reference_switch_w(
 #pragma unroll
       for (int j = i + 1; j < N; ++j) {
         const float r2p = __shfl_sync(s.mask, r2[j % SPL],
-                                      s.base + i * kLPB + j / SPL);
+                                      s.base + i * Lay<N>::LPB + j / SPL);
         const bool v = vb[i] > 0.f && vb[j] > 0.f;
         rv[pidx<N>(i, j)] = v ? sqrtf(r2p) : 3e38f;
         cnt = cnt + (v ? 1.f : 0.f);
@@ -400,8 +440,9 @@ __device__ __forceinline__ void eps_star_and_grad_w(
   float ih2, inv_hs;
   {
     float q[2];
-    group_div<2>({1.f, 1.f}, {maxf(h * h, 1e-24f), maxf(h, 1e-12f)}, q,
-                 s.sub, s.group, s.mask);
+    group_div<L::LPB, 2>({1.f, 1.f},
+                         {maxf(h * h, 1e-24f), maxf(h, 1e-12f)}, q, s.sub,
+                         s.group, s.mask);
     ih2 = q[0];
     inv_hs = q[1];
   }
@@ -425,9 +466,9 @@ __device__ __forceinline__ void eps_star_and_grad_w(
     st.M2[k] = -2.f * ih2;
     h = clipf(G_raw, s.flo, s.cap);
     float q[3];
-    group_div<3>({1.f, 1.f, -G_raw},
-                 {maxf(h * h, 1e-24f), maxf(h, 1e-12f), 2.f * Ssafe}, q,
-                 s.sub, s.group, s.mask);
+    group_div<L::LPB, 3>({1.f, 1.f, -G_raw},
+                         {maxf(h * h, 1e-24f), maxf(h, 1e-12f), 2.f * Ssafe},
+                         q, s.sub, s.group, s.mask);
     ih2 = q[0];
     inv_hs = q[1];
     st.X[k] = q[2];
@@ -472,13 +513,15 @@ __device__ __forceinline__ void eps_star_and_grad_w(
     u = c * st.Sd[k];
   }
   __syncwarp(s.mask);
-  // g_b[a], added up by lane a of body b's group, k = 8, ..., 1
-  float ga = 0.f;
-  if (s.body && s.sub < D) {
+  // g_b[a], its rows added up by the lanes of body b's group (lane c:
+  // the dimensions a = c, c + LPB, ...), k = 8, ..., 1
+  float gb[D];
+  group_rows<N, D>(s.body, s.sub, s.group, s.mask, [&](int a) {
+    float ga = 0.f;
 #pragma unroll
     for (int k = kIters - 1; k >= 0; --k) {
       const float4* row = reinterpret_cast<const float4*>(
-          rows + ((k * N + s.i) * D + s.sub) * GR::GROW);
+          rows + ((k * N + s.i) * D + a) * GR::GROW);
 #pragma unroll
       for (int p4 = 0; p4 < GR::GROW / 4; ++p4) {
         const float4 x = row[p4];
@@ -488,13 +531,11 @@ __device__ __forceinline__ void eps_star_and_grad_w(
           if (4 * p4 + r < GR::LEN) ga = ga + xs[r];
       }
     }
-  }
-  __syncwarp(s.mask);
+    return ga;
+  }, gb);
 #pragma unroll
-  for (int a = 0; a < D; ++a) {
-    const float gb = __shfl_sync(s.mask, ga, s.group + a);
-    g[a] = (s.valid_i && finitef(gb)) ? gb : 0.f;
-  }
+  for (int a = 0; a < D; ++a)
+    g[a] = (s.valid_i && finitef(gb[a])) ? gb[a] : 0.f;
   if constexpr (REF) reference_switch_w(s, qi, qj, r2, h, w_fin, g, rows);
 }
 
@@ -512,8 +553,9 @@ __device__ __forceinline__ void s_half_w(const Lane<N, D>& s, float* vi,
   float Delta0 = eps - es;
   // pi_in / (mu omega), Delta0 / omega, pi_in / (mu omega^2)
   float qd[3];
-  group_div<3>({pi_in, Delta0, pi_in}, {s.mu_w, s.omega, s.mu_w2}, qd, s.sub,
-               s.group, s.mask);
+  group_div<Lay<N>::LPB, 3>({pi_in, Delta0, pi_in},
+                            {s.mu_w, s.omega, s.mu_w2}, qd, s.sub, s.group,
+                            s.mask);
   float delta_t = Delta0 * s.cos_t + qd[0] * s.sin_t;
   float eta_t = pi_in * s.cos_t - s.mu_om * Delta0 * s.sin_t;
   float I_tau = qd[1] * s.sin_t + qd[2] * (1.f - s.cos_t);
@@ -537,8 +579,8 @@ __device__ __forceinline__ void s_half_w(const Lane<N, D>& s, float* vi,
   const float pn = __shfl_sync(s.mask, y, s.group);
   const float gn = __shfl_sync(s.mask, y, s.group + 1);
   const bool take = s.body && s.valid_i;
-  float p_scale = xmax<kLPB, Lay<N>::SYS>(take ? pn : 0.f, s.mask);
-  float dp_inf = xmax<kLPB, Lay<N>::SYS>(take ? absJ * gn : 0.f, s.mask);
+  float p_scale = xmax<Lay<N>::LPB, Lay<N>::SYS>(take ? pn : 0.f, s.mask);
+  float dp_inf = xmax<Lay<N>::LPB, Lay<N>::SYS>(take ? absJ * gn : 0.f, s.mask);
   p_scale = maxf(p_scale, 1e-12f);
   float thr = s.jcap * p_scale;
   float scale = (dp_inf > thr) ? thr / maxf(dp_inf, 1e-30f) : 1.f;
@@ -628,9 +670,9 @@ __device__ __forceinline__ void load_lane(
   s.base = lane_in_warp - l;
   s.mask = (L::SYS == 32) ? 0xffffffffu
                           : (((1u << (L::SYS % 32)) - 1u) << s.base);
-  s.i = l / kLPB;
-  s.sub = l % kLPB;
-  s.group = s.base + s.i * kLPB;
+  s.i = l / L::LPB;
+  s.sub = l % L::LPB;
+  s.group = s.base + s.i * L::LPB;
   s.body = s.i < N;
   const int ib = s.body ? s.i : 0;
 #pragma unroll
@@ -645,7 +687,7 @@ __device__ __forceinline__ void load_lane(
   s.inv_m_i = s.valid_i ? 1.f / maxf(m, 1e-30f) : 0.f;
 #pragma unroll
   for (int t = 0; t < L::SPL; ++t) {
-    const int j = (l % kLPB) * L::SPL + t;
+    const int j = (l % L::LPB) * L::SPL + t;
     s.j[t] = j;
     s.real[t] = s.body && j < N && j != s.i;
     float mj = j < N ? mass[j * B + b] : 0.f;

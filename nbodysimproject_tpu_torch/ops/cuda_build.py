@@ -36,9 +36,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 
 #: the parts of a build variant name ("_"-joined) and the macro each sets
-#: to 1: the reflection fold of the analysis and MEGNO kernels, and the
-#: "reference" eps* gradient's fallback
-VARIANT_FLAGS = {"refl": "HS_REFL", "ref": "HS_REF"}
+#: to 1: the reflection fold of the analysis and MEGNO kernels, the
+#: "reference" eps* gradient's fallback, and the multi-step kernel's
+#: one-thread layout at every N
+VARIANT_FLAGS = {"refl": "HS_REFL", "ref": "HS_REF", "thread": "HS_THREAD"}
 
 
 def _defines(variant: str):

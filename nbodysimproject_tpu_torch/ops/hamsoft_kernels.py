@@ -15,12 +15,14 @@ Counterpart of ``nbodysimproject_tpu/ops/pallas_hamsoft.py``:
 
 On a CUDA tensor each wrapper launches the hand-written kernel
 (``csrc/hamsoft.cu`` for the first two, on the lane-split physics of
-``csrc/hamsoft_physics_warp.cuh``: four lanes of a warp per body, the
+``csrc/hamsoft_physics_warp.cuh``: four lanes of a warp per body up to
+N = 8 and two from N = 9 to 16, so that a system keeps to one warp, the
 SPH kernel terms kept from the forward pass; ``csrc/hamsoft_multistep.cu``
-for the third, on the same lane-split physics at N = 4 and 8 and one
-thread per system on ``csrc/hamsoft_physics.cuh`` at N = 3, the kernel
+for the third, on the same lane-split physics from N = 4 and one thread
+per system on ``csrc/hamsoft_physics.cuh`` at N = 2 and 3, the kernel
 terms kept there too; see the source notes for what bounds them and
-what their design does about that); on a CPU tensor it runs the plain
+what their design does about that) at any N from 2 to 16 body slots
+(``check_slots``; N > 16 raises); on a CPU tensor it runs the plain
 PyTorch version beside it, which loops over the macro steps and
 ``n_sub_max`` masked trips on ``(B, N, d)`` tensors and takes the exact
 eps* gradient by autograd through the 8 SPH iterations (``_Physics``).
@@ -64,8 +66,11 @@ _ACC_ROWS = 1 + 4 * len(ACC_METRICS)
 _INV_PI = 0.31830987334251404  # float32(1 / pi), exactly (as the JAX kernels)
 _ITERS = 8
 
-#: body-slot counts the libraries are built for (8: the pipeline's
-#: slot bucket; 3 and 4: the small systems of tests and comparisons)
+#: the body-slot counts the kernels take, N = SLOTS[0] .. SLOTS[1]; each
+#: (N, d) is built on first use
+SLOTS = (2, 16)
+#: body-slot counts ``build_jobs`` builds ahead (8: the pipeline's slot
+#: bucket; 3 and 4: the small systems of tests and comparisons)
 BUILD_SLOTS = (3, 4, 8)
 #: the analysis and MEGNO kernels, and the plain multi-step kernel
 SOURCES = ("hamsoft.cu", "hamsoft_multistep.cu")
@@ -83,17 +88,21 @@ def build_jobs(slots=BUILD_SLOTS):
     return [(src, n, d) for src in SOURCES for d in DIMS for n in slots]
 
 
-def variant(source: str, policy: str, grad_mode: str) -> str:
+def variant(source: str, policy: str, grad_mode: str,
+            one_thread: bool = False) -> str:
     """The build variant of ``source`` (``cuda_build.VARIANT_FLAGS``) that
     runs ``policy`` and ``grad_mode``: "" for the default build; "refl"
     for the analysis and MEGNO kernels' reflection fold (the multi-step
     kernel holds both folds in every build); "ref" for the "reference"
-    gradient."""
+    gradient; "thread" for the multi-step kernel's one-thread layout at
+    every N (``one_thread``)."""
     parts = []
     if policy == "reflection" and source == SOURCES[0]:
         parts.append("refl")
     if grad_mode == "reference":
         parts.append("ref")
+    if one_thread:
+        parts.append("thread")
     return "_".join(parts)
 
 
@@ -102,18 +111,21 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 
 
-def _check_slots(source: str, n: int, d: int) -> None:
-    if d not in DIMS or n not in BUILD_SLOTS:
+def check_slots(n: int, d: int) -> None:
+    """Raise unless the kernels take N = ``n`` body slots at d = ``d``
+    (N from 2 to 16, d = 2 or 3)."""
+    lo, hi = SLOTS
+    if d not in DIMS or not lo <= n <= hi:
         raise NotImplementedError(
-            f"{source} is built for d in {DIMS} and N in {BUILD_SLOTS}; "
-            f"got N = {n}, d = {d}")
+            f"the ham_soft kernels take N from {lo} to {hi} body slots and "
+            f"d in {DIMS}; got N = {n}, d = {d}")
 
 
 @functools.lru_cache(maxsize=None)
 def _library(n: int, d: int, var: str = ""):
     """The bound analysis/MEGNO library for (n, d) in build variant
     ``var``, built on first use."""
-    _check_slots(SOURCES[0], n, d)
+    check_slots(n, d)
     lib = cuda_build.load(SOURCES[0], n, d, var)
     lib.hs_analysis.argtypes = [_P] * 21 + [_I] * 4 + [_F] * 5 + [_I, _I, _P]
     lib.hs_analysis.restype = _I
@@ -126,12 +138,29 @@ def _library(n: int, d: int, var: str = ""):
 def _multistep_library(n: int, d: int, var: str = ""):
     """The bound multi-step library for (n, d) in build variant ``var``,
     built on first use."""
-    _check_slots(SOURCES[1], n, d)
+    check_slots(n, d)
     lib = cuda_build.load(SOURCES[1], n, d, var)
     lib.hs_multistep.argtypes = [_P] * 17 + [_I] * 3 + [_F] * 5 \
         + [_I, _I, _I, _P]
     lib.hs_multistep.restype = _I
     return lib
+
+
+def occupancy(source: str, n: int, d: int, var: str = ""):
+    """{kernel: (shared bytes per block, resident warps per
+    multiprocessor)} of the build of ``source`` for (n, d) in variant
+    ``var``, as its launches run it (on the current card; building it if
+    it is not built): "analysis" and "megno" for ``hamsoft.cu``, "soft"
+    and "reflection" (the two instances) for ``hamsoft_multistep.cu``."""
+    lib = (_library if source == SOURCES[0] else _multistep_library)(
+        n, d, var)
+    lib.hs_occupancy.argtypes = [_P]
+    lib.hs_occupancy.restype = _I
+    out = (ctypes.c_int * 4)()
+    cuda_build.check_launch(lib, lib.hs_occupancy(out), "hs_occupancy")
+    names = (("analysis", "megno") if source == SOURCES[0]
+             else ("soft", "reflection"))
+    return {k: (out[2 * i], out[2 * i + 1]) for i, k in enumerate(names)}
 
 
 def _check_config(policy: str, grad_mode: str) -> None:
@@ -912,7 +941,8 @@ def hamsoft_multistep(pos, vel, mass, eps, pi, *, k_soft, mu, alpha, eps_min,
                       eps_max, h, n_sub, n_steps: int, n_sub_max: int,
                       G: float = 1.0, k_wall: float = 1e9, eta: float = 1.35,
                       jcap: float = 0.02, bexp: int = 5, policy: str = "soft",
-                      grad_mode: str = "exact", lam_align: float = 0.3):
+                      grad_mode: str = "exact", lam_align: float = 0.3,
+                      one_thread: bool = False):
     """Advance a (B, N, d) float32 ham_soft batch ``n_steps`` macro steps,
     each system running min(n_sub, n_sub_max) Strang substeps of size
     ``h``, with no sampling: the CUDA kernel (``csrc/hamsoft_multistep.cu``)
@@ -921,8 +951,11 @@ def hamsoft_multistep(pos, vel, mass, eps, pi, *, k_soft, mu, alpha, eps_min,
     Per-system (B,) inputs: eps, pi, k_soft, mu, alpha, eps_min, eps_max,
     h, n_sub; d = 2 or 3; the configuration arguments as
     ``hamsoft_analysis_multistep``'s.  The SPH solve is seeded from the
-    entry eps for the whole call, as in the TPU kernel.  Returns
-    (pos, vel, eps, pi)."""
+    entry eps for the whole call, as in the TPU kernel.  ``one_thread``
+    runs the kernel's one-thread layout at any N (the order its warp
+    layout keeps, so the same bits; spilling and slow from N = 4, a
+    witness of the warp layout, not a route).  Returns (pos, vel, eps,
+    pi)."""
     args = dict(k_soft=k_soft, mu=mu, alpha=alpha, eps_min=eps_min,
                 eps_max=eps_max, h=h, n_sub=n_sub, n_steps=n_steps,
                 n_sub_max=n_sub_max, G=G, k_wall=k_wall, eta=eta, jcap=jcap,
@@ -941,7 +974,8 @@ def hamsoft_multistep(pos, vel, mass, eps, pi, *, k_soft, mu, alpha, eps_min,
     _check_cuda_inputs(pos, mass, dict(vel=vel), dict(
         eps=eps, pi=pi, k_soft=k_soft, mu=mu, alpha=alpha, eps_min=eps_min,
         eps_max=eps_max, h=h, n_sub=ns))
-    lib = _multistep_library(n, d, variant(SOURCES[1], policy, grad_mode))
+    lib = _multistep_library(n, d, variant(SOURCES[1], policy, grad_mode,
+                                            one_thread))
     order = deepest_first(ns, kw["n_sub_max"])
     pos_c, vel_c = _coord_major(pos), _coord_major(vel)
     mass_c = mass.t().contiguous()

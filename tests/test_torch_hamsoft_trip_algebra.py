@@ -41,8 +41,9 @@ import torch
 import nbodysimproject_tpu_torch as nt
 from nbodysimproject_tpu_torch.ops import hamsoft_kernels as hk
 from nbodysimproject_tpu_torch.parallel.batch_engine import build_batch
-from test_torch_hamsoft_warp_algebra import (ETA, INV_PI, LPB, STATE_TOL,
-                                             _bits, _dataset_rows, _maxf,
+from test_torch_hamsoft_warp_algebra import (ETA, INV_PI, STATE_TOL, _bits,
+                                             _dataset_rows, _maxf,
+                                             lanes_per_body,
                                              one_thread_eps_star_and_grad,
                                              populations,
                                              warp_eps_star_and_grad)
@@ -278,7 +279,9 @@ def trip(s, pos, vel, eps, pi, es, grad, eps_grad):
 
 
 def _warp_slots(N):
-    """(body i, slot bodies j, real) of a system's lanes."""
+    """(body i, slot bodies j, real, slots per lane, lanes per body) of
+    a system's lanes."""
+    LPB = lanes_per_body(N)
     SPL = -(-N // LPB)
     SYS = 1
     while SYS < N:
@@ -287,7 +290,7 @@ def _warp_slots(N):
     i = lane // LPB
     j = (lane % LPB)[:, None] * SPL + np.arange(SPL)[None, :]
     real = (i[:, None] < N) & (j < N) & (j != i[:, None])
-    return i, j, real, SPL
+    return i, j, real, SPL, LPB
 
 
 def warp_s_half(s, vel, eps, pi, es, grad):
@@ -322,7 +325,7 @@ def warp_v_half_kick(s, pos, vel, eps, pi):
     m_i m_j w, added in ascending j per body (slot_sum) and over the
     pairs i < j (pair_sum)."""
     B, N, D = pos.shape
-    i, j, real, SPL = _warp_slots(N)
+    i, j, real, SPL, LPB = _warp_slots(N)
     ib, jb = np.minimum(i, N - 1), np.minimum(j, N - 1)
     h2 = f32(0.5) * s.h
     eps2 = eps * eps

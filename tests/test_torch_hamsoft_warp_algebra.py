@@ -2,8 +2,12 @@
 on the CPU.
 
 ``csrc/hamsoft_physics_warp.cuh`` splits each system over the lanes of a
-warp: lane l works for body i = l // 4 and holds SPL = ceil(N / 4)
-neighbour slots j.  Each lane computes its slots' terms; a sum over a
+warp: lane l works for body i = l // LPB and holds SPL = ceil(N / LPB)
+neighbour slots j, LPB = min(4, 32 / NP) lanes per body (NP the power of
+two >= N): four up to N = 8, two from N = 9 to 16, so that a system keeps
+to one warp.  Where a body's group has fewer lanes than quotients to split
+(``group_div``) or dimensions to add up (``group_rows``, d = 3 at LPB 2),
+lane c takes c, c + LPB, ... in rounds.  Each lane computes its slots' terms; a sum over a
 body's slots, over bodies or over pairs reads every term by shuffle and
 adds them in ascending order, as the one-thread physics
 (``csrc/hamsoft_physics.cuh``) does.  The forward SPH solve keeps W_ij,
@@ -32,7 +36,12 @@ bodies in 8 slots, the rest masked) built by the JAX package's
 in 4 slots (the 3-body ones masked); and the dataset rows with the clip gate
 saturated (eps_max = 1.01 eps_min on every other row) and with the
 bodies spread 300-fold (Sigma underflows, so the float32 backward
-overflows and the finite guard zeroes it).  Also: the kernels' launch
+overflows and the finite guard zeroes it).  The other slot counts, built
+by the port's ``build_batch`` from numpy draws (no JAX program is
+compiled for them): LPB 4 at N = 2 (seeded two-body clusters) and N = 5
+(the dataset's rows in their first 5 slots, masked); LPB 2 at N = 12 and
+16, d = 2 and 3, seeded clusters of N bodies and of 9 to N bodies (the
+rest masked).  Also: the kernels' launch
 order (``hamsoft_kernels.deepest_first``) is a stable deepest-first
 permutation.
 """
@@ -44,14 +53,13 @@ import pytest
 import torch
 
 import nbodysimproject_tpu as nb
+import nbodysimproject_tpu_torch as nt
 from nbodysimproject_tpu_torch.ops import hamsoft_kernels as hk
 
 #: the constants as the kernels hold them (float32 values)
 ETA = float(np.float32(1.35))
 INV_PI = float(np.float32(1.0 / math.pi))
 STATE_TOL = (1e-4, 1e-5)
-#: lanes per body (``kLPB`` of the kernels)
-LPB = 4
 DATA = "data/stability_131k.csv.gz"
 N_ROWS = 64
 
@@ -63,12 +71,18 @@ def _next_pow2(n):
     return p
 
 
+def lanes_per_body(n):
+    """``Lay<N>::LPB`` of the kernels: four lanes a body while a system
+    of them fits in a warp, two from N = 9 to 16."""
+    return min(4, 32 // _next_pow2(n))
+
+
 def _maxf(a, b):
     """``maxf``: a where a > b or a is NaN, else b."""
     return np.where((a > b) | np.isnan(a), a, b)
 
 
-def _slot_sum(T, i, N, SPL):
+def _slot_sum(T, i, N, SPL, LPB):
     """``slot_sum``: every lane of a body's group adds the terms of the
     body's slots j = 0..N-1 (j != i) in ascending j, each read from the
     lane holding it.  T: (B, SYS, SPL) terms."""
@@ -80,17 +94,61 @@ def _slot_sum(T, i, N, SPL):
     return acc
 
 
+def _group_div(a, b, LPB):
+    """``group_div<LPB, K>``: the K quotients a[k] / b[k] of each body's
+    group (lists of (B, SYS) arrays), lane c of the group dividing
+    k = c, c + LPB, ... (one round per LPB quotients), every lane then
+    reading quotient k from lane k % LPB of its group, round k // LPB."""
+    K = len(a)
+    SYS = a[0].shape[1]
+    sub = np.arange(SYS) % LPB
+    group = np.arange(SYS) - sub
+    x = []
+    for r in range(-(-K // LPB)):
+        num, den = a[r * LPB], b[r * LPB]
+        for c in range(1, LPB):
+            if r * LPB + c < K:
+                num = np.where(sub == c, a[r * LPB + c], num)
+                den = np.where(sub == c, b[r * LPB + c], den)
+        x.append(num / den)
+    return [x[k // LPB][:, group + k % LPB] for k in range(K)]
+
+
+def _group_rows(row_sum, body, LPB, D):
+    """``group_rows``: lane c of a body's group adds the table rows of
+    dimensions a = c, c + LPB, ... (``row_sum(lanes, a)``, (B, len(lanes))
+    sums of those lanes' bodies' rows), and every lane of the group reads
+    dimension a from lane a % LPB, round a // LPB.  (B, SYS, D)."""
+    SYS = body.shape[0]
+    sub = np.arange(SYS) % LPB
+    group = np.arange(SYS) - sub
+    ga = []
+    for r in range(-(-D // LPB)):
+        a = sub + r * LPB
+        acc = None
+        for a_ in range(D):     # the lanes whose round r is dimension a_
+            lanes = np.nonzero(body & (a == a_))[0]
+            part = row_sum(lanes, a_)
+            if acc is None:
+                acc = np.zeros((part.shape[0], SYS), part.dtype)
+            acc[:, lanes] = part
+        ga.append(acc)
+    return np.stack([ga[a // LPB][:, group + a % LPB] for a in range(D)], -1)
+
+
 def warp_eps_star_and_grad(q, m, eps_seed, alpha, flo, cap, *,
                            dtype=np.float64, eta=ETA):
-    """(eps*, grad, info) of a (B, N, 2) batch computed as the kernel's
+    """(eps*, grad, info) of a (B, N, d) batch computed as the kernel's
     lanes compute it.  ``m`` is 0 on masked slots.  ``info``: the share
     of (lane, iterate) clip gates that are open and the number of
     non-finite reverse-sweep coefficients the guard zeroed."""
     f = lambda x: np.asarray(x, dtype)
     q, m = f(q), f(m)
     B, N, D = q.shape
+    LPB = lanes_per_body(N)
     SPL = -(-N // LPB)
     SYS = _next_pow2(N) * LPB
+    assert SYS <= 32
     lane = np.arange(SYS)
     i = lane // LPB
     j = (lane % LPB)[:, None] * SPL + np.arange(SPL)[None, :]
@@ -116,23 +174,31 @@ def warp_eps_star_and_grad(q, m, eps_seed, alpha, flo, cap, *,
             dx = qi[:, :, None, a] - qj[..., a]
             r2 = r2 + dx * dx
         h = np.minimum(np.maximum(col(eps_seed) + zero, flo), cap)
+        one = np.ones_like(h)
+        ih2, inv_hs = _group_div(
+            [one, one], [np.maximum(h * h, f(1e-24)), np.maximum(h, f(1e-12))],
+            LPB)
         store = []
         for _k in range(8):
-            ih2 = f(1) / np.maximum(h * h, f(1e-24))
-            inv_hs = f(1) / np.maximum(h, f(1e-12))
             w = np.where(real, (f(INV_PI) * ih2)[..., None]
                          * np.exp(-r2 * ih2[..., None]), f(0))
             tS = mval_j * w
             tSd = mval_j * w * (f(-2) + f(2) * r2 * ih2[..., None]) \
                 * inv_hs[..., None]
-            S = _slot_sum(tS, i, N, SPL)
-            Sd = _slot_sum(tSd, i, N, SPL)
+            S = _slot_sum(tS, i, N, SPL, LPB)
+            Sd = _slot_sum(tSd, i, N, SPL, LPB)
             Ssafe = np.maximum(S, f(1e-30))
             G_raw = f(eta) * np.sqrt(mval_i / Ssafe)
-            store.append(dict(W=w, X=-G_raw / (f(2) * Ssafe), Sd=Sd,
-                              M2=f(-2) * ih2,
-                              gate=(G_raw > flo) & (G_raw < cap)))
+            gate = (G_raw > flo) & (G_raw < cap)
+            M2 = f(-2) * ih2
             h = np.minimum(np.maximum(G_raw, flo), cap)
+            # the next iterate's 1 / h^2 and 1 / h, and this one's
+            # -G_raw / (2 Ssafe), split across the group's lanes
+            ih2, inv_hs, X = _group_div(
+                [one, one, -G_raw],
+                [np.maximum(h * h, f(1e-24)), np.maximum(h, f(1e-12)),
+                 f(2) * Ssafe], LPB)
+            store.append(dict(W=w, X=X, Sd=Sd, M2=M2, gate=gate))
 
         # softmin: body values in body order, every lane alike
         t_ = np.where(valid_i, -h / alpha, f(-1e30))
@@ -171,10 +237,20 @@ def warp_eps_star_and_grad(q, m, eps_seed, alpha, flo, cap, *,
                         rows[:, k, jl, a, inn] = -term
             u = c * st["Sd"]
         assert not np.isnan(rows).any() or np.isnan(q).any()
-        g = np.zeros((B, N, D), dtype)
-        for k in reversed(range(8)):
-            for p_ in range(L):
-                g = g + rows[:, k, :, :, p_]
+
+        def row_sum(lanes, a):
+            """the rows (k = 8, ..., 1; in table order) of dimension a
+            of the bodies of ``lanes``"""
+            acc = np.zeros((B, len(lanes)), dtype)
+            for k in reversed(range(8)):
+                for p_ in range(L):
+                    acc = acc + rows[:, k, i[lanes], a, p_]
+            return acc
+
+        gl = _group_rows(row_sum, body, LPB, D)      # (B, SYS, D)
+        g = gl[:, heads]                             # each body's lanes agree
+        assert all(np.array_equal(gl[:, heads + c], g, equal_nan=True)
+                   for c in range(LPB))
         valid = m > 0
         g = np.where(valid[..., None] & np.isfinite(g), g, f(0))
 
@@ -344,7 +420,45 @@ def _full8(B=64, seed=5):
     return m, q, v, np.ones((B, 8), bool)
 
 
-CASES = ("dataset8", "full8", "n3", "n4_masked", "saturated")
+def _port_built(m, q, v, mask, dtype):
+    """The same inputs as ``_jax_built``, built by the port's
+    ``build_batch`` on the CPU."""
+    from nbodysimproject_tpu_torch.parallel.batch_engine import \
+        build_batch as port_build
+
+    cfg = nt.SimConfig(integrator_mode="ham_soft",
+                       fast_float32=dtype == np.float32)
+    t = lambda x: torch.as_tensor(np.asarray(x, dtype))
+    st, dy = port_build(t(m), t(q), t(v), torch.as_tensor(mask), cfg, 1.0,
+                        5e-2, 0.0, 0.01)
+    mass = torch.where(st.mask, st.mass, torch.zeros_like(st.mass))
+    return tuple(x.numpy().astype(dtype) for x in (
+        st.pos, mass, st.eps, dy.alpha_run, dy.min_softening,
+        dy.max_softening))
+
+
+def _cluster(n, d, lo=None, B=64, seed=9, scale=0.2):
+    """Seeded clusters of n bodies at d (``_full8``'s draw); with ``lo``
+    each system keeps its first lo to n bodies, the rest masked."""
+    rng = np.random.default_rng(seed + 100 * n + d)
+    q = scale * rng.normal(size=(B, n, d))
+    v = 0.3 * rng.normal(size=(B, n, d))
+    m = rng.uniform(0.2, 1.0, size=(B, n))
+    count = np.full(B, n) if lo is None else rng.integers(lo, n + 1, B)
+    mask = np.arange(n)[None, :] < count[:, None]
+    return (np.where(mask, m, 0.0), np.where(mask[..., None], q, 0.0),
+            np.where(mask[..., None], v, 0.0), mask)
+
+
+#: the other slot counts: (n, d, least bodies or None, cluster scale),
+#: built by the port (LPB 4 at N = 2; LPB 2 at N = 12 and 16)
+PORT_CASES = {
+    "n2": (2, 2, None, 0.01),
+    **{f"n{n}_d{d}{'_masked' if lo else ''}": (n, d, lo, 0.3)
+       for n in (12, 16) for d in (2, 3) for lo in (None, 9)},
+}
+CASES = ("dataset8", "full8", "n3", "n4_masked", "saturated", "n5_masked") \
+    + tuple(PORT_CASES)
 
 
 def _bits(x):
@@ -367,6 +481,12 @@ def populations():
             out[(case, dtype)] = _jax_built(m[rows, :n], q[rows, :n],
                                             v[rows, :n], mask[rows, :n],
                                             dtype)
+        rows = ~mask[:, 5:].any(1)     # the bodies in the first 5 slots
+        out[("n5_masked", dtype)] = _port_built(
+            m[rows, :5], q[rows, :5], v[rows, :5], mask[rows, :5], dtype)
+        for case, (n, d, lo, scale) in PORT_CASES.items():
+            out[(case, dtype)] = _port_built(*_cluster(n, d, lo,
+                                                       scale=scale), dtype)
     return out
 
 
